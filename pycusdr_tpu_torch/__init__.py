@@ -3,10 +3,12 @@ Hopper (H100).
 
 It stands beside the JAX package, which stays the reference, and imports
 nothing of it (nor ``jax``): it keeps its own copy of each host module it
-needs. This first slice runs one Rx channel's per-block UHF demodulation
-end to end through ``models.uhf.Demodulator``; the four heaviest device
-ops of that path are hand-written CUDA kernels for sm_90a (``csrc/``,
-built at first use), each with a plain PyTorch version beside it.
+needs. It runs one Rx channel's per-block demodulation end to end in two
+modes: UHF with the Doppler search (``models.uhf.Demodulator``) and STX
+with spike clipping at a fixed offset (``models.stx.Demodulator``). The
+device ops of both paths are hand-written CUDA kernels for sm_90a
+(``csrc/``, built at first use), each with a plain PyTorch version
+beside it.
 
 =========  ====================================================
 subpkg     role

@@ -50,8 +50,10 @@ class DeviceConsts:
     hz_lut: torch.Tensor  # (D,) f32
     bitLUT: torch.Tensor  # (M,) int8
     tw: torch.Tensor  # (N, 2) f32 twiddle table exp(+2πi j/N)
+    fixed_shift: torch.Tensor  # (1,) int32 spectrum shift of the no-search mode
     n1: int  # K2's four-step split N = n1 * (N / n1)
     trust_normal: int
+    threshold_scale: float  # spike clipping: thr = scale * mean|x|
 
     @classmethod
     def from_spec(cls, spec: DemodSpec, device) -> "DeviceConsts":
@@ -71,7 +73,9 @@ class DeviceConsts:
             bitLUT=(None if spec.bitLUT is None
                     else t(np.asarray(spec.bitLUT).astype(np.int8))),
             tw=twiddle_table(N, device),
+            fixed_shift=t(np.array([spec.dopp_offset_idx], np.int32)),
             n1=fft_split(N),
             # clamp: a fractional voteWeight config must not truncate to 0
             trust_normal=max(1, int(TRUST_NORMAL_SCALE * spec.voteWeight)),
+            threshold_scale=float(spec.peak_threshold_scale),
         )

@@ -2,6 +2,8 @@
 // over the mask axis inside the inverse transform.
 //
 //   X_m[n]    = sum_k S[b, (k + shift_b) mod N] * masks_f[m, k] * exp(+2πi kn/N)
+//   (shift_b = shift[b * shift_stride]: stride 0 gives every block the
+//   one fixed shift of the no-search mode)
 //   colsum[n] = sum_{m in [sum_lo, sum_hi)} |X_m[n]|^2
 //   colmax[n] = max_m |X_m[n]|^2, colargmax[n] = its m (lowest mask on ties)
 //
@@ -64,13 +66,13 @@ __device__ void fft_shared(float2* buf, int count, int logL, const float2* __res
 
 __global__ void __launch_bounds__(kThreads)
 mf_pass1(const float2* __restrict__ S, const float2* __restrict__ masks,
-         const int* __restrict__ shift, const float2* __restrict__ tw, float2* __restrict__ Y,
-         int logN, int M, int logN1, int logC) {
+         const int* __restrict__ shift, int shift_stride, const float2* __restrict__ tw,
+         float2* __restrict__ Y, int logN, int M, int logN1, int logC) {
     __shared__ float2 buf[kTile1];
     const int N = 1 << logN, N2 = N >> logN1, C = 1 << logC;
     const int c0 = blockIdx.x << logC, m = blockIdx.y, b = blockIdx.z;
     const int tile = C << logN1;
-    const int sh = shift[b] & (N - 1);
+    const int sh = shift[b * shift_stride] & (N - 1);
     const float2* Sb = S + ((size_t)b << logN);
     const float2* Mm = masks + ((size_t)m << logN);
     for (int e = threadIdx.x; e < tile; e += kThreads) {
@@ -149,9 +151,11 @@ int ilog2_exact(int v) {
 
 }  // namespace
 
-// Y: (B, M, N) complex scratch; colsum/colmax: (B, N) f32; colargmax: (B, N) i32.
+// shift: (B,) i32 with shift_stride 1, or (1,) with 0; Y: (B, M, N) complex
+// scratch; colsum/colmax: (B, N) f32; colargmax: (B, N) i32.
 PYCUSDR_API int pycusdr_mf_bank_colreduce(const float2* S, const float2* masks, const int* shift,
-                                          const float2* tw, float2* Y, float* colsum,
+                                          int shift_stride, const float2* tw, float2* Y,
+                                          float* colsum,
                                           float* colmax, int* colargmax, int B, int N, int M,
                                           int n1, int sum_lo, int sum_hi, cudaStream_t stream) {
     const int logN = ilog2_exact(N), logN1 = ilog2_exact(n1);
@@ -163,7 +167,7 @@ PYCUSDR_API int pycusdr_mf_bank_colreduce(const float2* S, const float2* masks, 
     int logR = 10 - logN2;  // kTile2 = 2^10
     if (logR > logN1) logR = logN1;
     mf_pass1<<<dim3(1 << (logN2 - logC), M, B), kThreads, 0, stream>>>(
-        S, masks, shift, tw, Y, logN, M, logN1, logC);
+        S, masks, shift, shift_stride, tw, Y, logN, M, logN1, logC);
     mf_pass2<<<dim3(1 << (logN1 - logR), B), kThreads, 0, stream>>>(
         Y, tw, colsum, colmax, colargmax, logN, M, logN1, logR, sum_lo, sum_hi);
     return (int)cudaGetLastError();

@@ -166,6 +166,11 @@ class Demodulator:
         return self._carrier_stats(self._last)
 
     def _carrier_stats(self, r):
+        if not self.spec.doppler_search:
+            # fixed-offset mode: nothing is estimated, and the Doppler
+            # memory stays as it is (pycusdr_tpu/models/demodulator.py:173-175)
+            self.clippedPeakIPure = np.array([], dtype=np.int64)
+            return 0.0, 0.0, self.clippedPeakIPure, 0.0
         freqOffset = float(r["freq_offset_hz"])
         # the reference's second slot carries the match quality scaled to Hz
         sdev_hz = float(r["quality_db"]) / self.Nfft * self.spec.sampleRate

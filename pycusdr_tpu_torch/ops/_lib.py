@@ -36,14 +36,23 @@ _F = ctypes.c_float
 SIGNATURES = {
     # P, Q, shifts, centre|NULL, partial, E, B, N, D, M, chunk, scale, stream
     "pycusdr_doppler_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # S, masks, shift, tw, Y, colsum, colmax, colargmax, B, N, M, n1, sum_lo, sum_hi, stream
-    "pycusdr_mf_bank_colreduce": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # S, masks, shift, shift_stride, tw, Y, colsum, colmax, colargmax, B, N, M, n1,
+    # sum_lo, sum_hi, stream
+    "pycusdr_mf_bank_colreduce": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P],
     # x, tw, band, spSym, codeOffset, code_val, B, N, lo, hi, stream
     "pycusdr_timing_band": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # colmax, colargmax, spSym, codeOffset, bitLUT, symbols, centres, mags,
-    # bits, trust, nSym, B, N, W, spsymMin, numSymMax, trust_normal, stream
-    "pycusdr_symbol_detect": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _P],
+    # colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any,
+    # symbols, centres, mags, bits, trust, nSym, row, L, B, N, W, spsymMin,
+    # numSymMax, trust_normal, hw_max, stream
+    "pycusdr_symbol_detect": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # E, P, shifts, shifts_signed, hz, sc, sc_stride, e_out, e_stride, shift_out,
+    # B, N, D, M, num_dopplers, offset, sum_all, snr_window, centre_hz, stream
+    "pycusdr_doppler_estimate": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, y, part, hits, clipped_any, B, N, chunk, scale, stream
+    "pycusdr_threshold": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -144,9 +144,10 @@ def test_batch_equals_per_block(bench_conf):
                 np.testing.assert_allclose(a, s, rtol=1e-5, atol=0, err_msg=k)
 
 
-@pytest.mark.parametrize("change", [dict(disable_peak_thresholding=False),
-                                    dict(doppler_search=False)])
+@pytest.mark.parametrize("change", [dict(bitLUT=None)])
 def test_unported_modes_raise(fsk_block, change):
+    """NRZ-S bits (no centre-bit LUT) are not ported yet; STX runs (see
+    tests/test_torch_stx.py)."""
     jspec, _, _ = fsk_block
     spec = dataclasses.replace(_carry(jspec), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
