@@ -14,7 +14,10 @@ and then no result line is printed):
 3. kernels: each hand-written kernel against its plain PyTorch version,
    B=1 and B=16, from seeded inputs: K1-K5 at the flagship shape
    (Nfft 2^16, D=64, M=8), and K6 with K2-K4 (K4 with the clip window)
-   at the STX shape (Nfft 2^17, M=8, W=3);
+   at the STX shape (Nfft 2^17, M=8, W=3); K7 (the Viterbi trellis) on
+   hard, soft ±1/0 and soft random-float symbols, terminated and
+   streaming, metric-only and decode, at the node-sync shape (S=2,
+   T=2016/2015), the decode shape (S=1, T=2144) and T=2^15;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after it:
    a. flagship: the UHF demodulator (``models.uhf.Demodulator``) on a
@@ -27,10 +30,22 @@ and then no result line is printed):
       hop, the same four ways; BER < 1e-3 on the bits not tagged trust
       -2, trust -2 near the burst and nowhere far from it, clipped_any
       set in that block alone; K2, K3, K4, K6 must launch, K1 and K5 not;
+   c. ccsds: the concatenated CCSDS downlink at the flagship width: the
+      port's ``Modulator`` makes 16 frames (RS(255,223) + ASM + conv
+      K=7 r=1/2, FSK) at a +3000 Hz Doppler, AWGN at 10 dB and at
+      LOW_SNR_DB (raw demodulated BER >= 1e-3, printed), then
+      ``models.uhf.Demodulator`` (``process`` per hop and
+      ``processMany(16)``) and ``decode.Decoder.findFrames`` with trust
+      (the streaming Viterbi, frame sync, RS): all 16 payloads bit-exact
+      both ways at both SNRs; at the low SNR the plain path (plain block
+      graph, plain Viterbi stream) gives the same packets; K1-K5 and K7
+      must launch, K6 not;
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, and the whole block graph against the plain
-   path, for both configurations; every time must clear its bound;
+   path, for both configurations; K7 at S=1/2/64 with ns per trellis
+   step; the decoder's host ms per block beside the graph's; every time
+   must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1 and 16,
    STX at B=1.
@@ -51,16 +66,20 @@ import numpy as np
 import torch
 
 from pycusdr_tpu_torch import ops
-from pycusdr_tpu_torch.configs import RADIO, flagship_conf, stx_conf
+from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, ccsds_spec, flagship_conf, stx_conf
 from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_batch
-from pycusdr_tpu_torch.dsp.signal_gen import modulate_gfsk2
+from pycusdr_tpu_torch.dsp.signal_gen import awgn, modulate_gfsk2
 from pycusdr_tpu_torch.dsp.spec import build_spec
 from pycusdr_tpu_torch.models import STX, UHF
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
+from pycusdr_tpu_torch.ops import viterbi as vit
 from pycusdr_tpu_torch.protocol import loadProtocol
+from pycusdr_tpu_torch.protocol.ccsds import RS_K
+from pycusdr_tpu_torch.tx.modulator import Modulator
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -72,6 +91,16 @@ BURST_HOP = 5  # the STX stream's interference burst lies in this hop
 BURST_LEN, BURST_AMP = 8, 300.0
 BATCHES = (1, 16, 64)
 LINE_BATCH = 16  # the batch of processMany(16), reported in the kernels line
+CCSDS_FRAMES = 16
+#: the ccsds path's SNRs, per sample against the unit-power FSK signal over
+#: the 153.6 kHz sample rate (Es/N0 is 12.04 dB higher); the low one gives a
+#: raw demodulated BER of a few 1e-3 (about 5e-3 at Nfft 2^13 on the CPU)
+SNRS_DB = (10.0, -3.0)
+#: K7's shapes on the ccsds path: the two node-sync sweeps of a feed (4032
+#: symbols per flagship block), the decode sweep (256 carried + 4032), and
+#: the batch a multi-channel decoder would run
+VIT_SYNC, VIT_DECODE, VIT_BATCH = [2016, 2015], [2144], [2144] * 64
+VIT_KINDS = ("hard", "soft_pm1", "soft_float")
 
 KERNELS = {
     "doppler_energy": ("pycusdr_tpu_torch/csrc/doppler_energy.cu",
@@ -86,12 +115,15 @@ KERNELS = {
                          "pycusdr_tpu/ops/doppler_search.py:159"),
     "threshold_input": ("pycusdr_tpu_torch/csrc/threshold.cu",
                         "pycusdr_tpu/ops/demod_kernels.py:27"),
+    "viterbi": ("pycusdr_tpu_torch/csrc/viterbi.cu", "pycusdr_tpu/ops/viterbi.py:59"),
 }
 #: the kernels each configuration's path runs
 PATH_KERNELS = {
     "flagship": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                  "symbol_detect"),
     "stx": ("threshold_input", "mf_bank_colreduce", "timing_band", "symbol_detect"),
+    "ccsds": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+              "symbol_detect", "viterbi"),
 }
 
 
@@ -308,6 +340,56 @@ def check_kernels(spec, consts, B):
     return errs
 
 
+def viterbi_inputs(kind, lengths, seed=SEED):
+    """(S, Tmax, 2) f32 received symbols on the card, sequence s in the
+    first lengths[s] steps: random coded bits, hard with 4% flips, soft ±1
+    with 3% flips and 10% erasures (0, as trust < 0 gives), or soft ±1
+    plus Gaussian noise (sigma 0.8)."""
+    rng = np.random.RandomState(seed)
+    S, Tmax = len(lengths), max(lengths)
+    sym = vit.conv_encode(rng.randint(0, 2, S * Tmax - 6)).reshape(S, Tmax, 2)
+    if kind == "hard":
+        x = (sym ^ (rng.rand(S, Tmax, 2) < 0.04)).astype(np.float32)
+    else:
+        x = sym.astype(np.float32) * 2 - 1
+        if kind == "soft_pm1":
+            x[rng.rand(S, Tmax, 2) < 0.03] *= -1
+            x[rng.rand(S, Tmax, 2) < 0.1] = 0.0
+        else:
+            x = (x + 0.8 * rng.randn(S, Tmax, 2)).astype(np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+def check_viterbi():
+    """K7 against its plain version on the card: every kind x terminated /
+    streaming x metric-only / decode at the node-sync (S=2) and decode
+    (S=1) shapes, and two cases at T=2^15. Bits equal; metrics equal
+    (random-float soft: within 1e-6 relative). Returns (max abs metric
+    error, number of cases)."""
+    cases = [(lengths, kind, term, dec) for lengths in (VIT_SYNC, VIT_DECODE)
+             for kind in VIT_KINDS for term in (True, False) for dec in (False, True)]
+    cases += [([2 ** 15], "soft_pm1", False, True), ([2 ** 15], "hard", True, True)]
+    err = 0.0
+    for lengths, kind, term, dec in cases:
+        x = viterbi_inputs(kind, lengths)
+        kw = dict(soft=kind != "hard", terminated=term, decode=dec)
+        bk, mk = vit.viterbi_sweep(x, lengths, **kw)
+        bp, mp = vit.viterbi_sweep_plain(x, lengths, **kw)
+        torch.cuda.synchronize()
+        label = f"K7 {kind} T={lengths} terminated={term} decode={dec}"
+        e = float((mk - mp).abs().max())
+        if kind == "soft_float":
+            assert torch.allclose(mk, mp, rtol=1e-6, atol=0), f"{label}: metric err {e}"
+        else:
+            assert torch.equal(mk, mp), f"{label}: metrics {mk.tolist()} != {mp.tolist()}"
+        assert (bk is None) == (bp is None) == (not dec), label
+        if dec:
+            bad = int((bk != bp).sum())
+            assert bad == 0, f"{label}: {bad} bits differ"
+        err = max(err, e)
+    return err, len(cases)
+
+
 def best_aligned_ber(rx, tx, max_lag=400):
     """(BER, lag) of rx against tx at the best lag in [-max_lag, max_lag]."""
     best = (1.0, 0)
@@ -426,6 +508,138 @@ def main_path_stx(conf, protocol, spec, make):
     assert clipped == [i == BURST_HOP for i in range(N_HOPS)], f"clipped_any {clipped}"
     return dict(ber=ber, lag=lag, bits=len(rx), untagged=kept, tagged_near_burst=near,
                 launches=launches, spSym=[round(a["spSymEst"], 4) for a in seqA[:3]])
+
+
+def packet_summary(pkts):
+    """(start index, nerr, decoded bytes) of each packet; RS decodes here."""
+    out = []
+    for p in pkts:
+        data, nerr, _ = p.getBinaryData()
+        out.append((int(p.frameStartIdx), int(nerr), bytes(np.asarray(data, np.uint8))))
+    return out
+
+
+def decode_blocks(decoder, results, host_ms=None):
+    """Each block's bits and trust through ``Decoder.findFrames`` (the
+    streaming Viterbi, frame sync), then RS per packet; appends each
+    block's host ms (findFrames, RS) to ``host_ms``."""
+    pkts = []
+    for r in results:
+        t0 = time.perf_counter()
+        found = decoder.findFrames(r["bits"], 0, trust=r["trust"])[0]
+        t1 = time.perf_counter()
+        pkts += packet_summary(found)
+        if host_ms is not None:
+            host_ms.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+    return pkts
+
+
+def exact_frames(pkts, payloads):
+    """Indices of the sent payloads that some packet carries bit-exact, and
+    the count of packets RS accepted with a payload that was never sent."""
+    sent = {bytes(p): i for i, p in enumerate(payloads)}
+    got = {sent[d[:RS_K]] for _, n, d in pkts if n >= 0 and d[:RS_K] in sent}
+    return got, sum(1 for _, n, d in pkts if n >= 0 and d[:RS_K] not in sent)
+
+
+def raw_ber(rx_bits, onair):
+    """BER of the demodulated bits against each frame's on-air symbols at
+    the frame's best-correlating offset (frames are separated by noise)."""
+    rx = rx_bits.astype(np.float64) * 2 - 1
+    errs = n = 0
+    for c in onair:
+        c = c.astype(np.float64) * 2 - 1
+        L = 1 << int(np.ceil(np.log2(len(rx) + len(c))))
+        corr = np.fft.irfft(np.fft.rfft(rx, L) * np.conj(np.fft.rfft(c, L)), L)
+        lag = int(np.argmax(corr[: len(rx) - len(c) + 1]))
+        errs += int(np.sum((rx[lag:lag + len(c)] > 0) != (c > 0)))
+        n += len(c)
+    return errs / n
+
+
+def main_path_ccsds():
+    """The concatenated CCSDS downlink at the flagship width, through the
+    port's entry points: ``Modulator.encodeAndModulate`` (16 seeded
+    payloads, +DOPPLER_HZ by range rate), AWGN at each of SNRS_DB, then per
+    SNR a ``process``-per-hop demodulator and a ``processMany(16)`` one,
+    each feeding its own ``Decoder``. The noise covers the whole received
+    stream, the overlap-save history and the flush blocks too: a receiver
+    never sees exact zeros, on which the kernel and plain paths may decide
+    differently (ROADMAP Queue 3). The counts are read after both SNRs;
+    then the plain path (plain graph, plain Viterbi stream) at the low SNR."""
+    conf = ccsds_conf()
+    protocol = loadProtocol("ccsds_conv")(conf=conf)
+    spec = build_spec(conf, protocol, RADIO)
+    mod = Modulator(conf, conf["Radios"]["Tx"]["UHF"], protocol)
+    mod.set_rangerate(DOPPLER_HZ * 3e8 / mod.Fc)
+    payloads = np.random.RandomState(SEED).randint(0, 256, (CCSDS_FRAMES, RS_K)).astype(np.uint8)
+    wave = np.concatenate([mod.encodeAndModulate(p) for p in payloads])
+    onair = [mod.encodeAndFrame(p) for p in payloads]
+    ov, hop = spec.sigOverlap, spec.Nfft - spec.sigOverlap
+    K = -(-len(wave) // hop) + 2  # two blocks flush the overlap-save and the decoder
+    clean = np.zeros(ov + K * hop, np.complex64)
+    clean[ov:ov + len(wave)] = wave
+
+    def run(snr, plain=False, host_ms=None):
+        stream = awgn(clean, snr, measured=False,
+                      rng=np.random.RandomState(SEED + 1)).astype(np.complex64)
+        hops = stream[ov:].reshape(K, hop)
+        if plain:
+            dB = plain_demodulator(UHF.Demodulator, conf, protocol)
+            dB.get_signalBufferHostPointer()[:ov] = stream[:ov]
+            decB = Decoder(conf, protocol)
+            decB._preprocState["viterbi"] = vit.ViterbiStream(soft=True, device="cuda",
+                                                              plain=True)
+            seqB = [r for i in range(0, K, N_HOPS) for r in dB.processMany(hops[i:i + N_HOPS])]
+            return None, decode_blocks(decB, seqB), None, seqB
+        dA, dB = UHF.Demodulator(conf, protocol, RADIO), UHF.Demodulator(conf, protocol, RADIO)
+        decA, decB = Decoder(conf, protocol), Decoder(conf, protocol)
+        for d in (dA, dB):
+            d.get_signalBufferHostPointer()[:ov] = stream[:ov]
+        raw = dA.get_signalBufferHostPointer()
+        seqA = []
+        for i in range(K):
+            raw[ov:] = hops[i]
+            seqA.append(dA.process(raw))
+            raw[:ov] = raw[-ov:]
+        pktsA = decode_blocks(decA, seqA, host_ms)
+        seqB = [r for i in range(0, K, N_HOPS) for r in dB.processMany(hops[i:i + N_HOPS])]
+        return pktsA, decode_blocks(decB, seqB), seqA, seqB
+
+    ops.reset_launches()
+    host_ms, out = [], {}
+    for snr in SNRS_DB:
+        out[snr] = run(snr, host_ms=host_ms if snr == SNRS_DB[-1] else None)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("ccsds", launches)
+    low = SNRS_DB[-1]
+    _, pkts_plain, _, seq_plain = run(low, plain=True)
+
+    res = dict(frames=CCSDS_FRAMES, blocks=K, launches=launches)
+    for snr, (pktsA, pktsB, seqA, seqB) in out.items():
+        for how, pkts in (("process", pktsA), ("processMany", pktsB)):
+            got, wrong = exact_frames(pkts, payloads)
+            assert got == set(range(CCSDS_FRAMES)), \
+                f"{snr} dB {how}: frames {sorted(set(range(CCSDS_FRAMES)) - got)} not decoded"
+            res[f"{snr:g}dB_{how}"] = dict(packets=len(pkts), exact=len(got), miscorrected=wrong,
+                                           max_nerr=max(n for _, n, _ in pkts))
+        bits = [np.concatenate([r["bits"] for r in seq]) for seq in (seqA, seqB)]
+        res[f"{snr:g}dB_process_vs_processMany"] = dict(
+            packets_equal=pktsA == pktsB, bits_equal=all(
+                np.array_equal(a["bits"], b["bits"]) for a, b in zip(seqA, seqB)),
+            bits=[len(b) for b in bits])
+        res[f"{snr:g}dB_raw_ber"] = raw_ber(bits[0].astype(np.int64), onair)
+    pktsB_low, seqB_low = out[low][1], out[low][3]
+    assert pkts_plain == pktsB_low, "ccsds: plain path's packets differ from the kernel path's"
+    res["plain_vs_kernel"] = dict(packets_equal=True, bits_equal=all(
+        np.array_equal(a["bits"], b["bits"]) for a, b in zip(seq_plain, seqB_low)))
+    assert res[f"{low:g}dB_raw_ber"] >= 1e-3, f"raw BER {res[f'{low:g}dB_raw_ber']} at {low} dB"
+    res["decoder_host_ms"] = dict(blocks=len(host_ms),
+                                  find_frames=statistics.mean(a for a, _ in host_ms),
+                                  rs=statistics.mean(b for _, b in host_ms),
+                                  total_max=max(a + b for a, b in host_ms))
+    return res
 
 
 def cuda_ms(fn, iters=20, reps=7):
@@ -560,6 +774,47 @@ def time_kernels(spec, consts, B):
     return t, whole, band_bins
 
 
+def viterbi_bound(lengths, decode):
+    """(ms, by) of K7's least time: the symbols read (8 B a step) and the
+    bits and metrics written, against the f32 operations of the sweep (per
+    step: 4 branch metrics of 3 ops, 128 candidate adds, 64 compares, 63
+    for the minimum, 64 subtractions, 1 add to the total)."""
+    steps, S = sum(lengths), len(lengths)
+    nbytes = 8 * steps + 4 * S + 8 * S + (steps if decode else 0)
+    flops = steps * (4 * 3 + 128 + 64 + 63 + 64 + 1)
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def time_viterbi():
+    """K7 at the ccsds path's shapes (soft ±1/0 symbols, streaming):
+    S -> (ms, plain_ms, (bound ms, by), lengths)."""
+    out = {}
+    for lengths, decode in ((VIT_DECODE, True), (VIT_SYNC, False), (VIT_BATCH, True)):
+        x = viterbi_inputs("soft_pm1", lengths)
+        kw = dict(soft=True, terminated=False, decode=decode)
+        out[len(lengths)] = (cuda_ms(lambda: vit.viterbi_sweep(x, lengths, **kw)),
+                             cuda_ms(lambda: vit.viterbi_sweep_plain(x, lengths, **kw),
+                                     iters=1, reps=3),
+                             viterbi_bound(lengths, decode), lengths)
+    return out
+
+
+def time_feed(blocks=12, plain_blocks=3):
+    """Host ms per ``ViterbiStream.feed`` of one flagship block (4032 soft
+    symbols), through K7 and through its plain version on the card."""
+    x = viterbi_inputs("soft_pm1", [4032 // 2] * blocks).reshape(blocks, -1).cpu().numpy()
+    out = []
+    for plain, n in ((False, blocks), (True, plain_blocks)):
+        vs = vit.ViterbiStream(soft=True, device="cuda", plain=plain)
+        vs.feed(x[0])
+        t0 = time.perf_counter()
+        for i in range(1, n):
+            vs.feed(x[i])
+        out.append(1e3 * (time.perf_counter() - t0) / (n - 1))
+    return out
+
+
 def profile_graph(spec, B, calls=10, top=8):
     """Device busy time by kernel name and the device's idle share over
     ``calls`` back-to-back calls of the packed block graph (torch.profiler)."""
@@ -619,12 +874,19 @@ def main() -> int:
             e = check_kernels(cfg[p][2], consts[p], B)
             errs.update({k: max(errs[k], v) for k, v in e.items()})
             say("kernels", f"{p} B={B} vs plain OK, max abs err " + json.dumps(e))
+    errs["viterbi"], n_cases = check_viterbi()
+    say("kernels", f"K7 viterbi vs plain OK on {n_cases} cases (bits equal), max abs metric "
+                   f"err {errs['viterbi']}")
 
     res = {"flagship": main_path_flagship(*cfg["flagship"]),
            "stx": main_path_stx(*cfg["stx"])}
     for p in res:
         say("main", f"{p} process x16 == processMany(16) == processCapture == plain path; "
                     + json.dumps(res[p]))
+    res["ccsds"] = main_path_ccsds()
+    say("main", f"ccsds {CCSDS_FRAMES} frames bit-exact at {list(SNRS_DB)} dB via process and "
+                f"processMany(16); plain path's packets equal at {SNRS_DB[-1]} dB; "
+                + json.dumps(res["ccsds"]))
 
     times = {}
     for p in cfg:
@@ -645,6 +907,27 @@ def main() -> int:
                          f"{B * hop / whole[0] / 1e3:.1f} Msamples/s of new samples); "
                          f"plain path {whole[1]:.4f} ms/call")
 
+    vt = time_viterbi()
+    for S, (ms, pms, (bms, by), lengths) in vt.items():
+        assert ms >= bms and pms >= bms, f"K7 S={S}: a time is below bound_ms {bms}"
+        say("times", f"{card} | viterbi S={S} T={max(lengths)}: ms={ms:.5f} plain_ms={pms:.5f} "
+                     f"library_ms=null bound_ms={bms:.4g} ({by}) "
+                     f"ns_per_step={1e6 * ms / max(lengths):.1f}")
+    feed_ms, feed_plain_ms = time_feed()
+    cspec = ccsds_spec()
+    graph1 = build_process_batch(cspec, device="cuda", packed=True)
+    x1 = signal_blocks(cspec, 1)
+    graph_ms = cuda_ms(lambda: graph1(x1), iters=10)
+    dh = res["ccsds"]["decoder_host_ms"]
+    block_s = (cspec.Nfft - cspec.sigOverlap) / cspec.sampleRate
+    dec_ms = dh["find_frames"] + dh["rs"]
+    say("times", f"{card} | ccsds decoder host ms/block {dec_ms:.3f} (findFrames "
+                 f"{dh['find_frames']:.3f}, RS {dh['rs']:.3f}, max {dh['total_max']:.3f}; "
+                 f"ViterbiStream.feed {feed_ms:.3f}, plain {feed_plain_ms:.1f}) beside the block "
+                 f"graph {graph_ms:.4f} ms/block at B=1; a block is {1e3 * block_s:.1f} ms of "
+                 f"signal at {cspec.sampleRate / 1e3:.1f} ksps, so the decoder takes "
+                 f"{100 * dec_ms / (1e3 * block_s):.2f}% of real time")
+
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1)):
         wall, busy, n, tops = profile_graph(cfg[p][2], B)
         idle = "not measured" if n == 0 else f"{100 * (1 - busy / wall):.1f}%"
@@ -655,6 +938,17 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         by_path = {p: res[p]["launches"][k] for p in res}
+        if k == "viterbi":
+            ms, pms, (bms, by), lengths = vt[1]
+            kernels.append({
+                "name": k, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                "bound_by": by, "library_ms": None, "batch": 1, "shape": "ccsds decode T=2144",
+                "by_S": {S: {"T": max(v[3]), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                             "bound_by": v[2][1], "ns_per_step": 1e6 * v[0] / max(v[3])}
+                         for S, v in vt.items()}})
+            continue
         home = "flagship" if k in PATH_KERNELS["flagship"] else "stx"
         t, bnd = times[home, LINE_BATCH]
         entry = {"name": k, "route": "cuda", "source": src, "replaces": replaces,

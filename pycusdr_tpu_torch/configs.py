@@ -7,6 +7,10 @@ overlap 2^10, D=64 Doppler bins, M=8 masks, W=7, spsym 16).
 2^17, overlap 2^11, W=3, spsym 16, spike clipping at scale 4.5, no
 Doppler search, the fixed shift of the IF offset).
 ``tiny_spec``: the CPU-test size (Nfft 2^9, D=16, W=5, spsym 8).
+``ccsds_spec``: the flagship envelope speaking the concatenated CCSDS
+downlink (``ccsds_conv``: RS(255,223) + conv K=7 r=1/2 over FSK), with a
+Tx radio for the port's ``Modulator``; ``ccsds_example_conf`` is the
+CPU-sized conf of ``examples/ccsds_downlink.py:24-45`` (Nfft 2^13).
 """
 
 from pycusdr_tpu_torch.dsp.spec import build_spec
@@ -63,12 +67,43 @@ def stx_conf():
     return conf
 
 
+def _tx_radio(conf):
+    """The Tx entry matching the Rx radio (the modulator pre-compensates
+    the same IF offset the demodulator searches around)."""
+    rx = conf["Radios"]["Rx"][RADIO]
+    return {"baud": rx["baud"], "samplesPerSym": rx["samplesPerSym"],
+            "frequency_Hz": rx["frequency_Hz"], "frequencyOffset_Hz": rx["frequencyOffset_Hz"],
+            "Protocol": "UHF"}
+
+
+def ccsds_conf():
+    """Config dict of the flagship envelope with ``Main.protocols.UHF =
+    "ccsds_conv"`` and a ``Radios.Tx.UHF`` entry."""
+    conf = flagship_conf()
+    conf["Main"]["protocols"]["UHF"] = "ccsds_conv"
+    conf["Radios"]["Tx"] = {"UHF": _tx_radio(conf)}
+    return conf
+
+
+def ccsds_example_conf():
+    """The conf of ``examples/ccsds_downlink.py:build_conf`` (Nfft 2^13,
+    overlap 2^10, D=16, IF offset 38.4 kHz): the CPU-test size."""
+    conf = _conf(blockSize=13, overlap=10, spsym=16, doppSteps=16)
+    conf["Main"].update(workerId="demo", protocols={"UHF": "ccsds_conv"}, PacketLen=10000,
+                        RandSeed=123)
+    conf["GPU"]["UHF"].update(doppMaxRangeRate=7500, peakThresholdScale=8)
+    del conf["GPU"]["UHF"]["doppCarrierSteps"]  # the example sets it on the radio only
+    conf["Radios"]["Rx"][RADIO]["frequencyOffset_Hz"] = 38400
+    conf["Radios"]["Tx"] = {"UHF": _tx_radio(conf)}
+    return conf
+
+
 def tiny_conf():
     return _conf(blockSize=9, overlap=7, spsym=8, doppSteps=16, windowWidth=5)
 
 
-def _spec(conf):
-    protocol = loadProtocol("bench_GFSK")(conf=conf)
+def _spec(conf, protocol="bench_GFSK"):
+    protocol = loadProtocol(protocol)(conf=conf)
     return build_spec(conf, protocol, RADIO)
 
 
@@ -85,3 +120,8 @@ def stx_spec():
 def tiny_spec():
     """CPU-test-sized spec (Nfft 512)."""
     return _spec(tiny_conf())
+
+
+def ccsds_spec():
+    """Flagship-envelope spec of the concatenated CCSDS downlink."""
+    return _spec(ccsds_conf(), "ccsds_conv")

@@ -6,6 +6,12 @@ The demodulator has no weights; what plays their part is the resolved
 spec's fields given as plain numpy and Python values, so both packages
 can compute from identical constants. ``DeviceConsts.from_spec`` puts
 the tensors the block graph reads on the device.
+
+The decoder's tables (the branch tables of ``ops/viterbi._branch_tables``,
+the RS generator and GF tables) are numpy copies that the tests hold
+equal to the JAX package's. Its running state is the streaming Viterbi's
+(``carry``, ``pending``, ``parity``): ``viterbi_stream_state`` hands a
+JAX ``ViterbiStream``'s state over to a port stream mid-way.
 """
 
 import dataclasses
@@ -16,6 +22,7 @@ import torch
 
 from pycusdr_tpu_torch.dsp.spec import DemodSpec
 from pycusdr_tpu_torch.globals import TRUST_NORMAL_SCALE
+from pycusdr_tpu_torch.ops.viterbi import ViterbiStream
 from pycusdr_tpu_torch.ops.demod_kernels import fft_split, twiddle_table
 
 _ARRAY_DTYPES = {"masks_f": np.complex64, "dopp_shifts": np.int32,
@@ -79,3 +86,16 @@ class DeviceConsts:
             trust_normal=max(1, int(TRUST_NORMAL_SCALE * spec.voteWeight)),
             threshold_scale=float(spec.peak_threshold_scale),
         )
+
+
+def viterbi_stream_state(carry, pending, parity, **stream_kw) -> ViterbiStream:
+    """A port ``ViterbiStream`` that continues from another stream's state:
+    ``carry`` and ``pending`` as numpy symbol arrays, ``parity`` None, 0 or
+    1 (e.g. the attributes of a JAX ``ViterbiStream``). ``stream_kw`` are
+    ``ViterbiStream``'s arguments (``soft``, ``invert_g2``, ``Dl``, ``Dh``,
+    ``device``, ``plain``), which must match the other stream's."""
+    vs = ViterbiStream(**stream_kw)
+    vs.carry = np.array(carry, dtype=np.float32)
+    vs.pending = np.array(pending, dtype=np.float32)
+    vs.parity = None if parity is None else int(parity)
+    return vs

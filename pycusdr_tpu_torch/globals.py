@@ -1,5 +1,5 @@
 """Global constants and small config helpers (the port's own copy of the
-parts of ``pycusdr_tpu/globals.py`` the demodulation path needs).
+parts of ``pycusdr_tpu/globals.py`` the demodulation and Tx paths need).
 
 Trust semantics (int8):
   normal bit        : +2 * voteWeight
@@ -13,9 +13,11 @@ import numpy as np
 
 log = logging.getLogger(__name__)
 
+SAVETX_DATA = False  # Tx: snapshot the last modulated waveform to .npy
 STORE_BITS_IN_FILE = False  # Rx: dump demodulated bits (slow, debug only)
 
 TRUSTTYPE = np.int8
+MODULATORDTYPE = np.complex64
 
 TRUST_NORMAL_SCALE = 2
 TRUST_SYMBOL_ERROR = -1

@@ -1,7 +1,7 @@
-"""Device ops of the demodulation path and the hand-written kernels
-behind them (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
+"""Device ops of the port and the hand-written kernels behind them: the
+demodulation path (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
 ``timing_band``, K4 ``symbol_detect``, K5 ``doppler_estimate``, K6
-``threshold_input``)."""
+``threshold_input``) and the decoder's Viterbi trellis (K7 ``viterbi``)."""
 
 
 def kernel_wrappers() -> dict:
@@ -14,10 +14,12 @@ def kernel_wrappers() -> dict:
         timing_band,
     )
     from pycusdr_tpu_torch.ops.doppler_search import doppler_energy, doppler_estimate
+    from pycusdr_tpu_torch.ops.viterbi import viterbi_sweep
 
     return {"doppler_energy": doppler_energy, "mf_bank_colreduce": mf_bank_colreduce,
             "timing_band": timing_band, "symbol_detect": symbol_detect,
-            "doppler_estimate": doppler_estimate, "threshold_input": threshold_input}
+            "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
+            "viterbi": viterbi_sweep}
 
 
 def reset_launches() -> None:

@@ -53,6 +53,9 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, y, part, hits, clipped_any, B, N, chunk, scale, stream
     "pycusdr_threshold": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # sym, lengths, dec|NULL, bits|NULL, met, S, Tmax, soft, terminated, invert_g2,
+    # decode, stream
+    "pycusdr_viterbi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """Protocol registry: maps protocol names (config ``Main.protocols``) to
-classes. Only the benchmark FSK/GFSK protocols are ported so far."""
+classes. Ported so far: the benchmark FSK/GFSK protocols and CCSDS
+(plain and concatenated with the convolutional inner code)."""
 
 from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
     Packet,
@@ -20,4 +21,12 @@ def loadProtocol(name: str):
         from pycusdr_tpu_torch.protocol.benchmark import BenchGFSK
 
         return BenchGFSK
+    if key == "ccsds":
+        from pycusdr_tpu_torch.protocol.ccsds import CCSDS
+
+        return CCSDS
+    if key in ("ccsds_conv", "ccsds-conv"):
+        from pycusdr_tpu_torch.protocol.ccsds import CCSDSConv
+
+        return CCSDSConv
     raise NotImplementedError(f"protocol '{name}' is not yet ported")

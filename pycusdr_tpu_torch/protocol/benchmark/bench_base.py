@@ -78,13 +78,15 @@ class BenchBase(ProtocolBase):
             self, *args, **kwargs, packetLen=self.packetLen, randSeed=self.randSeed
         )
 
-    # Tx side: the framers and LUT modulators (tx/) are not ported yet
-    # (ROADMAP.md Queue 1); test signals come from dsp.signal_gen.
     def getFramer(self, confRadio):
-        raise NotImplementedError("the Tx chain (tx/) is not yet ported")
+        from pycusdr_tpu_torch.tx.encoders import RawEncoder
+
+        return RawEncoder
 
     def getModulator(self, confRadio):
-        raise NotImplementedError("the Tx chain (tx/) is not yet ported")
+        from pycusdr_tpu_torch.tx.luts import GMSKmod
+
+        return GMSKmod
 
     TX_FLAG = np.array([0, 1, 1, 1, 1, 1, 1, 0], dtype=np.uint8)  # 0x7e
 

@@ -15,6 +15,11 @@ class BenchFSK(BenchBase):
     name = "bench_FSK"
     SUM_ALL_MASKS_PYTHON = True
 
+    def getModulator(self, confRadio):
+        from pycusdr_tpu_torch.tx.luts import FSKmod
+
+        return FSKmod
+
     def get_filter(self, Nfft, spsym, maskSize):
         symbols = self._get_xcorrMasks(maskSize)
         # wavePhase = linspace(1/spsym,1,spsym)*pi  == 2*pi*nCycles with nCycles=0.5

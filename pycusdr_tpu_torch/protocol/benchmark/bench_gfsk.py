@@ -17,6 +17,11 @@ class BenchGFSK(BenchBase):
     name = "bench_GFSK"
     SUM_ALL_MASKS_PYTHON = True
 
+    def getModulator(self, confRadio):
+        from pycusdr_tpu_torch.tx.luts import GFSK2mod
+
+        return GFSK2mod
+
     def get_filter(self, Nfft, spsym, maskSize):
         symbols = self._get_xcorrMasks(maskSize)
         phase = fsk_phase_templates(symbols, spsym, nCycles=0.5)

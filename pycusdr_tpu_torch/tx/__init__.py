@@ -1,0 +1,19 @@
+from pycusdr_tpu_torch.tx.modulator import Modulator
+from pycusdr_tpu_torch.tx.encoders import Encoder, RawEncoder
+from pycusdr_tpu_torch.tx.luts import BaseLUT, FSKmod, GFSK2mod, GMSKmod
+
+
+class DataLengthError(ValueError):
+    """Raised when a Tx payload exceeds the protocol's frame capacity."""
+
+
+__all__ = [
+    "Modulator",
+    "Encoder",
+    "RawEncoder",
+    "BaseLUT",
+    "FSKmod",
+    "GFSK2mod",
+    "GMSKmod",
+    "DataLengthError",
+]

@@ -26,17 +26,23 @@ print(json.dumps({"modules": names, "bad": bad}))
 """
 
 NO_CARD = r"""
-import json, torch
-from pycusdr_tpu_torch.configs import RADIO, tiny_conf, tiny_spec
+import json, numpy as np, torch
+from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, tiny_conf, tiny_spec
+from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_block
 from pycusdr_tpu_torch.models import UHF
+from pycusdr_tpu_torch.ops.viterbi import ViterbiStream, viterbi_decode
 from pycusdr_tpu_torch.protocol import loadProtocol
 assert not torch.cuda.is_available()
 raised = []
 conf = tiny_conf()
+ccsds = loadProtocol("ccsds_conv")(conf=ccsds_conf())
 for make in (lambda: build_process_block(tiny_spec()),
              lambda: build_process_block(tiny_spec(), device="cuda"),
-             lambda: UHF.Demodulator(conf, loadProtocol("bench_GFSK")(conf=conf), RADIO)):
+             lambda: UHF.Demodulator(conf, loadProtocol("bench_GFSK")(conf=conf), RADIO),
+             lambda: viterbi_decode(np.zeros(64)),
+             lambda: ViterbiStream(),
+             lambda: Decoder({}, ccsds).findFrames(np.zeros(100, np.uint8), 0)):
     try:
         make()
     except RuntimeError as e:
@@ -57,10 +63,13 @@ def test_port_imports_no_jax():
     res = _run(IMPORT_ALL)
     assert res["bad"] == []
     for name in ("pycusdr_tpu_torch.ops.demod_kernels", "pycusdr_tpu_torch.models.demodulator",
-                 "pycusdr_tpu_torch.dsp.block", "pycusdr_tpu_torch.convert"):
+                 "pycusdr_tpu_torch.dsp.block", "pycusdr_tpu_torch.convert",
+                 "pycusdr_tpu_torch.ops.viterbi", "pycusdr_tpu_torch.decode.frame_finder",
+                 "pycusdr_tpu_torch.decode.rs", "pycusdr_tpu_torch.protocol.ccsds",
+                 "pycusdr_tpu_torch.tx.modulator", "pycusdr_tpu_torch.tx.encoders"):
         assert name in res["modules"]
 
 
 def test_cuda_entry_points_raise_without_a_card():
-    assert _run(NO_CARD)["raised"] == [True, True, True]
+    assert _run(NO_CARD)["raised"] == [True] * 6
 

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13).
+the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
+at small T with ragged lengths).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -17,6 +18,7 @@ from pycusdr_tpu_torch.dsp.signal_gen import modulate_fsk
 from pycusdr_tpu_torch.dsp.spec import build_spec
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
+from pycusdr_tpu_torch.ops import viterbi as vit
 from pycusdr_tpu_torch.protocol import loadProtocol
 
 pytestmark = pytest.mark.cuda
@@ -369,3 +371,69 @@ def test_symbol_detect_clip_halfwidth_clamp(case):
                                clip_mask=dk.dilate_mask_plain(hit, hw), **kw)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def viterbi_symbols(kind, S, Tmax, seed):
+    """(S, Tmax, 2) f32 received symbols of random coded bits: hard bits
+    with 4% flips, soft ±1 with flips and erasures (0), or soft ±1 plus
+    Gaussian noise."""
+    rng = np.random.RandomState(seed)
+    sym = vit.conv_encode(rng.randint(0, 2, S * Tmax - 6)).reshape(S, Tmax, 2)
+    if kind == "hard":
+        return (sym ^ (rng.rand(S, Tmax, 2) < 0.04)).astype(np.float32)
+    x = sym.astype(np.float32) * 2 - 1
+    if kind == "soft_pm1":
+        x[rng.rand(S, Tmax, 2) < 0.03] *= -1
+        x[rng.rand(S, Tmax, 2) < 0.1] = 0.0
+        return x
+    return (x + 0.8 * rng.randn(S, Tmax, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("decode", [True, False])
+@pytest.mark.parametrize("terminated", [True, False])
+@pytest.mark.parametrize("kind", ["hard", "soft_pm1", "soft_float"])
+def test_viterbi_sweep(cuda, kind, terminated, decode):
+    """K7 against its plain version, S = 7 ragged sequences (lengths at and
+    around the 32-step chunk edges, and 0): bits equal, metrics equal
+    (random-float soft: within 1e-6 relative)."""
+    lengths = [300, 0, 1, 31, 32, 33, 257]
+    x = torch.from_numpy(viterbi_symbols(kind, len(lengths), 300, 11)).to(cuda)
+    kw = dict(soft=kind != "hard", terminated=terminated, decode=decode)
+    before = vit.viterbi_sweep.launches
+    bk, mk = vit.viterbi_sweep(x, lengths, **kw)
+    assert vit.viterbi_sweep.launches == before + 1
+    bp, mp = vit.viterbi_sweep_plain(x, lengths, **kw)
+    torch.cuda.synchronize()
+    if kind == "soft_float":
+        assert torch.allclose(mk, mp, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(mk, mp)
+    if decode:
+        assert torch.equal(bk, bp)
+    else:
+        assert bk is None and bp is None
+
+
+def test_viterbi_long_sequence(cuda):
+    """One sequence of 2^13 steps beside a short one: bits and metric equal."""
+    x = torch.from_numpy(viterbi_symbols("soft_pm1", 2, 2 ** 13, 12)).to(cuda)
+    kw = dict(soft=True, terminated=False, decode=True)
+    for a, b in zip(vit.viterbi_sweep(x, [2 ** 13, 100], **kw),
+                    vit.viterbi_sweep_plain(x, [2 ** 13, 100], **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_viterbi_stream_kernel_matches_plain(cuda, soft):
+    """ViterbiStream on the card through K7 and with ``plain=True`` give
+    the same bits and state after every feed, through a one-symbol slip."""
+    x = viterbi_symbols("soft_pm1" if soft else "hard", 1, 3000, 13).reshape(-1)
+    x = np.r_[x[:2501], x[2502:]]
+    a = vit.ViterbiStream(soft=soft, device=cuda)
+    b = vit.ViterbiStream(soft=soft, device=cuda, plain=True)
+    pos = 0
+    for n in (3, 30, 700, 1, 1300, 901, 2100, 64, 900):
+        ya, yb = a.feed(x[pos:pos + n]), b.feed(x[pos:pos + n])
+        pos += n
+        assert np.array_equal(ya, yb) and a.parity == b.parity
+        assert np.array_equal(a.carry, b.carry) and np.array_equal(a.pending, b.pending)
