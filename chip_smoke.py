@@ -40,12 +40,29 @@ and then no result line is printed):
       both ways at both SNRs; at the low SNR the plain path (plain block
       graph, plain Viterbi stream) gives the same packets; K1-K5 and K7
       must launch, K6 not;
+   d. bpsk: ``bench_BPSK.json`` at blockSize 16 (16 masks, the (8, 2, 2)
+      NRZ-S LUT) through ``models.uhf.Demodulator``, the same four ways,
+      on seeded 10000-bit packets back to back at +3000 Hz; BER < 1e-3,
+      every whole packet the port's ``Decoder`` finds equal to the
+      payload; K1-K5 and K4n must launch;
+   e. group: ``build_group_graph`` at the flagship spec on three antennas
+      with independent AWGN: K8 launched once, every channel's decisions
+      and the voted pair equal to the plain path's, the voted BER no worse
+      than the best channel's;
+   f. runtime: ``PyCuSDR`` from ``bench_3_chan_rx.json`` (channel group,
+      softCombiner off) and from ``bench_FSK.json`` (one
+      ``Demodulator_process``) at blockSize 16, fed over ZMQ PUB in hops:
+      the decoded bytes equal the payload, the Rx children run on the card;
+   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64 and K8 at
+   C=3/16/64, S=4608, with pinned ties, against their plain versions;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, and the whole block graph against the plain
    path, for both configurations; K7 at S=1/2/64 with ns per trellis
-   step; the decoder's host ms per block beside the graph's; every time
-   must clear its bound;
+   step; K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3
+   against the block graph at B=3; the decoder's host ms per block
+   beside the graph's and the runtime's demod child host ms per block;
+   every time must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1 and 16,
    STX at B=1.
@@ -61,24 +78,35 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from pycusdr_tpu_torch import ops
+from pycusdr_tpu_torch.config.loader import load_modular_json
 from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, ccsds_spec, flagship_conf, stx_conf
 from pycusdr_tpu_torch.convert import DeviceConsts
 from pycusdr_tpu_torch.decode import Decoder
-from pycusdr_tpu_torch.dsp.block import build_process_batch
-from pycusdr_tpu_torch.dsp.signal_gen import awgn, modulate_gfsk2
+from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
+from pycusdr_tpu_torch.dsp.signal_gen import (
+    awgn,
+    get_padded_packet,
+    modulate_bpsk,
+    modulate_gfsk2,
+    packet_data,
+)
 from pycusdr_tpu_torch.dsp.spec import build_spec
 from pycusdr_tpu_torch.models import STX, UHF
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.ops import viterbi as vit
+from pycusdr_tpu_torch.ops.layout import PACK_ARRAYS, SCALAR
+from pycusdr_tpu_torch.parallel import vote as pv
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.protocol.ccsds import RS_K
+from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
 from pycusdr_tpu_torch.tx.modulator import Modulator
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -101,6 +129,16 @@ SNRS_DB = (10.0, -3.0)
 #: the batch a multi-channel decoder would run
 VIT_SYNC, VIT_DECODE, VIT_BATCH = [2016, 2015], [2144], [2144] * 64
 VIT_KINDS = ("hard", "soft_pm1", "soft_float")
+CONFIGS = "pycusdr_tpu_torch/config/configs"
+#: K8's channel counts: the three-antenna station (bench_3_chan_rx), and wider groups
+VOTE_CS = (3, 16, 64)
+GROUP_C = 3
+#: the runtime phase's ports (all above 38000) and its bound on every wait, s
+RUNTIME_PORT = 38400
+RUNTIME_WAIT_S = 90.0
+#: per-antenna noise std of the group phase (unit-power GFSK): a raw BER
+#: of 1-2.3e-2 per channel at the flagship spec, so the vote has errors to correct
+GROUP_NOISE = (1.6, 1.7, 1.8)
 
 KERNELS = {
     "doppler_energy": ("pycusdr_tpu_torch/csrc/doppler_energy.cu",
@@ -116,6 +154,9 @@ KERNELS = {
     "threshold_input": ("pycusdr_tpu_torch/csrc/threshold.cu",
                         "pycusdr_tpu/ops/demod_kernels.py:27"),
     "viterbi": ("pycusdr_tpu_torch/csrc/viterbi.cu", "pycusdr_tpu/ops/viterbi.py:59"),
+    "nrzs_bits": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
+                  "pycusdr_tpu/ops/demod_kernels.py:597"),
+    "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
 }
 #: the kernels each configuration's path runs
 PATH_KERNELS = {
@@ -124,6 +165,10 @@ PATH_KERNELS = {
     "stx": ("threshold_input", "mf_bank_colreduce", "timing_band", "symbol_detect"),
     "ccsds": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
               "symbol_detect", "viterbi"),
+    "bpsk": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+             "symbol_detect", "nrzs_bits"),
+    "group": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+              "symbol_detect", "vote"),
 }
 
 
@@ -642,6 +687,297 @@ def main_path_ccsds():
     return res
 
 
+# ------------------------------------------------- slice 4: NRZ-S, group, runtime
+
+
+def config_path(*parts) -> str:
+    return str(Path(__file__).resolve().parent.joinpath(CONFIGS, *parts))
+
+
+def bpsk_configuration():
+    """bench_BPSK.json at the flagship width (blockSize 16, overlap 2^10,
+    D=64; 16 masks of 4 bits and the (8, 2, 2) NRZ-S LUT): (conf,
+    protocol, spec, Demodulator class)."""
+    conf = load_modular_json(config_path("benchmark", "bench_BPSK.json"))
+    conf["GPU"]["UHF"]["blockSize"] = 16
+    protocol = loadProtocol("bench_BPSK")(conf=conf)
+    return conf, protocol, build_spec(conf, protocol, RADIO), UHF.Demodulator
+
+
+def bpsk_stream(spec, bits, n_samples, seed=SEED, doppler_hz=DOPPLER_HZ):
+    """BPSK (NRZ-S, RRC) of ``bits`` at the IF offset plus ``doppler_hz``,
+    ``n_samples`` long, with AWGN of NOISE_STD over all of it."""
+    rng = np.random.RandomState(seed)
+    sig = np.zeros(n_samples, np.complex128)
+    m = modulate_bpsk(bits, int(spec.spsym))[:n_samples]
+    sig[:len(m)] = m
+    n = np.arange(n_samples)
+    sig *= np.exp(2j * np.pi * (spec.centreFreqOffset + doppler_hz) / spec.sampleRate * n)
+    sig += NOISE_STD / np.sqrt(2) * (rng.randn(n_samples) + 1j * rng.randn(n_samples))
+    return sig.astype(np.complex64)
+
+
+def nrzs_rows(spec, consts, B):
+    """K4n's input: the block graph's rows of B BPSK blocks with bits,
+    trust and nBits overwritten (bits 7, trust normal and -2 on every 7th
+    slot, whose mark must stay, nBits -5) and, at B > 1, the last block's
+    symbols random in [-1, 16] (every transition error and symbols outside
+    the LUT's 8 rows)."""
+    rng = np.random.RandomState(SEED + B)
+    S, sps = spec.numSymMax, int(spec.spsym)
+    x = np.stack([bpsk_stream(spec, rng.randint(0, 2, spec.Nfft // sps + 8), spec.Nfft,
+                              seed=SEED + b) for b in range(B)])
+    rows = build_process_batch(spec, device="cuda", packed=True)(x)
+    if B > 1:
+        rows[-1, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, 17, S).astype(np.float32))
+    rows[:, :S] = 7.0
+    rows[:, S:2 * S] = float(consts.trust_normal)
+    rows[:, S:2 * S:7] = -2.0
+    rows[:, len(PACK_ARRAYS) * S + SCALAR["nBits"]] = -5.0
+    return rows
+
+
+def check_nrzs(spec, consts, B):
+    """K4n against its plain version on ``nrzs_rows``: the rows must be
+    equal. Returns the number of slots that took trust -1."""
+    rows = nrzs_rows(spec, consts, B)
+    S = spec.numSymMax
+    got = dk.nrzs_bits(rows.clone(), consts.symbolLUT, S)
+    want = dk.nrzs_rows_plain(rows.clone(), consts.symbolLUT, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"K4n B={B}: rows differ from the plain version's"
+    assert bool((got[:, S:2 * S:7] == -2).all()), "K4n overwrote a trust of -2"
+    errs = int((got[:, S:2 * S] == -1).sum())
+    assert B == 1 or errs > 0, "K4n check: no transition error"
+    return errs
+
+
+def vote_input(C, S, L):
+    """(C, L) packed rows for K8: random bits, trust in {-2, -1, 0, 1, 2,
+    3, 5, 127} and nBits in [S - 300, S] (the last channel S/2); at slots
+    s % 10 == 0 a pinned tie (master bit 1 at trust 5, weight 5 * 1.2f =
+    6.0, against trust 2 + 2 + 2 at bit 0, or one trust 6 at C = 3; the
+    rest trust -1); at s % 10 == 5 every voter disqualified (trust -1)."""
+    rng = np.random.RandomState(SEED + C)
+    bits = rng.randint(0, 2, (C, S))
+    trust = rng.choice([-2, -1, 0, 1, 2, 3, 5, 127], (C, S))
+    tie, gone = slice(0, S, 10), slice(5, S, 10)
+    bits[0, tie], trust[0, tie] = 1, 5
+    k = 4 if C >= 4 else 2
+    bits[1:k, tie], trust[1:k, tie] = 0, (2 if C >= 4 else 6)
+    trust[k:, tie] = -1
+    trust[:, gone] = -1
+    nbits = rng.randint(S - 300, S + 1, C)
+    nbits[-1] = S // 2
+    rows = np.zeros((C, L), np.float32)
+    rows[:, :S], rows[:, S:2 * S] = bits, trust
+    tail = len(PACK_ARRAYS) * S
+    rows[:, tail + SCALAR["nSym"]] = rows[:, tail + SCALAR["nBits"]] = nbits
+    return torch.from_numpy(rows).cuda(), int(nbits[:k].min())
+
+
+def check_vote(C, S, L):
+    """K8 against the plain vote (``vote_rows_plain``, i.e. the pad mask
+    then ``vote_n_device_plain``) on ``vote_input``: the masked rows and
+    the voted pair equal; the pinned ties vote 0, the disqualified slots
+    get trust -1."""
+    rows, n_tie = vote_input(C, S, L)
+    rk, rp = rows.clone(), rows.clone()
+    ok = pv.vote_rows(rk, S, 1.2)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp), f"K8 C={C}: masked rows differ"
+    assert torch.equal(ok, op), f"K8 C={C}: voted pair differs from the plain vote"
+    assert not bool(ok[0, 0:n_tie:10].any()), f"K8 C={C}: a pinned tie voted 1"
+    assert bool((ok[1, 5:S:10] == -1).all()), f"K8 C={C}: a disqualified slot has trust"
+    return 0.0
+
+
+def main_path_bpsk(conf, protocol, spec, make):
+    """bench_BPSK through ``models.uhf.Demodulator`` (``drive``): 256
+    random bits (the overlap-save history holds the first 64), then seeded
+    10000-bit packets back to back, at +DOPPLER_HZ; BER < 1e-3 against the
+    sent bits, and every whole packet the port's ``Decoder`` finds equal
+    to the payload; K1-K5 and K4n must launch."""
+    N, ov = spec.Nfft, spec.sigOverlap
+    n = ov + N_HOPS * (N - ov)
+    payload = packet_data(protocol.packetLen, protocol.randSeed)
+    lead = np.random.RandomState(SEED).randint(0, 2, 256)
+    reps = (n // int(spec.spsym) - len(lead)) // len(payload) + 1
+    tx = np.r_[lead, np.tile(payload, reps)]
+    stream = bpsk_stream(spec, tx, n)
+    seqA, launches = drive(make, conf, protocol, stream, ov)
+    check_launches("bpsk", launches)
+    rx = np.concatenate([a["bits"] for a in seqA]).astype(np.int64)
+    ber, lag = best_aligned_ber(rx, tx)
+    assert ber < 1e-3, f"bpsk BER {ber} at lag {lag}"
+    dec = Decoder(conf, protocol)
+    pkts = [p for a in seqA for p in dec.findFrames(a["bits"], 0)[0]]
+    whole = [p for p in pkts if len(p.bits) >= protocol.packetLen]
+    bad = [p.checkPacketData() for p in whole if p.checkPacketData() != 0]
+    assert len(whole) >= reps - 2 and not bad, \
+        f"bpsk: {len(whole)} whole packets of {reps}, bit errors {bad}"
+    assert all(np.array_equal(p.getBinaryData()[0][:len(payload)], payload) for p in whole)
+    return dict(ber=ber, lag=lag, bits=len(rx), packets=len(whole), launches=launches,
+                trust_minus1=int(sum(np.sum(a["trust"] == -1) for a in seqA)))
+
+
+def group_blocks(spec, C, noise=GROUP_NOISE, seed=SEED):
+    """One GFSK block at the IF offset plus DOPPLER_HZ received on C
+    antennas, each with its own AWGN (std ``noise[c]``); returns (blocks
+    (C, Nfft) complex64, sent bits). The block starts half a symbol into
+    the signal, so every channel's timing estimate lies mid-symbol: the
+    lockstep vote pairs slot s of every channel, and near the wrap of the
+    timing phase noise can move one channel's slots by a symbol (in the
+    JAX package's graph alike)."""
+    rng = np.random.RandomState(seed)
+    N, sps = spec.Nfft, int(spec.spsym)
+    bits = rng.randint(0, 2, N // sps + 8)
+    f = (spec.centreFreqOffset + DOPPLER_HZ) / spec.sampleRate
+    base = (modulate_gfsk2(bits, sps)[sps // 2:sps // 2 + N]
+            * np.exp(2j * np.pi * f * np.arange(N)))
+    blocks = [base + noise[c] / np.sqrt(2) * (rng.randn(N) + 1j * rng.randn(N))
+              for c in range(C)]
+    return np.stack(blocks).astype(np.complex64), bits
+
+
+def main_path_group(spec, C=GROUP_C):
+    """``build_group_graph`` at ``spec`` on C antennas with independent
+    AWGN: K1-K5 and K8 (once) launch; each channel's bits, trust, symbols,
+    centres and nBits equal the plain path's, and the voted pair the plain
+    vote's; the voted bits' BER is no worse than the best channel's."""
+    blocks, tx = group_blocks(spec, C)
+    L, S = packed_len(spec), spec.numSymMax
+    graph = build_group_graph(spec, C, 1.2, device="cuda")
+    ops.reset_launches()
+    vec = graph(blocks)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ref = build_group_graph(spec, C, 1.2, device="cuda", plain=True)(blocks)
+    torch.cuda.synchronize()
+    check_launches("group", launches)
+    assert launches["vote"] == 1, f"K8 launched {launches['vote']} times in one call"
+    rows, rrows = vec[:C * L].view(C, L), ref[:C * L].view(C, L)
+    tail = len(PACK_ARRAYS) * S
+    for i, k in enumerate(PACK_ARRAYS[:4]):
+        assert torch.equal(rows[:, i * S:(i + 1) * S], rrows[:, i * S:(i + 1) * S]), \
+            f"group: {k} differ from the plain path's"
+    assert torch.equal(rows[:, tail + SCALAR["nBits"]], rrows[:, tail + SCALAR["nBits"]])
+    assert torch.equal(vec[C * L:], ref[C * L:]), "group: voted pair differs from the plain vote"
+    v = vec.cpu().numpy()
+    bers = []
+    for c in range(C):
+        nb = int(v[c * L + tail + SCALAR["nBits"]])
+        bers.append(best_aligned_ber(v[c * L:c * L + nb].astype(np.int64), tx)[0])
+    nb0 = int(v[tail + SCALAR["nBits"]])
+    voted_ber = best_aligned_ber(v[C * L:C * L + nb0].astype(np.int64), tx)[0]
+    assert voted_ber <= min(bers), f"group: voted BER {voted_ber} above the best channel's {bers}"
+    return dict(C=C, channel_ber=bers, voted_ber=voted_ber, launches=launches)
+
+
+def runtime_conf(name, port0, group):
+    """A shipped config with blockSize 16, no softCombiner, its Rx radios
+    on ports port0.. and the internal and external sockets above them."""
+    conf = load_modular_json(config_path("benchmark", name))
+    conf["Main"].update(workerId="smoke", softCombiner_enabled=False,
+                        channelGroup_enabled=group, statsFolder="build/runtime_stats")
+    conf["GPU"]["UHF"]["blockSize"] = 16
+    for i, r in enumerate(conf["Radios"]["Rx"].values()):
+        r["Interfaces"] = {"RxInPort": f"tcp://127.0.0.1:{port0 + i}",
+                           "demodOut": f"tcp://localhost:{port0 + 10}"}
+    conf["Demodulator"] = {"timeoutSeconds": 60}
+    conf["Interfaces"]["Internal"].update({
+        "demodIn": f"tcp://*:{port0 + 10}", "demodOut": f"tcp://localhost:{port0 + 10}",
+        "decodeOut": f"tcp://localhost:{port0 + 11}", "decodeIn": f"tcp://*:{port0 + 11}"})
+    conf["Interfaces"]["External"]["decodeBytesOut_ZMQ"] = {"UHF": f"tcp://*:{port0 + 12}"}
+    conf["Interfaces"]["External"]["XMLRpcIn"] = f"127.0.0.1:{port0 + 13}"
+    conf["decoder"] = dict(conf.get("decoder", {}), statsPort=port0 + 14)
+    return conf
+
+
+def run_runtime(name, port0, group):
+    """``PyCuSDR`` from a shipped config: waits (bounded) for every Rx
+    child to be warm, then PUBlishes one seeded bench_FSK packet with AWGN
+    at 14 dB, independent per antenna, in hops, until the decoded bytes
+    arrive on the external PULL socket. Returns (payload == expected, the
+    Rx children's devices, their host ms per block where they keep it,
+    seconds to the first packet)."""
+    import zmq
+
+    from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
+
+    conf = runtime_conf(name, port0, group)
+    n_rx = len(conf["Radios"]["Rx"])
+    bits = packet_data(conf["Main"]["PacketLen"], conf["Main"]["RandSeed"])
+    sig, _ = get_padded_packet("FSK", 16, 9600 * 16, offset_freq=38400, raw_bits=bits, pad=6000)
+    hop = 2 ** 16 - 2 ** 10
+    stream = np.r_[sig, np.zeros(4 * hop, np.complex64)]
+    ctx = zmq.Context()
+    pubs = []
+    for i in range(n_rx):
+        sock = ctx.socket(zmq.PUB)
+        sock.setsockopt(zmq.LINGER, 0)
+        sock.bind(f"tcp://127.0.0.1:{port0 + i}")
+        pubs.append(sock)
+    sink = ctx.socket(zmq.PULL)
+    sink.setsockopt(zmq.LINGER, 0)
+    sink.setsockopt(zmq.RCVTIMEO, 2000)
+    sdr = PyCuSDR(conf, args=None)
+    assert len(sdr.demodulators) == (1 if group else n_rx)
+    sdr.start()
+    try:
+        deadline = time.time() + RUNTIME_WAIT_S
+        flags = [d.warmedFlag for d in sdr.demodulators] + [sdr.dec.boundFlag]
+        while time.time() < deadline and not all(f.is_set() for f in flags):
+            assert all(t.is_alive() for t in sdr.tasks), "a runtime child died while warming"
+            time.sleep(0.2)
+        assert all(f.is_set() for f in flags), "runtime children not warm"
+        # connect once the decoder listens: a connect retried against a
+        # port in the ephemeral range can connect the socket to itself
+        sink.connect(f"tcp://localhost:{port0 + 12}")
+        time.sleep(1.0)  # let the SUB sockets connect
+        t0 = time.time()
+        rng = np.random.RandomState(SEED)
+        payload = None
+        while payload is None and time.time() < deadline:
+            chans = [awgn(stream, 14.0, rng=rng).astype(np.complex64) for _ in pubs]
+            for pos in range(0, len(stream) - hop + 1, hop):
+                for sock, c in zip(pubs, chans):
+                    sock.send(c[pos:pos + hop].tobytes())
+                time.sleep(0.05)
+            try:
+                payload = sink.recv()
+            except zmq.error.Again:
+                continue
+        assert payload is not None, f"{name}: no packet decoded within {RUNTIME_WAIT_S} s"
+        expected = bytes(bytearray(sdr.protocols["UHF"].Packet(bits).getBinaryData()[0]))
+        return (payload == expected, [d.device for d in sdr.demodulators],
+                [1e3 * d.timeMA for d in sdr.demodulators if hasattr(d, "timeMA")],
+                time.time() - t0)
+    finally:
+        sdr.terminate()
+        for sock in pubs + [sink]:
+            sock.close()
+        ctx.term()
+
+
+def main_path_runtime():
+    """The process pipeline from the shipped configs: bench_3_chan_rx.json
+    as one lockstep channel group (three antennas, K8 in the child), then
+    bench_FSK.json through one ``Demodulator_process``; both must decode
+    the payload, with their Rx children on the card."""
+    out = {}
+    for key, name, port0, group in (("group", "bench_3_chan_rx.json", RUNTIME_PORT, True),
+                                    ("single", "bench_FSK.json", RUNTIME_PORT + 20, False)):
+        t0 = time.time()
+        equal, devices, host_ms, first_s = run_runtime(name, port0, group)
+        assert equal, f"runtime {key}: decoded bytes differ from the payload"
+        assert devices and all(d == "cuda" for d in devices), f"runtime {key}: devices {devices}"
+        out[key] = dict(config=name, devices=devices, host_ms_per_block=host_ms,
+                        first_packet_s=first_s, seconds=time.time() - t0)
+    return out
+
+
 def cuda_ms(fn, iters=20, reps=7):
     """Median over ``reps`` of the mean CUDA-event time of ``iters`` calls."""
     fn()
@@ -666,6 +1002,13 @@ def snr_band_bins(spec, consts, dopp_idx):
     hi = torch.clamp(torch.ceil(dopp_idx).long(), 0, D - 1)
     a = torch.remainder(consts.shifts[lo].long() - w, N)
     return 2 * int(torch.remainder(consts.shifts[hi].long() + w - a, N).sum())
+
+
+def bound_of(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the f32 operations over the f32 rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 def bounds(spec, B, band_bins=0):
@@ -707,12 +1050,8 @@ def bounds(spec, B, band_bins=0):
         "symbol_detect": (B * (4 * min(S * W, N) + 4 * S + 14 * S + 4 + (N // 8 if clip else 0)),
                           B * S * (W + 8)),
     }
-    out = {}
-    for name in PATH_KERNELS["flagship" if spec.doppler_search else "stx"]:
-        nbytes, flops = work[name]
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        out[name] = (1e3 * max(tb, tf), "bytes" if tb >= tf else "operations")
-    return out
+    return {name: bound_of(*work[name])
+            for name in PATH_KERNELS["flagship" if spec.doppler_search else "stx"]}
 
 
 def check_bounds(t, bnd, B, label):
@@ -781,9 +1120,7 @@ def viterbi_bound(lengths, decode):
     for the minimum, 64 subtractions, 1 add to the total)."""
     steps, S = sum(lengths), len(lengths)
     nbytes = 8 * steps + 4 * S + 8 * S + (steps if decode else 0)
-    flops = steps * (4 * 3 + 128 + 64 + 63 + 64 + 1)
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+    return bound_of(nbytes, steps * (4 * 3 + 128 + 64 + 63 + 64 + 1))
 
 
 def time_viterbi():
@@ -812,6 +1149,48 @@ def time_feed(blocks=12, plain_blocks=3):
         for i in range(1, n):
             vs.feed(x[i])
         out.append(1e3 * (time.perf_counter() - t0) / (n - 1))
+    return out
+
+
+def nrzs_bound(spec, B):
+    """K4n's least time: per block the symbols and trust read and the bits
+    and trust written (16 bytes a slot), nSym and nBits; the LUT once |
+    2K compares a slot."""
+    S = spec.numSymMax
+    M, _, K = spec.symbolLUT.shape
+    return bound_of(B * (16 * S + 8) + 8 * M * K, B * S * 2 * K)
+
+
+def vote_bound(C, S):
+    """K8's least time: each row's bits and trust read, the pair written
+    (C S 8 + S 8 bytes) | about 6 operations a (channel, slot)."""
+    return bound_of(C * S * 8 + S * 8, 6 * C * S)
+
+
+def time_slice4(bspec, bconsts, fspec):
+    """K4n at B=1/16/64 on the bench_BPSK rows and K8 at C=3/16/64 on the
+    flagship rows: name -> {B or C: (ms, plain_ms, (bound ms, by))}; and the
+    group graph at C=3 against the block graph at B=3 on the same blocks
+    (ms per call), which gives the vote's share."""
+    out = {"nrzs_bits": {}, "vote": {}}
+    S, lut = bspec.numSymMax, bconsts.symbolLUT
+    for B in BATCHES:
+        rows = nrzs_rows(bspec, bconsts, B)
+        out["nrzs_bits"][B] = (cuda_ms(lambda: dk.nrzs_bits(rows, lut, S)),
+                               cuda_ms(lambda: dk.nrzs_rows_plain(rows, lut, S)),
+                               nrzs_bound(bspec, B))
+    L, S = packed_len(fspec), fspec.numSymMax
+    for C in VOTE_CS:
+        rows, _ = vote_input(C, S, L)
+        o = torch.empty((2, S), device="cuda")
+        out["vote"][C] = (cuda_ms(lambda: pv.vote_rows(rows, S, 1.2, o)),
+                          cuda_ms(lambda: pv.vote_rows_plain(rows, S, 1.2, o)),
+                          vote_bound(C, S))
+    x = torch.from_numpy(group_blocks(fspec, GROUP_C)[0]).cuda()
+    group = build_group_graph(fspec, GROUP_C, 1.2, device="cuda")
+    batch = build_process_batch(fspec, device="cuda", packed=True)
+    out["group_ms"] = cuda_ms(lambda: group(x), iters=10)
+    out["batch_ms"] = cuda_ms(lambda: batch(x), iters=10)
     return out
 
 
@@ -877,6 +1256,19 @@ def main() -> int:
     errs["viterbi"], n_cases = check_viterbi()
     say("kernels", f"K7 viterbi vs plain OK on {n_cases} cases (bits equal), max abs metric "
                    f"err {errs['viterbi']}")
+    bcfg = bpsk_configuration()
+    bspec = bcfg[2]
+    bconsts = DeviceConsts.from_spec(bspec, torch.device("cuda"))
+    minus1 = {B: check_nrzs(bspec, bconsts, B) for B in BATCHES}
+    errs["nrzs_bits"] = 0.0
+    say("kernels", f"K4n nrzs_bits vs plain OK at the bench_BPSK shape (Nfft 2^16, S "
+                   f"{bspec.numSymMax}, LUT {tuple(bspec.symbolLUT.shape)}), B={list(BATCHES)}: "
+                   f"rows equal, trust -2 kept; slots set to trust -1: {minus1}")
+    fspec = cfg["flagship"][2]
+    for C in VOTE_CS:
+        errs["vote"] = check_vote(C, fspec.numSymMax, packed_len(fspec))
+    say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CS)}, S={fspec.numSymMax}: masked rows "
+                   f"and voted pair equal, pinned ties vote 0, disqualified slots trust -1")
 
     res = {"flagship": main_path_flagship(*cfg["flagship"]),
            "stx": main_path_stx(*cfg["stx"])}
@@ -887,6 +1279,17 @@ def main() -> int:
     say("main", f"ccsds {CCSDS_FRAMES} frames bit-exact at {list(SNRS_DB)} dB via process and "
                 f"processMany(16); plain path's packets equal at {SNRS_DB[-1]} dB; "
                 + json.dumps(res["ccsds"]))
+    res["bpsk"] = main_path_bpsk(*bcfg)
+    say("main", "bpsk process x16 == processMany(16) == processCapture == plain path; packets "
+                "equal to the payload; " + json.dumps(res["bpsk"]))
+    res["group"] = main_path_group(fspec)
+    say("main", f"group C={GROUP_C}: rows and voted pair equal to the plain path's, voted BER "
+                f"<= the best channel's; " + json.dumps(res["group"]))
+    t_rt = time.perf_counter()
+    runtime = main_path_runtime()
+    say("main", f"runtime: PyCuSDR decoded the payload from bench_3_chan_rx.json (channel group) "
+                f"and bench_FSK.json (one demodulator child), children on the card, in "
+                f"{time.perf_counter() - t_rt:.1f} s; " + json.dumps(runtime))
 
     times = {}
     for p in cfg:
@@ -928,6 +1331,22 @@ def main() -> int:
                  f"signal at {cspec.sampleRate / 1e3:.1f} ksps, so the decoder takes "
                  f"{100 * dec_ms / (1e3 * block_s):.2f}% of real time")
 
+    t4 = time_slice4(bspec, bconsts, fspec)
+    for k, unit in (("nrzs_bits", "B"), ("vote", "C")):
+        for n, (ms, pms, (bms, by)) in t4[k].items():
+            assert ms >= bms and pms >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
+            say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
+                         f"library_ms=null bound_ms={bms:.4g} ({by})")
+    say("times", f"{card} | group graph C={GROUP_C} {t4['group_ms']:.4f} ms/call against the "
+                 f"block graph at B={GROUP_C} {t4['batch_ms']:.4f} ms/call on the same blocks: "
+                 f"the vote adds {t4['group_ms'] - t4['batch_ms']:.4f} ms "
+                 f"({100 * (t4['group_ms'] - t4['batch_ms']) / t4['group_ms']:.1f}%)")
+    for key, r in runtime.items():
+        host = (f"Rx child host ms per block (timeMA) {r['host_ms_per_block']}, "
+                if r["host_ms_per_block"] else "")
+        say("times", f"{card} | runtime {key} ({r['config']}): {host}first packet after "
+                     f"{r['first_packet_s']:.2f} s of feed")
+
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1)):
         wall, busy, n, tops = profile_graph(cfg[p][2], B)
         idle = "not measured" if n == 0 else f"{100 * (1 - busy / wall):.1f}%"
@@ -938,6 +1357,18 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         by_path = {p: res[p]["launches"][k] for p in res}
+        if k in t4:
+            unit = "B" if k == "nrzs_bits" else "C"
+            at = LINE_BATCH if k == "nrzs_bits" else GROUP_C
+            ms, pms, (bms, by) = t4[k][at]
+            kernels.append({
+                "name": k, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                "bound_by": by, "library_ms": None, unit.lower(): at,
+                f"by_{unit}": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                                   "bound_by": v[2][1]} for n, v in t4[k].items()}})
+            continue
         if k == "viterbi":
             ms, pms, (bms, by), lengths = vt[1]
             kernels.append({
@@ -960,7 +1391,8 @@ def main() -> int:
         kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

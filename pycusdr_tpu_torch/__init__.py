@@ -3,31 +3,43 @@ Hopper (H100).
 
 It stands beside the JAX package, which stays the reference, and imports
 nothing of it (nor ``jax``): it keeps its own copy of each host module it
-needs. It runs one Rx channel's per-block demodulation end to end in two
-modes: UHF with the Doppler search (``models.uhf.Demodulator``) and STX
-with spike clipping at a fixed offset (``models.stx.Demodulator``); and
-the concatenated CCSDS downlink around the UHF mode: the Tx chain
-(``tx.Modulator``) and the decoder (``decode.Decoder``: streaming Viterbi,
-frame sync, RS). The device ops are hand-written CUDA kernels for sm_90a
-(``csrc/``, built at first use), each with a plain PyTorch version
-beside it.
+needs. It runs the modem as a ground station starts it,
+``python -m pycusdr_tpu_torch -c config.json``: the orchestrator spawns
+one demodulator child per Rx radio, or one lockstep channel-group child
+that demodulates clock-shared antennas in one dispatch and votes on the
+card, and a decoder child, wired by ZMQ. Inside them: the per-block
+demodulation in two modes, UHF with the Doppler search
+(``models.uhf.Demodulator``) and STX with spike clipping at a fixed
+offset (``models.stx.Demodulator``), for centre-bit and NRZ-S (BPSK)
+protocols; the concatenated CCSDS downlink's Tx chain (``tx.Modulator``)
+and decoder (``decode.Decoder``: streaming Viterbi, frame sync, RS). The
+device ops are hand-written CUDA kernels for sm_90a (``csrc/``, built at
+first use), each with a plain PyTorch version beside it.
 
 =========  ====================================================
 subpkg     role
 =========  ====================================================
+runtime    orchestrator, demodulator / channel-group / decoder
+           processes, sample ingest, the CLI
 ops        kernel wrappers, plain versions, the kernel build,
            the convolutional code and streaming Viterbi
+parallel   the channel group's vote (K8)
 csrc       CUDA C++ sources of the kernels
 dsp        spec, the per-block device graph, test signals, AWGN
 models     Demodulator frontend and block healing
-decode     frame finder and RS(255,223)
+decode     frame finder, RS(255,223), packet de-duplication
 tx         framers, LUT modulators, Modulator (host numpy)
-protocol   the benchmark FSK/GFSK protocols and CCSDS
-utils      filters, CRC-16, shift-register sequences
+protocol   the benchmark FSK/GFSK/BPSK protocols and CCSDS
+config     the modular JSON loader and the shipped configs
+control    the XML-RPC server
+obs        per-worker stats and post-pass analytics
+utils      filters, NRZ-S, CRC-16, shift registers, logging
 =========  ====================================================
 
 Entry points take ``device=None``, meaning the card; they raise when no
-card is present unless the caller passes ``device="cpu"``.
+card is present unless the caller passes ``device="cpu"``. The runtime
+reads its device from ``PYCUSDR_TORCH_DEVICE`` (unset: the card) or the
+CLI's ``--device``.
 """
 
 __version__ = "0.1.0"

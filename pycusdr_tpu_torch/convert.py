@@ -55,7 +55,8 @@ class DeviceConsts:
     shifts: torch.Tensor  # (D,) int32 grid shifts in [0, N)
     shifts_signed: torch.Tensor  # (D,) int32 unwrapped into [-N/2, N/2)
     hz_lut: torch.Tensor  # (D,) f32
-    bitLUT: torch.Tensor  # (M,) int8
+    bitLUT: torch.Tensor  # (M,) int8, or None for NRZ-S protocols
+    symbolLUT: torch.Tensor  # (M, 2, K) int32 NRZ-S transition LUT, or None
     tw: torch.Tensor  # (N, 2) f32 twiddle table exp(+2πi j/N)
     fixed_shift: torch.Tensor  # (1,) int32 spectrum shift of the no-search mode
     n1: int  # K2's four-step split N = n1 * (N / n1)
@@ -79,6 +80,8 @@ class DeviceConsts:
             hz_lut=t(np.asarray(spec.dopp_hz_lut).astype(np.float32)),
             bitLUT=(None if spec.bitLUT is None
                     else t(np.asarray(spec.bitLUT).astype(np.int8))),
+            symbolLUT=(None if spec.symbolLUT is None
+                       else t(np.asarray(spec.symbolLUT).astype(np.int32))),
             tw=twiddle_table(N, device),
             fixed_shift=t(np.array([spec.dopp_offset_idx], np.int32)),
             n1=fft_split(N),

@@ -1,9 +1,11 @@
-// K4 symbol_detect: windowed symbol detection, bit mapping and trust.
+// K4 symbol_detect: windowed symbol detection, bit mapping and trust;
+// K4n nrzs_bits: NRZ-S bit extraction from K4's symbols (BPSK).
 //
 // For each slot x < numSymMax of block b, with spc = max(spSym, spsymMin):
 //   A0 = trunc(x*spc - W/2 + codeOffset), A = clamp(A0, 0, N - W)
 //   j  = argmax of colmax[A .. A+W) (the earliest sample wins ties)
-//   symbol = colargmax[j], mag = colmax[j], bit = bitLUT[symbol],
+//   symbol = colargmax[j], mag = colmax[j], bit = bitLUT[symbol] (0 when
+//            the protocol has no centre-bit LUT: K4n writes the bits),
 //   centre = trunc(x*spc - W/2 + (j - A)) + trunc(codeOffset) - min(A0, 0),
 //   trust  = trust_normal, or -2 when a clip bitmask is given and a hit
 //            lies in [j - hw, j + hw], hw = clamp(2*ceil(spc), 0, hw_max);
@@ -31,11 +33,26 @@
 // bounds it. The slot arithmetic must round exactly as JAX's separate
 // f32 multiply and add do: nvcc would contract a*b+c into one FMA and
 // move a truncation boundary, so it is spelled with __f*_rn.
+//
+// K4n, for protocols without a centre-bit LUT (NRZ-S, bench_BPSK): bit i
+// is the (symbol[i], symbol[i+1 mod S]) transition looked up in the (M, 2,
+// K) symbol LUT: 1 when symbol[i+1] is one of lut[symbol[i]][0], 0 when it
+// is one of lut[symbol[i]][1], else 0 with trust -1 (a -2 from the clip
+// window stays); nBits = nSym - 1. It replaces
+// pycusdr_tpu/ops/demod_kernels.py:extract_bits_nrzs (:597-619; its one-hot
+// (n, M) x (M, K) matmul avoided a gather on the TPU) and the trust and
+// nBits lines of dsp/block.py:318-331. bit i needs symbol i+1, which
+// another K4 thread finds, so it is a second launch over K4's row: one
+// thread per slot, the LUT (<= 16 x 2 x 4 words) in shared memory. The
+// roll wraps slot S-1 onto slot 0 over the padded slots too, as jnp.roll
+// does. Bound: 4 bytes read and 8 written per slot (~55 KB per flagship
+// block), so the launch bounds it.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kNrzsThreads = 256;
 constexpr int8_t kTrustClipped = -2;
 
 // Any bit of [lo, hi] (inclusive sample indices) set in the bitmask w?
@@ -105,7 +122,7 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
             tr = kTrustClipped;
     }
     if (r) {
-        r[x] = (float)bitLUT[sym];
+        r[x] = bitLUT ? (float)bitLUT[sym] : 0.f;
         r[S + x] = (float)tr;
         r[2 * (size_t)S + x] = (float)sym;
         r[3 * (size_t)S + x] = (float)centre;
@@ -115,14 +132,41 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
         symbols[o] = sym;
         mags[o] = best;
         centres[o] = centre;
-        bits[o] = bitLUT[sym];
+        bits[o] = bitLUT ? bitLUT[sym] : (int8_t)0;
         trust[o] = tr;
     }
 }
 
+__global__ void __launch_bounds__(kNrzsThreads)
+nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, int M, int K) {
+    extern __shared__ int tab[];  // (M, 2, K)
+    for (int i = threadIdx.x; i < M * 2 * K; i += kNrzsThreads) tab[i] = lut[i];
+    __syncthreads();
+    float* r = row + (size_t)blockIdx.y * L;
+    const int x = blockIdx.x * kNrzsThreads + threadIdx.x;
+    if (x == 0) r[5 * (size_t)S + 1] = r[5 * (size_t)S] - 1.f;  // nBits = nSym - 1
+    if (x >= S) return;
+    const int prev = (int)r[2 * (size_t)S + x];
+    const int next = (int)r[2 * (size_t)S + (x + 1 == S ? 0 : x + 1)];
+    bool one = false, zero = false;
+    if (prev >= 0 && prev < M) {
+        const int* t = tab + prev * 2 * K;
+        for (int k = 0; k < K; ++k) {
+            one |= t[k] == next;
+            zero |= t[K + k] == next;
+        }
+    } else {  // JAX's one-hot select gives all-zero tables here
+        one = zero = next == 0;
+    }
+    const bool err = !(one || zero);
+    r[x] = (!err && one) ? 1.f : 0.f;
+    if (err && r[S + x] != (float)kTrustClipped) r[S + x] = -1.f;
+}
+
 }  // namespace
 
-// colmax, colargmax: (B, N); spSym, codeOffset: (B,) f32; bitLUT: (M,) int8;
+// colmax, colargmax: (B, N); spSym, codeOffset: (B,) f32; bitLUT: (M,) int8
+// or NULL (bits 0);
 // hits: (B, N/32) u32 or NULL; code_val: (B,) f32 (read only with a row);
 // clipped_any: (B,) i32 or NULL (0). Either the typed outputs symbols,
 // centres: (B, S) i32; mags: (B, S) f32; bits, trust: (B, S) int8; nSym:
@@ -143,5 +187,17 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
     symbol_detect<<<dim3((S + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
         colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, symbols,
         centres, mags, bits, trust, nSym, row, L, N, W, spsymMin, S, trust_normal, hw_max);
+    return (int)cudaGetLastError();
+}
+
+// row: (B, L) f32 packed rows that K4 wrote (L >= 5 S + 12), updated in
+// place; lut: (M, 2, K) int32.
+PYCUSDR_API int pycusdr_nrzs_bits(float* row, const int* lut, int L, int B, int S, int M,
+                                  int K, cudaStream_t stream) {
+    const size_t smem = (size_t)M * 2 * K * sizeof(int);
+    if (B <= 0 || S <= 0 || M <= 0 || K <= 0 || L < 5 * S + 12 || smem > 48 * 1024)
+        return (int)cudaErrorInvalidValue;
+    nrzs_bits<<<dim3((S + kNrzsThreads - 1) / kNrzsThreads, B), kNrzsThreads, smem, stream>>>(
+        row, lut, L, S, M, K);
     return (int)cudaGetLastError();
 }

@@ -3,14 +3,17 @@
 [spike clipping (K6)] -> FFT -> [Doppler energy (K1) -> Doppler estimate,
 interpolation and SNR (K5) | the fixed shift] -> best-shift
 matched-filter bank reduced over masks (K2) -> symbol timing (K3) ->
-symbol detection with bits, trust and the clip window (K4) -> one packed
-f32 row per block.
+symbol detection with bits, trust and the clip window (K4) [-> NRZ-S
+bits from the symbol transitions (K4n)] -> one packed f32 row per block.
 
 The bracketed stages follow the spec: the UHF mode searches Doppler and
 does not clip; the STX mode (``doppler_search=False``,
 ``disable_peak_thresholding=False``) clips interference spikes, tags the
 bits near them with trust -2 and shifts the spectrum by the fixed IF
-offset (``pycusdr_tpu/dsp/block.py:219-222,268-275,296-331``).
+offset (``pycusdr_tpu/dsp/block.py:219-222,268-275,296-331``). K4n runs
+for a protocol without a centre-bit LUT (bench_BPSK): its bits come from
+the symbol LUT, with trust -1 on a transition error and nBits = nSym - 1
+(``pycusdr_tpu/dsp/block.py:318-331``).
 
 The graph comes in two forms, complex64 throughout:
 
@@ -39,6 +42,9 @@ from pycusdr_tpu_torch.ops.demod_kernels import (
     dilate_mask_plain,
     mf_bank_colreduce,
     mf_bank_colreduce_plain,
+    nrzs_bits,
+    nrzs_bits_plain,
+    nrzs_trust_plain,
     symbol_detect,
     symbol_detect_plain,
     threshold_input,
@@ -106,12 +112,6 @@ def unpack_block_outputs(vec: np.ndarray, spec: DemodSpec) -> dict:
     return out
 
 
-def _check_supported(spec: DemodSpec) -> None:
-    if spec.bitLUT is None:
-        raise NotImplementedError(
-            "NRZ-S bit extraction is not yet ported (ROADMAP.md Queue 2: extract_bits_nrzs)")
-
-
 def _k4_kwargs(spec: DemodSpec, c: DeviceConsts) -> dict:
     return dict(Nfft=spec.Nfft, windowWidth=spec.windowWidth, spsymMin=spec.spsymMin,
                 numSymMax=spec.numSymMax, trust_normal=c.trust_normal)
@@ -133,10 +133,12 @@ def _fixed_tail(spec: DemodSpec, dev) -> torch.Tensor:
 
 
 def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
-                  fixed_tail: torch.Tensor) -> torch.Tensor:
-    """The kernel path on a (B, N) complex64 batch; returns the (B, L) rows."""
+                  fixed_tail: torch.Tensor, row: torch.Tensor = None) -> torch.Tensor:
+    """The kernel path on a (B, N) complex64 batch; returns the (B, L)
+    rows, written into ``row`` when given."""
     M, S_ = spec.num_masks, spec.numSymMax
-    row = torch.empty((x.shape[0], packed_len(spec)), dtype=torch.float32, device=x.device)
+    if row is None:
+        row = torch.empty((x.shape[0], packed_len(spec)), dtype=torch.float32, device=x.device)
     tail = row[:, len(PACK_ARRAYS) * S_:]
     hits = clipped_any = None
     if not spec.disable_peak_thresholding:
@@ -156,8 +158,11 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
     colsum, colmax, colarg = mf_bank_colreduce(S, c.masks_f, shift, off, M - off, tw=c.tw)
     spSym, codeOffset, code_val = timing_band(colsum, spec.code_idx_lo, spec.code_idx_hi,
                                               tw=c.tw)
-    return symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
-                         hits=hits, row=row, code_val=code_val, clipped_any=clipped_any)
+    symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
+                  hits=hits, row=row, code_val=code_val, clipped_any=clipped_any)
+    if c.bitLUT is None:
+        nrzs_bits(row, c.symbolLUT, S_)
+    return row
 
 
 def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
@@ -189,10 +194,15 @@ def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
     symbols, centres, mags, bits, trust, nSym = symbol_detect_plain(
         colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
         clip_mask=clip_mask)[:6]
+    nBits = nSym
+    if c.bitLUT is None:
+        bits, err = nrzs_bits_plain(symbols, c.symbolLUT)
+        trust = nrzs_trust_plain(trust, err)
+        nBits = nSym - 1
 
     return {
         "bits": bits, "trust": trust, "symbols": symbols, "centres": centres,
-        "mags": mags, "nSym": nSym, "nBits": nSym, "spSym": spSym,
+        "mags": mags, "nSym": nSym, "nBits": nBits, "spSym": spSym,
         "codeOffset": codeOffset, "code_val": code_val, "dopp_idx": dopp_idx,
         "quality_db": quality_db, "doppler_hz": doppler_hz,
         "freq_offset_hz": freq_offset_hz, "snr_db": snr_db, "shift": shift,
@@ -204,28 +214,34 @@ def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
 
 def build_process_batch(spec: DemodSpec, device=None, packed: bool = False,
                         plain: bool = False):
-    """Return ``process(blocks) -> outputs`` for (B, Nfft) complex64
-    blocks: a dict of (B, ...) tensors, or with ``packed`` one (B, L) f32
-    tensor in the layout of ``pack_block_outputs``.
+    """Return ``process(blocks, row=None) -> outputs`` for (B, Nfft)
+    complex64 blocks: a dict of (B, ...) tensors, or with ``packed`` one
+    (B, L) f32 tensor in the layout of ``pack_block_outputs``, written
+    into ``row`` (a (B, L) f32 tensor on the device) when given.
 
     ``device``: None means the card (raises without one); pass "cpu" to
     run on the CPU, where every wrapper takes its kernel's plain version.
     ``plain``: run the plain path (``_process_plain``) instead of the
     kernels: the reference the kernels are held against on the card.
     """
-    _check_supported(spec)
+    if spec.bitLUT is None and spec.symbolLUT is None:
+        raise ValueError("the spec has neither a centre-bit LUT nor an NRZ-S symbol LUT")
     dev = _lib.resolve_device(device)
     consts = DeviceConsts.from_spec(spec, dev)
     fixed_tail = None if spec.doppler_search else _fixed_tail(spec, dev)
 
-    def process(blocks):
+    def process(blocks, row=None):
         x = torch.as_tensor(blocks).to(dev, torch.complex64).contiguous()
         if x.dim() != 2 or x.shape[1] != spec.Nfft:
             raise ValueError(f"expected (B, {spec.Nfft}) blocks, got {tuple(x.shape)}")
+        if row is not None and (not packed or tuple(row.shape) != (x.shape[0], packed_len(spec))):
+            raise ValueError("row: needs packed=True and shape (B, L)")
         if plain:
             out = _process_plain(x, spec, consts)
-            return pack_block_outputs(out) if packed else out
-        row = _process_rows(x, spec, consts, fixed_tail)
+            if not packed:
+                return out
+            return pack_block_outputs(out) if row is None else row.copy_(pack_block_outputs(out))
+        row = _process_rows(x, spec, consts, fixed_tail, row=row)
         return row if packed else unpack_rows(row, spec)
 
     process.device = dev

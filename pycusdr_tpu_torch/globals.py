@@ -1,5 +1,7 @@
 """Global constants and small config helpers (the port's own copy of the
-parts of ``pycusdr_tpu/globals.py`` the demodulation and Tx paths need).
+parts of ``pycusdr_tpu/globals.py`` the demodulation, Tx and runtime paths
+need), and ``torch_device``, the port's counterpart of
+``apply_platform_override``.
 
 Trust semantics (int8):
   normal bit        : +2 * voteWeight
@@ -8,10 +10,16 @@ Trust semantics (int8):
 """
 
 import logging
+import os
 
 import numpy as np
 
+LOG_NAME = "pycusdr_tpu_torch"
 log = logging.getLogger(__name__)
+
+#: environment variable naming the device the runtime's processes use:
+#: unset means the card ("cuda"); "cpu" runs the plain PyTorch path
+DEVICE_ENV = "PYCUSDR_TORCH_DEVICE"
 
 SAVETX_DATA = False  # Tx: snapshot the last modulated waveform to .npy
 STORE_BITS_IN_FILE = False  # Rx: dump demodulated bits (slow, debug only)
@@ -36,3 +44,12 @@ def attr_in_config(cfg: dict, attr: str, defaultVal, warningOnFail: bool = True)
     if warningOnFail:
         log.warning("'%s' not specified in config. Using default value of %s", attr, defaultVal)
     return defaultVal
+
+
+def torch_device():
+    """The device the runtime runs on, from ``PYCUSDR_TORCH_DEVICE``: unset
+    means the card, and raises when there is none; "cpu" must be asked
+    for. Spawned children inherit the variable, so they read the same."""
+    from pycusdr_tpu_torch.ops._lib import resolve_device
+
+    return resolve_device(os.environ.get(DEVICE_ENV) or None)

@@ -29,6 +29,25 @@ SYMBOL_CHECK_ERROR_THRESHOLD = 1000
 SYMBOL_CHECK_MATCH_NUM_ERRORS_ALLOWED = 10
 
 
+def start_download(vec: torch.Tensor):
+    """Queue ONE device-to-host copy of a packed result into pinned memory
+    (nothing to do for a CPU tensor); ``finish_download`` waits for it."""
+    if vec.device.type != "cuda":
+        return vec, None
+    out = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+    out.copy_(vec, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return out, done
+
+
+def finish_download(pending) -> np.ndarray:
+    out, done = pending
+    if done is not None:
+        done.synchronize()
+    return out.numpy()
+
+
 class Demodulator:
     """One Rx channel: streaming state + device block graph.
 
@@ -98,24 +117,6 @@ class Demodulator:
         pinned.copy_(t)
         return pinned.to(self.device, non_blocking=True)
 
-    def _start_download(self, vec: torch.Tensor):
-        """Queue ONE device-to-host copy of a packed result into pinned
-        memory; ``_finish_download`` waits for it."""
-        if not self._cuda:
-            return vec, None
-        out = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
-        out.copy_(vec, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return out, done
-
-    @staticmethod
-    def _finish_download(pending) -> np.ndarray:
-        out, done = pending
-        if done is not None:
-            done.synchronize()
-        return out.numpy()
-
     # ---------------- reference-parity public API ----------------
 
     def get_signalBufferHostPointer(self):
@@ -128,7 +129,7 @@ class Demodulator:
         streaming state (healer, staging buffer, Doppler memory): builds
         the kernels and fills the allocator caches before samples flow."""
         vec = self._process_batch(self._upload(np.zeros((1, self.Nfft), np.complex64)))
-        self._finish_download(self._start_download(vec))
+        finish_download(start_download(vec))
 
     def dispatch(self, samples=None):
         """Queue one block's device graph; return a handle for ``collect``.
@@ -162,7 +163,7 @@ class Demodulator:
 
     def _fetch(self, handle):
         self._last = unpack_block_outputs(
-            self._finish_download(self._start_download(handle)), self.spec)
+            finish_download(start_download(handle)), self.spec)
         return self._carrier_stats(self._last)
 
     def _carrier_stats(self, r):
@@ -231,7 +232,7 @@ class Demodulator:
             tail = blocks[i, -self.sigOverlap :]
         self._signal_buffer[: self.sigOverlap] = tail
 
-        res = self._finish_download(self._start_download(
+        res = finish_download(start_download(
             self._process_batch(self._upload(blocks))))
         return [self._emit_packed_row(res[i]) for i in range(K)]
 
@@ -282,12 +283,12 @@ class Demodulator:
             # batch rounds exactly as processMany's, so a block's decisions
             # do not depend on how it was framed
             chunk = blocks[pos : pos + P].contiguous()
-            nxt = (self._start_download(self._process_batch(chunk)), min(P, K_total - pos))
+            nxt = (start_download(self._process_batch(chunk)), min(P, K_total - pos))
             if pending is not None:
-                res = self._finish_download(pending[0])
+                res = finish_download(pending[0])
                 out.extend(self._emit_packed_row(res[i]) for i in range(pending[1]))
             pending = nxt
-        res = self._finish_download(pending[0])
+        res = finish_download(pending[0])
         out.extend(self._emit_packed_row(res[i]) for i in range(pending[1]))
         # leave the overlap-save history where live streaming expects it
         self._signal_buffer[:ov] = full[-ov:]

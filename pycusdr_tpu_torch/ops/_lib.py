@@ -56,6 +56,10 @@ SIGNATURES = {
     # sym, lengths, dec|NULL, bits|NULL, met, S, Tmax, soft, terminated, invert_g2,
     # decode, stream
     "pycusdr_viterbi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # row, lut, L, B, S, M, K, stream
+    "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # rows, out, C, L, S, master_weight, stream
+    "pycusdr_vote": [_P, _P, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Demodulation-stage ops: interference spike clipping (kernel K6), the
 matched-filter bank reduced over masks (K2), the symbol-timing band
-search (K3), and symbol detection with bits, trust and the clip window
-(K4).
+search (K3), symbol detection with bits, trust and the clip window
+(K4), and NRZ-S bit extraction over K4's symbols (K4n).
 
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor
 and launches its hand-written CUDA kernel (``csrc/``) for a CUDA tensor,
@@ -21,6 +21,8 @@ from pycusdr_tpu_torch.ops.layout import PACK_ARRAYS, PACK_SCALARS, SCALAR
 
 #: trust of a bit whose winning sample lies near clipped interference
 TRUST_CLIPPED = -2
+#: trust of an NRZ-S transition that matches neither table of the LUT
+TRUST_SYMBOL_ERROR = -1
 #: the clip dilation's half width is clamped here (JAX dilate_mask_dynamic)
 CLIP_HW_MAX = 2048
 #: samples per K6 block; the partial sums of the chunks are added in order
@@ -244,6 +246,7 @@ def symbol_detect_plain(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     mags, bits, trust, nSym). The f32 slot arithmetic is one rounded op
     at a time, as in the JAX op.
 
+    ``bitLUT`` None (NRZ-S protocols): bits 0, for ``nrzs_bits_plain``.
     ``clip_mask``: the dilated (B, N) bool clip mask (``dilate_mask_plain``).
     It is sampled at each slot's winning sample, as ``find_centres``
     samples it (``ops/demod_kernels.py:476-480,572-583``, JAX); those
@@ -265,7 +268,8 @@ def symbol_detect_plain(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     k = k[..., 0].to(torch.int32)
     centres = torch.trunc(xs + k.float()).to(torch.int32) + comp
     nSym = (Nfft / spc).to(torch.int32)
-    bits = bitLUT[symbols.long()]
+    bits = (torch.zeros_like(symbols, dtype=torch.int8) if bitLUT is None
+             else bitLUT[symbols.long()])
     trust = torch.full_like(bits, trust_normal)
     if clip_mask is None:
         return symbols, centres, mags, bits, trust, nSym
@@ -329,7 +333,8 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     _lib.check(colarg, "colargmax", torch.int32, (B, N), dev)
     _lib.check(spSym, "spSym", torch.float32, (B,), dev)
     _lib.check(codeOffset, "codeOffset", torch.float32, (B,), dev)
-    _lib.check(bitLUT, "bitLUT", torch.int8, None, dev)
+    if bitLUT is not None:
+        _lib.check(bitLUT, "bitLUT", torch.int8, None, dev)
     if hits is not None:
         if N % 32:
             raise ValueError(f"symbol_detect: a clip bitmask needs N % 32 == 0, got {N}")
@@ -365,3 +370,70 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
 
 
 symbol_detect.launches = 0
+
+
+# ---------------------------------------------------------------- K4n
+
+
+def nrzs_bits_plain(symbols: torch.Tensor, symbolLUT: torch.Tensor):
+    """Plain PyTorch K4n: ``extract_bits_nrzs`` (``ops/demod_kernels.py:
+    597-619``, JAX) along the last axis. symbols: (..., S) int; symbolLUT:
+    (M, 2, K) int. bits[i] is 1 when symbols[i+1 mod S] is one of
+    symbolLUT[symbols[i], 0], 0 when it is one of symbolLUT[symbols[i],
+    1]; matching neither is an error (bit 0). A symbol outside [0, M)
+    selects all-zero tables, as JAX's one-hot select does. Returns (bits
+    int8, err bool)."""
+    s_next = torch.roll(symbols, -1, dims=-1)
+    M = symbolLUT.shape[0]
+    inside = ((symbols >= 0) & (symbols < M))[..., None]
+    rows = symbolLUT[symbols.clamp(0, M - 1).long()]  # (..., S, 2, K)
+    ones = torch.where(inside, rows[..., 0, :], 0)
+    zeros = torch.where(inside, rows[..., 1, :], 0)
+    res1 = (s_next[..., None] == ones).any(dim=-1)
+    res0 = (s_next[..., None] == zeros).any(dim=-1)
+    err = ~(res1 | res0)
+    return torch.where(err, 0, res1.to(torch.int8)).to(torch.int8), err
+
+
+def nrzs_trust_plain(trust: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """Trust -1 on an NRZ-S error, where the clip window has not set -2
+    (JAX sets -1 first, then -2: ``dsp/block.py:318-331``)."""
+    return torch.where(err & (trust != TRUST_CLIPPED),
+                       torch.tensor(TRUST_SYMBOL_ERROR, dtype=trust.dtype), trust)
+
+
+def nrzs_rows_plain(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> torch.Tensor:
+    """The plain version of ``nrzs_bits`` on the packed rows, in place."""
+    S = numSymMax
+    tail = len(PACK_ARRAYS) * S
+    bits, err = nrzs_bits_plain(row[:, 2 * S:3 * S].to(torch.int32), symbolLUT)
+    row[:, :S] = bits.float()
+    row[:, S:2 * S] = nrzs_trust_plain(row[:, S:2 * S], err)
+    row[:, tail + SCALAR["nBits"]] = row[:, tail + SCALAR["nSym"]] - 1
+    return row
+
+
+def nrzs_bits(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> torch.Tensor:
+    """K4n: NRZ-S bits over the packed (B, L) f32 rows that K4 wrote, in
+    place: bits from the symbols (``nrzs_bits_plain``), trust -1 on an
+    error (``nrzs_trust_plain``), nBits = nSym - 1. symbolLUT: (M, 2, K)
+    int32 on the rows' device. Returns ``row``."""
+    S = numSymMax
+    if row.dim() != 2 or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
+        raise ValueError(f"nrzs_bits: row shape {tuple(row.shape)} too small for S={S}")
+    if symbolLUT.dim() != 3 or symbolLUT.shape[1] != 2:
+        raise ValueError(f"nrzs_bits: symbolLUT must be (M, 2, K), got {tuple(symbolLUT.shape)}")
+    if row.device.type == "cpu":
+        return nrzs_rows_plain(row, symbolLUT, S)
+    if row.device.type != "cuda":
+        raise ValueError(f"nrzs_bits: unsupported device {row.device}")
+    _lib.check(row, "row", torch.float32)
+    _lib.check(symbolLUT, "symbolLUT", torch.int32, None, row.device)
+    M, _, K = symbolLUT.shape
+    _lib.launch("pycusdr_nrzs_bits", _lib.ptr(row), _lib.ptr(symbolLUT), row.shape[1],
+                row.shape[0], S, M, K)
+    nrzs_bits.launches += 1
+    return row
+
+
+nrzs_bits.launches = 0

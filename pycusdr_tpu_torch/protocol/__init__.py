@@ -1,5 +1,5 @@
 """Protocol registry: maps protocol names (config ``Main.protocols``) to
-classes. Ported so far: the benchmark FSK/GFSK protocols and CCSDS
+classes. Ported so far: the benchmark FSK/GFSK/BPSK protocols and CCSDS
 (plain and concatenated with the convolutional inner code)."""
 
 from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
@@ -21,6 +21,10 @@ def loadProtocol(name: str):
         from pycusdr_tpu_torch.protocol.benchmark import BenchGFSK
 
         return BenchGFSK
+    if key == "bench_bpsk":
+        from pycusdr_tpu_torch.protocol.benchmark import BenchBPSK
+
+        return BenchBPSK
     if key == "ccsds":
         from pycusdr_tpu_torch.protocol.ccsds import CCSDS
 

@@ -1,3 +1,3 @@
-from pycusdr_tpu_torch.utils.filters import gaussian_filter
+from pycusdr_tpu_torch.utils.filters import gaussian_filter, rrcosfilter
 
-__all__ = ["gaussian_filter"]
+__all__ = ["gaussian_filter", "rrcosfilter"]

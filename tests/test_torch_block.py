@@ -146,9 +146,11 @@ def test_batch_equals_per_block(bench_conf):
 
 @pytest.mark.parametrize("change", [dict(bitLUT=None)])
 def test_unported_modes_raise(fsk_block, change):
-    """NRZ-S bits (no centre-bit LUT) are not ported yet; STX runs (see
-    tests/test_torch_stx.py)."""
+    """Every bit mode is ported: STX (tests/test_torch_stx.py) and NRZ-S,
+    which needs the protocol's symbol LUT (tests/test_torch_nrzs.py). A
+    spec with neither a centre-bit LUT nor a symbol LUT is refused."""
     jspec, _, _ = fsk_block
     spec = dataclasses.replace(_carry(jspec), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert spec.symbolLUT is None
+    with pytest.raises(ValueError, match="neither a centre-bit LUT nor an NRZ-S symbol LUT"):
         build_process_block(spec, device="cpu")

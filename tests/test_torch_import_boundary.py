@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing every module of
-``pycusdr_tpu_torch`` and the module-level code of ``chip_smoke.py``
-loads neither ``jax`` nor the JAX package, and its CUDA entry points
-raise without a card instead of running on the CPU. Each check runs in
-a fresh interpreter (this test process has JAX loaded already)."""
+``pycusdr_tpu_torch`` (the runtime, the RPC server and the config loader
+among them), the module-level code of ``chip_smoke.py`` and running
+``python -m pycusdr_tpu_torch --help`` load neither ``jax`` nor the JAX
+package, and its CUDA entry points, the CLI included, raise without a
+card instead of running on the CPU. Each check runs in a fresh
+interpreter (this test process has JAX loaded already)."""
 
 import json
 import os
@@ -25,6 +27,20 @@ bad = sorted(n for n in sys.modules
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
+CLI_HELP = r"""
+import json, runpy, sys
+sys.argv = ["pycusdr_tpu_torch", "--help"]
+try:
+    runpy.run_module("pycusdr_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    code = e.code
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib" or n.startswith("jaxlib.")
+             or n == "pycusdr_tpu" or n.startswith("pycusdr_tpu."))
+cli = "pycusdr_tpu_torch.runtime.cli" in sys.modules
+print(json.dumps({"code": code, "bad": bad, "runtime": cli}))
+"""
+
 NO_CARD = r"""
 import json, numpy as np, torch
 from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, tiny_conf, tiny_spec
@@ -33,6 +49,8 @@ from pycusdr_tpu_torch.dsp.block import build_process_block
 from pycusdr_tpu_torch.models import UHF
 from pycusdr_tpu_torch.ops.viterbi import ViterbiStream, viterbi_decode
 from pycusdr_tpu_torch.protocol import loadProtocol
+from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
+from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
 assert not torch.cuda.is_available()
 raised = []
 conf = tiny_conf()
@@ -42,7 +60,9 @@ for make in (lambda: build_process_block(tiny_spec()),
              lambda: UHF.Demodulator(conf, loadProtocol("bench_GFSK")(conf=conf), RADIO),
              lambda: viterbi_decode(np.zeros(64)),
              lambda: ViterbiStream(),
-             lambda: Decoder({}, ccsds).findFrames(np.zeros(100, np.uint8), 0)):
+             lambda: Decoder({}, ccsds).findFrames(np.zeros(100, np.uint8), 0),
+             lambda: build_group_graph(tiny_spec(), 3, 1.2),
+             lambda: PyCuSDR(dict(conf, Interfaces={}))):
     try:
         make()
     except RuntimeError as e:
@@ -51,8 +71,14 @@ print(json.dumps({"raised": raised}))
 """
 
 
-def _run(code: str) -> dict:
+def _env():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    env.pop("PYCUSDR_TORCH_DEVICE", None)
+    return env
+
+
+def _run(code: str) -> dict:
+    env = _env()
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -66,10 +92,33 @@ def test_port_imports_no_jax():
                  "pycusdr_tpu_torch.dsp.block", "pycusdr_tpu_torch.convert",
                  "pycusdr_tpu_torch.ops.viterbi", "pycusdr_tpu_torch.decode.frame_finder",
                  "pycusdr_tpu_torch.decode.rs", "pycusdr_tpu_torch.protocol.ccsds",
-                 "pycusdr_tpu_torch.tx.modulator", "pycusdr_tpu_torch.tx.encoders"):
+                 "pycusdr_tpu_torch.tx.modulator", "pycusdr_tpu_torch.tx.encoders",
+                 "pycusdr_tpu_torch.parallel.vote", "pycusdr_tpu_torch.runtime.orchestrator",
+                 "pycusdr_tpu_torch.runtime.demodulator_process",
+                 "pycusdr_tpu_torch.runtime.channel_group_process",
+                 "pycusdr_tpu_torch.runtime.decoder_process", "pycusdr_tpu_torch.runtime.sigfifo",
+                 "pycusdr_tpu_torch.runtime.pipeline", "pycusdr_tpu_torch.runtime.cli",
+                 "pycusdr_tpu_torch.__main__", "pycusdr_tpu_torch.control.rpc",
+                 "pycusdr_tpu_torch.config.loader", "pycusdr_tpu_torch.obs.stats"):
         assert name in res["modules"]
 
 
 def test_cuda_entry_points_raise_without_a_card():
-    assert _run(NO_CARD)["raised"] == [True] * 6
+    assert _run(NO_CARD)["raised"] == [True] * 8
+
+
+def test_cli_help_imports_no_jax():
+    res = _run(CLI_HELP)
+    assert res == {"code": 0, "bad": [], "runtime": True}
+
+
+def test_cli_raises_without_a_card():
+    """``python -m pycusdr_tpu_torch -c <config>`` runs on the card by
+    default: without one (and without ``--device cpu``) it stops with the
+    error before any child starts."""
+    conf = REPO / "pycusdr_tpu_torch" / "config" / "configs" / "benchmark" / "bench_FSK.json"
+    out = subprocess.run([sys.executable, "-m", "pycusdr_tpu_torch", "-c", str(conf)],
+                         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
-at small T with ragged lengths).
+at small T with ragged lengths; K4n at the tiny bench_BPSK shape; K8 on
+random rows and in the group graph).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -13,13 +14,15 @@ import torch
 
 from pycusdr_tpu_torch import configs
 from pycusdr_tpu_torch.convert import DeviceConsts
-from pycusdr_tpu_torch.dsp.block import build_process_batch
-from pycusdr_tpu_torch.dsp.signal_gen import modulate_fsk
+from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
+from pycusdr_tpu_torch.dsp.signal_gen import modulate_bpsk, modulate_fsk
 from pycusdr_tpu_torch.dsp.spec import build_spec
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.ops import viterbi as vit
+from pycusdr_tpu_torch.parallel import vote as pv
 from pycusdr_tpu_torch.protocol import loadProtocol
+from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -437,3 +440,75 @@ def test_viterbi_stream_kernel_matches_plain(cuda, soft):
         pos += n
         assert np.array_equal(ya, yb) and a.parity == b.parity
         assert np.array_equal(a.carry, b.carry) and np.array_equal(a.pending, b.pending)
+
+
+@pytest.fixture(scope="module")
+def bpsk_case(cuda):
+    """bench_BPSK at the tiny shape (Nfft 2^9, 16 masks of 4 bits, the
+    (8, 2, 2) NRZ-S LUT): the block graph's rows of 4 blocks, bits, trust
+    and nBits overwritten, trust -2 on every 5th slot, the last block's
+    symbols random in [-1, 16]."""
+    conf = configs._conf(blockSize=9, overlap=7, spsym=8, doppSteps=16, windowWidth=5,
+                         maskSize=4)
+    conf["Main"]["protocols"] = {"UHF": "bench_BPSK"}
+    spec = build_spec(conf, loadProtocol("bench_BPSK")(conf=conf), configs.RADIO)
+    rng = np.random.RandomState(8)
+    N, S = spec.Nfft, spec.numSymMax
+    x = np.stack([modulate_bpsk(rng.randint(0, 2, N // 8), 8)[:N] for _ in range(4)])
+    x = x * np.exp(2j * np.pi * spec.centreFreqOffset / spec.sampleRate * np.arange(N))
+    x = x + 0.05 * (rng.randn(4, N) + 1j * rng.randn(4, N))
+    rows = build_process_batch(spec, device=cuda, packed=True)(x.astype(np.complex64))
+    rows[-1, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, 17, S).astype(np.float32))
+    rows[:, :S], rows[:, S:2 * S], rows[:, 5 * S + 1] = 9.0, 4.0, -3.0
+    rows[:, S:2 * S:5] = -2.0
+    return spec, DeviceConsts.from_spec(spec, cuda), rows
+
+
+def test_nrzs_bits(bpsk_case):
+    spec, c, rows = bpsk_case
+    S = spec.numSymMax
+    got = dk.nrzs_bits(rows.clone(), c.symbolLUT, S)
+    want = dk.nrzs_rows_plain(rows.clone(), c.symbolLUT, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[:, S:2 * S:5] == -2).all()) and bool((got[:, S:2 * S] == -1).any())
+
+
+def test_bpsk_graph_decisions_match_plain(bpsk_case, cuda):
+    spec, c, rows = bpsk_case
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, spec.Nfft).astype(np.complex64))
+    x = x.to(cuda)
+    got = build_process_batch(spec, device=cuda)(x)
+    want = build_process_batch(spec, device=cuda, plain=True)(x)
+    for k in ("bits", "trust", "symbols", "nSym", "nBits"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 7, 64])
+def test_vote(cuda, C):
+    """K8 against the plain vote on random rows (trust in {-2..127}, ragged
+    nBits): masked rows and the voted pair equal."""
+    S, L = 300, 5 * 300 + 12 + 8
+    rng = np.random.RandomState(C)
+    rows = np.zeros((C, L), np.float32)
+    rows[:, :S] = rng.randint(0, 2, (C, S))
+    rows[:, S:2 * S] = rng.choice([-2, -1, 0, 1, 2, 3, 5, 127], (C, S))
+    rows[:, 5 * S + 1] = rng.randint(S // 2, S + 1, C)
+    rows = torch.from_numpy(rows).to(cuda)
+    rk, rp = rows.clone(), rows.clone()
+    ok = pv.vote_rows(rk, S, 1.2)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(ok, op)
+
+
+def test_group_graph_matches_plain(case, cuda):
+    """The group vector (rows + voted pair) of the kernel path against the
+    plain path on three channels: decisions and the vote equal."""
+    spec, c, x, _ = case
+    L, S = packed_len(spec), spec.numSymMax
+    got = build_group_graph(spec, 3, 1.2, device=cuda)(x)
+    want = build_group_graph(spec, 3, 1.2, device=cuda, plain=True)(x)
+    for ch in range(3):
+        assert torch.equal(got[ch * L:ch * L + 4 * S], want[ch * L:ch * L + 4 * S])
+    assert torch.equal(got[3 * L:], want[3 * L:])
