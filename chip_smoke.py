@@ -53,8 +53,23 @@ and then no result line is printed):
       softCombiner off) and from ``bench_FSK.json`` (one
       ``Demodulator_process``) at blockSize 16, fed over ZMQ PUB in hops:
       the decoded bytes equal the payload, the Rx children run on the card;
-   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64 and K8 at
-   C=3/16/64, S=4608, with pinned ties, against their plain versions;)
+   g. wideband: one hop of 64 x 2^16 samples (unit AWGN, seeded GFSK
+      packets in channels 0, 5, 31 and 47 at their own Doppler and SNR)
+      through ``parallel.Channelizer`` (K9), then
+      ``build_sharded_demod_step`` at C=64 on the one-card mesh: BER < 1e-3
+      in every planted channel (a +-2-bit slip allowed), its decisions
+      equal to the plain step's, a tone at channel 5's centre kept to
+      channel 5; then one packet in all channels of an M=4 channelizer into
+      the step with the vote (K8): voted BER <= the best channel's;
+   h. tracking: ``models.DopplerTracker`` with ``configs.tracking_conf()`` at
+      the flagship spec over a 48-block S-curve pass at 10 dB: the kernel
+      and plain trackers equal in modes and bits on every block; the first
+      lock, the lock fraction after it and the median error in bins;
+   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K8 at
+   C=3/16/64, S=4608, with pinned ties and master_idx 0, 1 and C-1, K9 at
+   M=64, K=8, T=2^16 with a random carry (1e-5 of max|y|; two half hops
+   equal one hop), and K1 and K5 with centre_shift at B=1/16 against their
+   plain versions;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, and the whole block graph against the plain
@@ -62,10 +77,13 @@ and then no result line is printed):
    step; K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3
    against the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
-   every time must clear its bound;
+   K9 with its two-call yardstick (grouped conv1d + torch.fft.fft); the
+   wideband chain per hop against the signal a hop holds; the tracker's
+   acquire and track graphs per block at B=1; every time must clear its
+   bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1 and 16,
-   STX at B=1.
+   STX at B=1; and of the wideband chain (K9 + the step at C=64).
 
 It then prints the card line, one JSON line with every kernel's numbers,
 and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -85,7 +103,15 @@ import torch
 
 from pycusdr_tpu_torch import ops
 from pycusdr_tpu_torch.config.loader import load_modular_json
-from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, ccsds_spec, flagship_conf, stx_conf
+from pycusdr_tpu_torch.configs import (
+    RADIO,
+    ccsds_conf,
+    ccsds_spec,
+    flagship_conf,
+    stx_conf,
+    tracking_conf,
+    wideband_conf,
+)
 from pycusdr_tpu_torch.convert import DeviceConsts
 from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
@@ -93,16 +119,19 @@ from pycusdr_tpu_torch.dsp.signal_gen import (
     awgn,
     get_padded_packet,
     modulate_bpsk,
+    modulate_fsk,
     modulate_gfsk2,
     packet_data,
 )
 from pycusdr_tpu_torch.dsp.spec import build_spec
-from pycusdr_tpu_torch.models import STX, UHF
+from pycusdr_tpu_torch.models import STX, TRACKING, UHF, DopplerTracker
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.ops import viterbi as vit
 from pycusdr_tpu_torch.ops.layout import PACK_ARRAYS, SCALAR
+from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import channelizer as pch
 from pycusdr_tpu_torch.parallel import vote as pv
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.protocol.ccsds import RS_K
@@ -139,6 +168,27 @@ RUNTIME_WAIT_S = 90.0
 #: per-antenna noise std of the group phase (unit-power GFSK): a raw BER
 #: of 1-2.3e-2 per channel at the flagship spec, so the vote has errors to correct
 GROUP_NOISE = (1.6, 1.7, 1.8)
+#: the wideband path: GFSK packets planted in these channels of the M=64
+#: channelizer, each at its own Doppler offset and SNR (dB at the 153.6 kHz
+#: channel rate), under unit-power wideband AWGN everywhere. At least 5
+#: channels apart: the reference channelizer images an off-centre signal
+#: into its neighbours (-5.8 dB in the next channel at 0.17 of a channel
+#: off centre; ROADMAP Queue 3), and the port keeps its semantics
+WB_CHANNELS = (0, 5, 31, 47)
+WB_DOPPLER_HZ = (-6000.0, 2500.0, -1500.0, 7000.0)
+WB_SNR_DB = (12.0, 14.0, 16.0, 20.0)
+WB_TONE = 5  # the channel whose centre carries the purity check's tone
+#: the vote run behind an M=4 channelizer: one packet in every channel, at an
+#: SNR that leaves each channel a raw BER of 5-9e-3 for the vote to correct;
+#: its packet starts half a symbol in (timing mid-symbol, see group_blocks),
+#: which moves the slip to +2, so the run allows +-3
+WB_VOTE_C, WB_VOTE_SNR_DB, WB_VOTE_DOPPLER_HZ, WB_VOTE_SLIP = 4, -3.0, 1200.0, 3
+#: K9's bar against its plain version (tests/test_channelizer.py:19), relative to max|y|
+K9_REL = 1e-5
+#: the tracking path: the bench/subsystems.py LEO pass at the flagship spec
+TRACK_BLOCKS, TRACK_SNR_DB = 48, 10.0
+#: K8's master channels in the phase-3 check (the last one is C - 1)
+VOTE_MASTERS = (0, 1, -1)
 
 KERNELS = {
     "doppler_energy": ("pycusdr_tpu_torch/csrc/doppler_energy.cu",
@@ -157,6 +207,8 @@ KERNELS = {
     "nrzs_bits": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
                   "pycusdr_tpu/ops/demod_kernels.py:597"),
     "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
+    "channelize": ("pycusdr_tpu_torch/csrc/channelizer.cu",
+                   "pycusdr_tpu/parallel/channelizer.py:43"),
 }
 #: the kernels each configuration's path runs
 PATH_KERNELS = {
@@ -169,6 +221,10 @@ PATH_KERNELS = {
              "symbol_detect", "nrzs_bits"),
     "group": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
               "symbol_detect", "vote"),
+    "wideband": ("channelize", "doppler_energy", "doppler_estimate", "mf_bank_colreduce",
+                 "timing_band", "symbol_detect", "vote"),
+    "tracking": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                 "symbol_detect"),
 }
 
 
@@ -268,14 +324,18 @@ def k4_plain_clip(spec, inp):
     return dk.dilate_mask_plain(inp["hit2"], dk.clip_halfwidth(inp["spSym"], spec.spsymMin))
 
 
-def check_doppler_estimate(spec, consts, inp):
+def check_doppler_estimate(spec, consts, inp, centre=None):
     """K5 against its plain version, with an all-zero block appended:
     shift exact, dopp_idx within 1e-5 relative, Hz within 1e-2, quality
-    and SNR within 1e-3 dB (equal where not finite). Returns the max abs
-    error over dopp_idx, quality_db and snr_db."""
+    and SNR within 1e-3 dB (equal where not finite). ``centre``: the (B,)
+    int32 runtime recentre (the appended block gets 0). Returns the max
+    abs error over dopp_idx, quality_db and snr_db."""
     E = torch.cat([inp["E"], torch.zeros_like(inp["E"][:1])])
     P = torch.cat([inp["P"], torch.zeros_like(inp["P"][:1])])
     args, kw = k5_args(spec, consts, E, P)
+    if centre is not None:
+        kw.update(centre_shift=torch.cat([centre, centre.new_zeros(1)]),
+                  bin_hz=spec.sampleRate / spec.Nfft)
     got = ds.doppler_estimate(*args, **kw)
     want = ds.doppler_estimate_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -776,15 +836,18 @@ def vote_input(C, S, L):
     return torch.from_numpy(rows).cuda(), int(nbits[:k].min())
 
 
-def check_vote(C, S, L):
+def check_vote(C, S, L, master=0):
     """K8 against the plain vote (``vote_rows_plain``, i.e. the pad mask
-    then ``vote_n_device_plain``) on ``vote_input``: the masked rows and
-    the voted pair equal; the pinned ties vote 0, the disqualified slots
-    get trust -1."""
+    then ``vote_n_device_plain``) on ``vote_input`` with channel ``master``
+    the master (its row and row 0 swapped, so the pinned ties stay ties):
+    the masked rows and the voted pair equal; the pinned ties vote 0, the
+    disqualified slots get trust -1."""
     rows, n_tie = vote_input(C, S, L)
+    m = master % C
+    rows[[0, m]] = rows[[m, 0]]
     rk, rp = rows.clone(), rows.clone()
-    ok = pv.vote_rows(rk, S, 1.2)
-    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device="cuda"))
+    ok = pv.vote_rows(rk, S, 1.2, master_idx=master)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device="cuda"), master)
     torch.cuda.synchronize()
     assert torch.equal(rk, rp), f"K8 C={C}: masked rows differ"
     assert torch.equal(ok, op), f"K8 C={C}: voted pair differs from the plain vote"
@@ -976,6 +1039,289 @@ def main_path_runtime():
         out[key] = dict(config=name, devices=devices, host_ms_per_block=host_ms,
                         first_packet_s=first_s, seconds=time.time() - t0)
     return out
+
+
+# ------------------------------------------- slice 5: wideband front end, tracking
+
+def recentres(N, B):
+    """B runtime recentres (bins): 0, positive, negative and values that
+    wrap past N either way; at B=1 one wrapping value."""
+    vals = [0, 3, -5, 37, -100, N - 2, -(N + 7), 2 * N + 1, 12, -12, 500, -500, N // 2,
+            -(N // 2), 1, -1]
+    return torch.tensor((vals * B)[:B] if B > 1 else [N - 2], dtype=torch.int32, device="cuda")
+
+
+def check_recentre(spec, consts, B):
+    """K1 and K5 with a runtime ``centre_shift`` against their plain
+    versions on the flagship blocks (K1 within 1e-4 of max E; K5 as in
+    ``check_doppler_estimate``). Returns (K1 err, K5 err)."""
+    inp = kernel_inputs(spec, consts, B)
+    centre = recentres(spec.Nfft, B)
+    Ek = ds.doppler_energy(inp["P"], consts.Q, consts.shifts, centre)
+    Ep = ds.doppler_energy_plain(inp["P"], consts.Q, consts.shifts, centre)
+    torch.cuda.synchronize()
+    e1 = float((Ek - Ep).abs().max())
+    assert e1 <= 1e-4 * float(Ep.abs().max()), f"K1 B={B} recentred err {e1}"
+    return e1, check_doppler_estimate(spec, consts, dict(inp, E=Ep), centre=centre)
+
+
+def k9_inputs(wb, T, seed=SEED + 9):
+    """Seeded wideband samples (T M,) and a random carry (K-1, M), complex64."""
+    M, K = wb["M"], wb["taps_per_branch"]
+    rng = np.random.RandomState(seed)
+    x = ((rng.randn(T * M) + 1j * rng.randn(T * M)) / np.sqrt(2)).astype(np.complex64)
+    st = ((rng.randn(K - 1, M) + 1j * rng.randn(K - 1, M)) / np.sqrt(2)).astype(np.complex64)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(st).cuda()
+
+
+def check_channelize(wb, T):
+    """K9 against its plain version at M x T with a random carry: y within
+    K9_REL of max|y|, the new carry equal; then two half hops through the
+    Channelizer with the carry against one whole hop (rtol 1e-4, atol
+    1e-5, JAX's bar). Returns (max abs err, relative err, halves equal)."""
+    x, st = k9_inputs(wb, T)
+    ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
+    yk, sk = pch.channelize(x, ch.h2, st, tw=ch.tw)
+    yp, sp = pch.channelize_plain(x, ch.h2, st)
+    torch.cuda.synchronize()
+    err, scale = float((yk - yp).abs().max()), float(yp.abs().max())
+    assert err <= K9_REL * scale, f"K9 err {err} > {K9_REL} * {scale}"
+    assert torch.equal(sk, sp), "K9 carry differs from the plain version's"
+    ch.state = st.clone()
+    half = x.numel() // 2
+    halves = torch.cat([ch.process(x[:half]), ch.process(x[half:])], dim=1)
+    torch.cuda.synchronize()
+    assert torch.allclose(halves, yk, rtol=1e-4, atol=1e-5), "K9 halves != one hop"
+    assert torch.equal(ch.state, sk), "K9 carry after the halves differs"
+    return err, err / scale, bool(torch.equal(halves, yk))
+
+
+def wideband_signal(M, wb, spec, channels, dopplers, snrs, seed, bits=None, skip=0):
+    """M Nfft wideband samples at M x the channel rate: unit-power complex
+    AWGN, plus in each of ``channels`` a GFSK packet (``bits``, or its own
+    seeded bits) at the IF offset plus its Doppler, at its SNR over the
+    channel's noise (the wideband noise times sum h^2 of the prototype).
+    The GFSK phase, made at the channel rate, is interpolated to the
+    wideband rate; the packet starts ``skip`` samples (channel rate) into
+    its first symbol. Returns (samples complex64, the bits of each channel)."""
+    N, sps = spec.Nfft, int(spec.spsym)
+    K, beta = wb["taps_per_branch"], wb["beta"]
+    hsq = float(np.sum(pch.design_prototype(M, K, beta) ** 2))
+    rng = np.random.RandomState(seed)
+    n = np.arange(M * N)
+    x = (rng.randn(M * N) + 1j * rng.randn(M * N)) / np.sqrt(2)
+    sent = []
+    for m, dopp, snr in zip(channels, dopplers, snrs):
+        b = rng.randint(0, 2, N // sps + 8) if bits is None else bits
+        at = 2 * sps + skip  # the Gaussian filter delays the pulses by 2 symbols
+        g = modulate_gfsk2(b, sps)[at:at + N + 1]
+        phase = np.interp(n / M, np.arange(N + 1), np.unwrap(np.angle(g)))
+        f = m / M + (spec.centreFreqOffset + dopp) / (M * spec.sampleRate)
+        x += np.sqrt(10 ** (snr / 10) * hsq) * np.exp(1j * (phase + 2 * np.pi * f * n))
+        sent.append(b)
+    return x.astype(np.complex64), sent
+
+
+def slip_ber(rx, tx, trim=4, slip=2):
+    """(BER, slip) of rx[trim:-trim] against tx at the best slip in
+    [-slip, slip] bits: the prototype filter's delay
+    (tests/test_channelizer.py:104-112)."""
+    got = rx[trim:len(rx) - trim]
+    best = (1.0, 0)
+    for d in range(-slip, slip + 1):
+        want = tx[max(trim + d, 0):trim + d + len(got)]
+        L = min(len(want), len(got))
+        best = min(best, (float(np.mean(got[:L] != want[:L])), d))
+    return best
+
+
+def tone_purity(ch, m0, delta=0.0):
+    """(share of the output energy in channel m0, channel m0 + 1's energy
+    against it in dB) for a carrier ``delta`` channel widths above channel
+    m0's centre."""
+    M, n = ch.M, torch.arange(ch.M * 2 ** 16, device="cuda")
+    ang = (2 * math.pi / M) * (((n * m0) % M).double() + delta * n.double())
+    y = ch(torch.polar(torch.ones_like(ang), ang).to(torch.complex64))[0]
+    energy = (y.abs() ** 2).sum(dim=1)
+    return float(energy[m0] / energy.sum()), 10 * math.log10(float(energy[(m0 + 1) % M]
+                                                                   / energy[m0]))
+
+
+DECISIONS = ("bits", "trust", "symbols", "nSym", "nBits", "shift")
+
+
+def main_path_wideband(wb, spec):
+    """The wideband front end (BASELINE #5) at full width: one hop of 64 x
+    2^16 samples with GFSK packets in WB_CHANNELS through the card's
+    Channelizer (K9), then ``build_sharded_demod_step(vote=False)`` at C=64
+    on the one-card mesh; then a vote run: one packet in all 4 channels of
+    an M=4 channelizer into the step with the vote (K8). BER < 1e-3 in each
+    planted channel, the kernel step's decisions equal the plain step's
+    there, the voted BER no worse than the best channel's; K9 twice, K8
+    once, K1-K5 launch."""
+    M, N, sps = wb["M"], spec.Nfft, int(spec.spsym)
+    K, beta = wb["taps_per_branch"], wb["beta"]
+    x, sent = wideband_signal(M, wb, spec, WB_CHANNELS, WB_DOPPLER_HZ, WB_SNR_DB, SEED + 5)
+    C = WB_VOTE_C
+    common = np.random.RandomState(SEED + 7).randint(0, 2, N // sps + 8)
+    xv, _ = wideband_signal(C, wb, spec, range(C), [WB_VOTE_DOPPLER_HZ] * C,
+                            [WB_VOTE_SNR_DB] * C, SEED + 6, bits=common, skip=sps // 2)
+    xt, xvt = torch.from_numpy(x).cuda(), torch.from_numpy(xv).cuda()
+    ch = pch.Channelizer(M, K, beta, device="cuda")
+    chv = pch.Channelizer(C, K, beta, device="cuda")
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
+    step = build_sharded_demod_step(spec, mesh, vote=False)
+    stepv = build_sharded_demod_step(spec, mesh, vote=True)
+    purity, _ = tone_purity(ch, WB_TONE)
+    assert purity > 0.99, f"tone at channel {WB_TONE}'s centre: purity {purity}"
+    # the image of a carrier at the IF offset + 7 kHz (0.17 of a channel)
+    delta = (spec.centreFreqOffset + 7000.0) / spec.sampleRate
+    off_purity, image_db = tone_purity(ch, WB_TONE, delta)
+
+    ops.reset_launches()
+    y = ch.process(xt)
+    res = step(y)
+    yv = chv.process(xvt)
+    resv = stepv(yv)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("wideband", launches)
+    assert launches["channelize"] == 2 and launches["vote"] == 1, launches
+    assert y.shape == (M, N) and bool(torch.isfinite(torch.view_as_real(y)).all())
+
+    ref = build_sharded_demod_step(spec, mesh, vote=False, plain=True)(y)
+    refv = build_sharded_demod_step(spec, mesh, vote=True, plain=True)(yv)
+    torch.cuda.synchronize()
+    planted = list(WB_CHANNELS)
+    quiet = [m for m in range(M) if m not in planted]
+    for k in DECISIONS:
+        assert torch.equal(res[k][planted], ref[k][planted]), f"wideband: {k} != plain step's"
+    for k in DECISIONS + ("bits_voted", "trust_voted"):
+        assert torch.equal(resv[k], refv[k]), f"wideband vote run: {k} != plain step's"
+    quiet_equal = float((res["bits"][quiet] == ref["bits"][quiet]).float().mean())
+    out = {k: v.cpu().numpy() for k, v in res.items()}
+    chans = {}
+    for m, tx, dopp in zip(WB_CHANNELS, sent, WB_DOPPLER_HZ):
+        ber, slip = slip_ber(out["bits"][m, :out["nBits"][m]].astype(np.int64), tx)
+        off = float(out["freq_offset_hz"][m])
+        assert ber < 1e-3, f"wideband channel {m}: BER {ber} (slip {slip})"
+        assert abs(off - dopp) < spec.baudRate / 2, f"channel {m}: {off} Hz, injected {dopp}"
+        chans[m] = dict(ber=ber, slip=slip, bits=int(out["nBits"][m]), offset_hz=round(off, 2),
+                        snr_db=round(float(out["snr_db"][m]), 2))
+    v = {k: t.cpu().numpy() for k, t in resv.items()}
+    vbers = [slip_ber(v["bits"][c, :v["nBits"][c]].astype(np.int64), common,
+                      slip=WB_VOTE_SLIP)[0] for c in range(C)]
+    voted_ber = slip_ber(v["bits_voted"][:v["nBits"][0]].astype(np.int64), common,
+                         slip=WB_VOTE_SLIP)[0]
+    assert voted_ber <= min(vbers), f"wideband vote: voted BER {voted_ber} above {vbers}"
+    return dict(M=M, hop_samples=M * N, tone_purity=purity,
+                off_centre_tone=dict(delta=delta, purity=off_purity, next_channel_db=image_db),
+                channels=chans,
+                quiet_bits_equal_plain=quiet_equal, vote=dict(C=C, channel_ber=vbers,
+                                                            voted_ber=voted_ber),
+                launches=launches)
+
+
+def s_curve_blocks(spec, n_blocks, f_max, t_mid, tau, snr_db, seed=3):
+    """FSK blocks under an S-curve Doppler pass with AWGN at ``snr_db``
+    (bench/subsystems.py:73-89); returns (blocks complex64, truth Hz)."""
+    N, fs, sps = spec.Nfft, spec.sampleRate, int(spec.spsym)
+    rng = np.random.RandomState(seed)
+    base = modulate_fsk(rng.randint(0, 2, (N * n_blocks) // sps + 8), sps)[:N * n_blocks]
+    t_blk = np.arange(N * n_blocks) / N
+    f_inst = spec.centreFreqOffset - f_max * np.tanh((t_blk - t_mid) / tau)
+    sig = base * np.exp(1j * 2 * np.pi * np.cumsum(f_inst) / fs)
+    sig = awgn(sig.astype(np.complex64), snr_db, rng=rng)
+    truth = spec.centreFreqOffset - f_max * np.tanh((np.arange(n_blocks) + 0.5 - t_mid) / tau)
+    return sig.astype(np.complex64).reshape(n_blocks, N), truth
+
+
+def main_path_tracking(spec):
+    """The LEO search-and-track loop (BASELINE #3) at the flagship spec with
+    ``tracking_conf()`` over a TRACK_BLOCKS-block S-curve pass at
+    TRACK_SNR_DB, sized as bench/subsystems.py:92-148 sizes it: the kernel
+    tracker and the plain tracker give equal modes and equal bits block by
+    block; it locks; K1-K5 launch. Returns the first lock block, the lock
+    fraction after it, the median error in bins, and the two trackers."""
+    tc = tracking_conf()
+    bin_hz = spec.sampleRate / spec.Nfft
+    grid_span = float(spec.dopp_hz_lut.max() - spec.dopp_hz_lut.min())
+    tau = TRACK_BLOCKS / 6
+    f_max = min(0.35 * grid_span, 0.4 * (tc["track_span_bins"] / 2) * bin_hz * tau)
+    blocks, truth = s_curve_blocks(spec, TRACK_BLOCKS, f_max, TRACK_BLOCKS / 2, tau,
+                                   TRACK_SNR_DB)
+    xb = torch.from_numpy(blocks).cuda()
+    tracker = DopplerTracker(spec=spec, device="cuda", **tc)
+    plain = DopplerTracker(spec=spec, device="cuda", plain=True, **tc)
+    ops.reset_launches()
+    seq = [tracker.process(b) for b in xb]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("tracking", launches)
+    pseq = [plain.process(b) for b in xb]
+    for i, (a, p) in enumerate(zip(seq, pseq)):
+        assert a["mode"] == p["mode"], f"tracking block {i}: mode {a['mode']} != {p['mode']}"
+        n = int(a["nBits"])
+        assert n == int(p["nBits"]) and np.array_equal(a["bits"][:n], p["bits"][:n]), \
+            f"tracking block {i}: bits differ from the plain tracker's"
+    modes = [a["mode"] for a in seq]
+    locked = [m == TRACKING for m in modes]
+    assert any(locked), "tracker never locked during the pass"
+    first = locked.index(True)
+    est = np.array([float(a["doppler_hz"]) for a in seq])
+    err_bins = np.abs(est[first:] - truth[first:]) / bin_hz
+    return dict(blocks=TRACK_BLOCKS, snr_db=TRACK_SNR_DB, doppler_swing_hz=2 * f_max,
+                first_lock_block=first, lock_fraction_after_first=float(np.mean(locked[first:])),
+                median_err_bins=float(np.median(err_bins)),
+                acquire_bins=int(spec.num_dopplers),
+                track_bins=int(tracker.track_spec.num_dopplers),
+                launches=launches), tracker, xb
+
+
+def k9_bound(wb, T):
+    """K9's least time: the input, the carry and the taps read, y and the
+    new carry written | (4 K + 5 log2 M) T M f32 operations (the K-tap sum,
+    then an FFT across the branches)."""
+    M, K = wb["M"], wb["taps_per_branch"]
+    nbytes = 2 * T * M * 8 + 2 * (K - 1) * M * 8 + K * M * 4
+    return bound_of(nbytes, (4 * K + 5 * math.log2(M)) * T * M)
+
+
+def time_slice5(wb, spec, tracker, xb):
+    """K9 at the wideband shape (kernel, plain version, the two-call
+    yardstick: a grouped ``conv1d`` over the branches and ``torch.fft.fft``
+    across them, TF32 off); the wideband chain (K9 plus the step at C=64,
+    vote off) per hop; the tracker's acquire and track graphs per block at
+    B=1 (CUDA events)."""
+    M, K, N = wb["M"], wb["taps_per_branch"], spec.Nfft
+    x, st = k9_inputs(wb, N)
+    ch = pch.Channelizer(M, K, wb["beta"], device="cuda")
+    k9 = (cuda_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw)),
+          cuda_ms(lambda: pch.channelize_plain(x, ch.h2, st), iters=5, reps=5))
+    torch.backends.cudnn.allow_tf32 = False
+    xin = torch.view_as_real(torch.cat([st, x.view(N, M)]).T.contiguous()).permute(2, 0, 1)
+    xin = xin.contiguous()  # (2, M, N + K - 1) f32: re and im as two batches
+    w = ch.h2.flip(0).T.contiguous()[:, None, :]  # (M, 1, K): w[p, 0, j] = h2[K-1-j, p]
+
+    def yardstick():
+        v = torch.nn.functional.conv1d(xin, w, groups=M)  # (2, M, N)
+        return torch.fft.fft(torch.complex(v[0], v[1]), dim=0)
+
+    yk = pch.channelize(x, ch.h2, st, tw=ch.tw)[0]
+    torch.cuda.synchronize()
+    e = float((yardstick() - yk).abs().max()) / float(yk.abs().max())
+    assert e <= 1e-5, f"K9 yardstick disagrees with K9: {e}"
+    yard_ms = cuda_ms(yardstick)
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
+    step = build_sharded_demod_step(spec, mesh, vote=False)
+    y = ch(x)[0]
+    chain_ms = cuda_ms(lambda: step(ch(x)[0]), iters=5, reps=5)
+    step_ms = cuda_ms(lambda: step(y), iters=5, reps=5)
+    centre = 3
+    acq_ms = cuda_ms(lambda: tracker._acquire(xb[0]), iters=10)
+    trk_ms = cuda_ms(lambda: tracker._track(xb[0], centre), iters=10)
+    return dict(k9=k9, k9_bound=k9_bound(wb, N), yardstick_ms=yard_ms, yardstick_err=e,
+                chain_ms=chain_ms, step_ms=step_ms, acquire_ms=acq_ms, track_ms=trk_ms)
 
 
 def cuda_ms(fn, iters=20, reps=7):
@@ -1199,13 +1545,19 @@ def profile_graph(spec, B, calls=10, top=8):
     ``calls`` back-to-back calls of the packed block graph (torch.profiler)."""
     graph = build_process_batch(spec, device="cuda", packed=True)
     x = signal_blocks(spec, B)
-    graph(x)
+    return profile_calls(lambda: graph(x), calls, top)
+
+
+def profile_calls(fn, calls=10, top=8):
+    """(wall ms/call, device busy ms/call, kernel names, the top ones) over
+    ``calls`` back-to-back calls of ``fn`` under torch.profiler."""
+    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            graph(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     dev = [e for e in prof.key_averages()
@@ -1266,9 +1618,24 @@ def main() -> int:
                    f"rows equal, trust -2 kept; slots set to trust -1: {minus1}")
     fspec = cfg["flagship"][2]
     for C in VOTE_CS:
-        errs["vote"] = check_vote(C, fspec.numSymMax, packed_len(fspec))
-    say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CS)}, S={fspec.numSymMax}: masked rows "
-                   f"and voted pair equal, pinned ties vote 0, disqualified slots trust -1")
+        for master in VOTE_MASTERS:
+            errs["vote"] = check_vote(C, fspec.numSymMax, packed_len(fspec), master)
+    say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CS)}, S={fspec.numSymMax}, master_idx "
+                   f"{list(VOTE_MASTERS)}: masked rows and voted pair equal, pinned ties vote 0, "
+                   f"disqualified slots trust -1")
+    wb = wideband_conf()
+    k9_abs, k9_rel, halves_equal = check_channelize(wb, fspec.Nfft)
+    errs["channelize"] = k9_abs
+    say("kernels", f"K9 channelize vs plain OK at M={wb['M']}, K={wb['taps_per_branch']}, "
+                   f"T={fspec.Nfft} with a random carry: max abs err {k9_abs:.3e}, "
+                   f"{k9_rel:.3e} of max|y| (bar {K9_REL}); carry equal; two half hops == one "
+                   f"hop (bit-equal: {halves_equal})")
+    for B in (1, 16):
+        e1, e5 = check_recentre(fspec, consts["flagship"], B)
+        errs["doppler_energy"] = max(errs["doppler_energy"], e1)
+        errs["doppler_estimate"] = max(errs["doppler_estimate"], e5)
+        say("kernels", f"K1, K5 with centre_shift {recentres(fspec.Nfft, B).tolist()} vs plain "
+                       f"OK at B={B}: K1 max abs err {e1:.4g}, K5 {e5:.4g}")
 
     res = {"flagship": main_path_flagship(*cfg["flagship"]),
            "stx": main_path_stx(*cfg["stx"])}
@@ -1285,6 +1652,17 @@ def main() -> int:
     res["group"] = main_path_group(fspec)
     say("main", f"group C={GROUP_C}: rows and voted pair equal to the plain path's, voted BER "
                 f"<= the best channel's; " + json.dumps(res["group"]))
+    t_s5 = time.perf_counter()
+    res["wideband"] = main_path_wideband(wb, fspec)
+    say("main", f"wideband M={wb['M']} one hop of {wb['M']} x {fspec.Nfft} samples -> K9 -> "
+                f"step C={wb['M']}: BER < 1e-3 in channels {list(WB_CHANNELS)}, decisions equal "
+                f"to the plain step's there; vote run C={WB_VOTE_C}: voted BER <= the best "
+                f"channel's; " + json.dumps(res["wideband"]))
+    res["tracking"], tracker, track_blocks = main_path_tracking(fspec)
+    say("main", f"tracking {TRACK_BLOCKS}-block S-curve pass at {TRACK_SNR_DB} dB: kernel and "
+                f"plain trackers equal in modes and bits on every block; "
+                + json.dumps(res["tracking"]))
+    say("main", f"slice-5 paths took {time.perf_counter() - t_s5:.1f} s")
     t_rt = time.perf_counter()
     runtime = main_path_runtime()
     say("main", f"runtime: PyCuSDR decoded the payload from bench_3_chan_rx.json (channel group) "
@@ -1341,18 +1719,43 @@ def main() -> int:
                  f"block graph at B={GROUP_C} {t4['batch_ms']:.4f} ms/call on the same blocks: "
                  f"the vote adds {t4['group_ms'] - t4['batch_ms']:.4f} ms "
                  f"({100 * (t4['group_ms'] - t4['batch_ms']) / t4['group_ms']:.1f}%)")
+    t5 = time_slice5(wb, fspec, tracker, track_blocks)
+    (k9_ms, k9_pms), (k9_bms, k9_by) = t5["k9"], t5["k9_bound"]
+    for v in (k9_ms, k9_pms, t5["yardstick_ms"]):
+        assert v >= k9_bms, f"K9: a time {v} is below bound_ms {k9_bms}"
+    say("times", f"{card} | channelize M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}: "
+                 f"ms={k9_ms:.5f} plain_ms={k9_pms:.5f} library_ms=null "
+                 f"bound_ms={k9_bms:.4g} ({k9_by}); yardstick (grouped conv1d + torch.fft.fft, "
+                 f"TF32 off) {t5['yardstick_ms']:.5f} ms, rel err vs K9 {t5['yardstick_err']:.2e}")
+    hop_ms = 1e3 * fspec.Nfft / fspec.sampleRate
+    say("times", f"{card} | wideband chain (K9 + step C={wb['M']}, vote off) "
+                 f"{t5['chain_ms']:.4f} ms per hop of {wb['M']} x {fspec.Nfft} samples "
+                 f"({wb['M'] * fspec.Nfft / t5['chain_ms'] / 1e3:.1f} Msamples/s wideband; the "
+                 f"step alone {t5['step_ms']:.4f} ms) against the {hop_ms:.1f} ms of signal a hop "
+                 f"holds: {hop_ms / t5['chain_ms']:.1f}x real time")
+    say("times", f"{card} | tracking graphs at B=1: acquire (D={fspec.D}) "
+                 f"{t5['acquire_ms']:.4f} ms/block, track (D={tracker.track_spec.D}, "
+                 f"centre_shift) {t5['track_ms']:.4f} ms/block, ratio "
+                 f"{t5['acquire_ms'] / t5['track_ms']:.3f}")
     for key, r in runtime.items():
         host = (f"Rx child host ms per block (timeMA) {r['host_ms_per_block']}, "
                 if r["host_ms_per_block"] else "")
         say("times", f"{card} | runtime {key} ({r['config']}): {host}first packet after "
                      f"{r['first_packet_s']:.2f} s of feed")
 
-    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1)):
-        wall, busy, n, tops = profile_graph(cfg[p][2], B)
+    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1), ("wideband", 64)):
+        if p == "wideband":
+            x, _ = k9_inputs(wb, fspec.Nfft)
+            ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
+            step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
+                                                             devices=["cuda"]), vote=False)
+            wall, busy, n, tops = profile_calls(lambda: step(ch(x)[0]))
+        else:
+            wall, busy, n, tops = profile_graph(cfg[p][2], B)
         idle = "not measured" if n == 0 else f"{100 * (1 - busy / wall):.1f}%"
-        say("profile", f"{card} | {p} B={B} graph: wall {wall:.4f} ms/call, device busy "
-                       f"{busy:.4f} ms/call, idle {idle}; {n} kernel names, top (ms/call): "
-                       f"{tops}")
+        say("profile", f"{card} | {p} B={B} {'chain' if p == 'wideband' else 'graph'}: wall "
+                       f"{wall:.4f} ms/call, device busy {busy:.4f} ms/call, idle {idle}; {n} "
+                       f"kernel names, top (ms/call): {tops}")
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
@@ -1368,6 +1771,14 @@ def main() -> int:
                 "bound_by": by, "library_ms": None, unit.lower(): at,
                 f"by_{unit}": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
                                    "bound_by": v[2][1]} for n, v in t4[k].items()}})
+            continue
+        if k == "channelize":
+            kernels.append({
+                "name": k, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": errs[k], "ms": k9_ms, "plain_ms": k9_pms, "bound_ms": k9_bms,
+                "bound_by": k9_by, "library_ms": None, "yardstick_ms": t5["yardstick_ms"],
+                "shape": f"wideband M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}"})
             continue
         if k == "viterbi":
             ms, pms, (bms, by), lengths = vt[1]

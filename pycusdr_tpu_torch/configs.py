@@ -11,6 +11,10 @@ Doppler search, the fixed shift of the IF offset).
 downlink (``ccsds_conv``: RS(255,223) + conv K=7 r=1/2 over FSK), with a
 Tx radio for the port's ``Modulator``; ``ccsds_example_conf`` is the
 CPU-sized conf of ``examples/ccsds_downlink.py:24-45`` (Nfft 2^13).
+``wideband_conf``: the 64-channel polyphase channelizer in front of the
+flagship spec per channel (BASELINE #5, ``bench/subsystems.py:31``).
+``tracking_conf``: the search-and-track loop's settings (BASELINE #3,
+``bench/subsystems.py:115-117``).
 """
 
 from pycusdr_tpu_torch.dsp.spec import build_spec
@@ -125,3 +129,20 @@ def tiny_spec():
 def ccsds_spec():
     """Flagship-envelope spec of the concatenated CCSDS downlink."""
     return _spec(ccsds_conf(), "ccsds_conv")
+
+
+def wideband_conf():
+    """The wideband front end: an M=64 channelizer (K=8 taps per branch,
+    Kaiser beta 9) whose every channel runs the flagship spec, so the
+    wideband rate is 64 x 153.6 ks/s = 9.8304 Ms/s. Keys: ``M``,
+    ``taps_per_branch``, ``beta`` (``parallel.Channelizer``'s arguments)
+    and ``channel_conf`` (the flagship conf)."""
+    return {"M": 64, "taps_per_branch": 8, "beta": 9.0, "channel_conf": flagship_conf()}
+
+
+def tracking_conf():
+    """``models.DopplerTracker``'s keyword arguments of the LEO pass: a
+    16-bin track grid over 32 FFT bins, lock above 3 dB SNR, reacquire
+    after 5 weak blocks."""
+    return {"track_bins": 16, "track_span_bins": 32, "snr_threshold_db": 3.0,
+            "lost_limit": 5}

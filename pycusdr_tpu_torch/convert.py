@@ -11,7 +11,9 @@ The decoder's tables (the branch tables of ``ops/viterbi._branch_tables``,
 the RS generator and GF tables) are numpy copies that the tests hold
 equal to the JAX package's. Its running state is the streaming Viterbi's
 (``carry``, ``pending``, ``parity``): ``viterbi_stream_state`` hands a
-JAX ``ViterbiStream``'s state over to a port stream mid-way.
+JAX ``ViterbiStream``'s state over to a port stream mid-way. The
+channelizer's taps and carry (``channelizer_from_jax``) and the tracker's
+ramp history and state (``tracker_state``) cross over the same way.
 """
 
 import dataclasses
@@ -102,3 +104,40 @@ def viterbi_stream_state(carry, pending, parity, **stream_kw) -> ViterbiStream:
     vs.pending = np.array(pending, dtype=np.float32)
     vs.parity = None if parity is None else int(parity)
     return vs
+
+
+def channelizer_from_jax(h2, state_ri, device=None):
+    """A port ``Channelizer`` with a JAX ``Channelizer``'s taps ``h2``
+    ((K, M) f32) and carry ``state_ri`` ((2, K-1, M) split re/im f32, as
+    numpy), so ``process`` continues the JAX stream. ``device`` as the
+    ``Channelizer``'s."""
+    from pycusdr_tpu_torch.parallel.channelizer import Channelizer
+
+    h2 = np.asarray(h2, np.float32)
+    st = np.asarray(state_ri, np.float32)
+    K, M = h2.shape
+    if st.shape != (2, K - 1, M):
+        raise ValueError(f"state_ri: expected (2, {K - 1}, {M}), got {st.shape}")
+    ch = Channelizer(M, K, device=device)
+    ch.h2 = torch.from_numpy(h2.copy()).to(ch.device)
+    ch.state = torch.from_numpy((st[0] + 1j * st[1]).astype(np.complex64)).to(ch.device)
+    return ch
+
+
+def tracker_state(state, t_hist, hz_hist, lost, blocks, **tracker_kw):
+    """A port ``DopplerTracker`` that resumes another tracker mid-pass: its
+    mode (``ACQUIRING`` or ``TRACKING``), block-index and Doppler histories,
+    weak-block count and block counter (a JAX tracker's ``state``, ``_t``,
+    ``_hz``, ``_lost`` and ``_blocks``). ``tracker_kw`` are
+    ``DopplerTracker``'s arguments, which must match the other tracker's."""
+    from pycusdr_tpu_torch.models.tracking import ACQUIRING, TRACKING, DopplerTracker
+
+    if state not in (ACQUIRING, TRACKING):
+        raise ValueError(f"unknown tracker state {state!r}")
+    tr = DopplerTracker(**tracker_kw)
+    tr.state = state
+    tr._t = [int(t) for t in t_hist]
+    tr._hz = [float(h) for h in hz_hist]
+    tr._lost = int(lost)
+    tr._blocks = int(blocks)
+    return tr

@@ -8,6 +8,12 @@
 //   (the shift on unwrapped bins, rounded half to even, mod N),
 //   snr_db   = 20 log10(mean|S| over the signal band / mean|S| over the
 //              mirrored band - 1), -inf when that ratio is <= 0.
+// With a runtime recentre c_b (tracking: the grid follows the ramp, the
+// optional `centre` operand) the grid sits c_b bins higher, as in
+// pycusdr_tpu/dsp/block.py:254-266: doppler_hz += f32(c_b) * f32(fs/N)
+// after the interpolation, shift = (rint(...) + c_b) mod N, and both SNR
+// bands move by c_b bins. A NULL `centre` skips all three (the results of
+// the graph without a recentre, bit for bit).
 //
 // Replaces pycusdr_tpu/ops/doppler_search.py:find_doppler_estimate
 // (:158-193), the interpolation of dsp/block.py:248-267 and
@@ -24,7 +30,8 @@
 // microsecond, so the launch bounds it.
 // Outputs: sc[b * sc_stride + 0..5] = dopp_idx, quality_db, doppler_hz,
 // freq_offset_hz, snr_db, shift (as f32), e_out[b * e_stride + d * M + m]
-// = E (when e_out is not NULL), shift_out[b] = shift (int32, read by K2).
+// = E (when e_out is not NULL), shift_out[b] = shift (int32, read by K2);
+// centre: NULL or (B,) int32 bins.
 #include "common.cuh"
 
 namespace {
@@ -88,8 +95,9 @@ __global__ void __launch_bounds__(kThreads)
 doppler_estimate(const float* __restrict__ E, const float* __restrict__ P,
                  const int* __restrict__ shifts, const int* __restrict__ shifts_signed,
                  const float* __restrict__ hz, float* __restrict__ sc, int sc_stride,
-                 float* __restrict__ e_out, int e_stride, int* __restrict__ shift_out, int N,
-                 int D, int M, int nd, int off, int sum_all, int w, float centre_hz) {
+                 float* __restrict__ e_out, int e_stride, int* __restrict__ shift_out,
+                 const int* __restrict__ centre, int N, int D, int M, int nd, int off,
+                 int sum_all, int w, float if_hz, float bin_hz) {
     __shared__ float tot[kMaxD];
     __shared__ float idxs[kMaxM], quals[kMaxM];
     __shared__ float red[kThreads / 32];
@@ -138,18 +146,21 @@ doppler_estimate(const float* __restrict__ E, const float* __restrict__ P,
         const int hi = min(max((int)ceilf(dopp_idx), 0), D - 1);
         const float frac = __fsub_rn(dopp_idx, fl);  // remainder(dopp_idx, 1), dopp_idx >= 0
         const float hz_lo = hz[lo], hz_hi = hz[hi];
-        const float dhz = __fadd_rn(hz_lo, __fmul_rn(__fsub_rn(hz_hi, hz_lo), frac));
+        float dhz = __fadd_rn(hz_lo, __fmul_rn(__fsub_rn(hz_hi, hz_lo), frac));
+        const long long c = centre ? centre[b] : 0;
+        if (centre) dhz = __fadd_rn(dhz, __fmul_rn((float)c, bin_hz));
         const float sl = (float)shifts_signed[lo], sh = (float)shifts_signed[hi];
-        int shift = (int)rintf(__fadd_rn(sl, __fmul_rn(__fsub_rn(sh, sl), frac))) % N;
+        int shift = (int)(((long long)(int)rintf(__fadd_rn(sl, __fmul_rn(__fsub_rn(sh, sl), frac)))
+                           + c) % N);
         if (shift < 0) shift += N;
         head[0] = dopp_idx;
         head[1] = __fmul_rn(10.f, log10f(quality));
         head[2] = dhz;
-        head[3] = __fsub_rn(dhz, centre_hz);
+        head[3] = __fsub_rn(dhz, if_hz);
         // circular bands [a, a + span) of the signal and of its mirror
-        int a = (shifts[lo] - w) % N;
+        int a = (int)(((long long)shifts[lo] + c - w) % N);
         if (a < 0) a += N;
-        int span = (shifts[hi] + w - a) % N;
+        int span = (int)(((long long)shifts[hi] + c + w - a) % N);
         if (span < 0) span += N;
         band[0] = a;
         band[1] = (a + N / 2) % N;
@@ -191,14 +202,15 @@ doppler_estimate(const float* __restrict__ E, const float* __restrict__ P,
 PYCUSDR_API int pycusdr_doppler_estimate(const float* E, const float* P, const int* shifts,
                                          const int* shifts_signed, const float* hz, float* sc,
                                          int sc_stride, float* e_out, int e_stride,
-                                         int* shift_out, int B, int N, int D, int M, int nd,
-                                         int off, int sum_all, int snr_window, float centre_hz,
+                                         int* shift_out, const int* centre, int B, int N,
+                                         int D, int M, int nd, int off, int sum_all,
+                                         int snr_window, float if_hz, float bin_hz,
                                          cudaStream_t stream) {
     if (B <= 0 || N <= 0 || D <= 0 || D > kMaxD || M <= 0 || M > kMaxM || nd <= 0 ||
         off < 0 || off + nd > D)
         return (int)cudaErrorInvalidValue;
     doppler_estimate<<<B, kThreads, 0, stream>>>(E, P, shifts, shifts_signed, hz, sc, sc_stride,
-                                                 e_out, e_stride, shift_out, N, D, M, nd, off,
-                                                 sum_all, snr_window, centre_hz);
+                                                 e_out, e_stride, shift_out, centre, N, D, M, nd,
+                                                 off, sum_all, snr_window, if_hz, bin_hz);
     return (int)cudaGetLastError();
 }

@@ -4,8 +4,8 @@
 // For each bit slot s (one thread), over c = 0..C-1 in channel order:
 //   trust[c][s] = -1 when s >= nBits[c] (written back into the row: a pad
 //                 slot must not vote, and the rows leave with it masked);
-//   valid       = trust >= 0; weight w = trust as f32, the master's (c = 0)
-//                 times master_weight;
+//   valid       = trust >= 0; weight w = trust as f32, the master's (c =
+//                 master_idx) times master_weight;
 //   score      += w * (2 bit - 1)          (f32, channel order)
 //   voted       = score > 0
 //   agree       = #valid with bit == voted, quorum = #valid
@@ -31,7 +31,7 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S,
+vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S, int master,
      float master_weight) {
     const int s = blockIdx.x * kThreads + threadIdx.x;
     if (s >= S) return;
@@ -44,7 +44,7 @@ vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S,
             r[S + s] = -1.f;
         }
         if (t >= 0.f) {  // an invalid voter adds a weight-0 term: no change
-            const float w = c == 0 ? __fmul_rn(t, master_weight) : t;
+            const float w = c == master ? __fmul_rn(t, master_weight) : t;
             score = __fadd_rn(score, __fmul_rn(w, __fsub_rn(__fmul_rn(r[s], 2.f), 1.f)));
         }
     }
@@ -64,11 +64,12 @@ vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S,
 }  // namespace
 
 // rows: (C, L) f32 packed rows (bits at 0, trust at S, nBits at 5 S + 1),
-// trust masked in place; out: (2, S) f32.
-PYCUSDR_API int pycusdr_vote(float* rows, float* out, int C, int L, int S, float master_weight,
-                             cudaStream_t stream) {
-    if (C <= 0 || S <= 0 || L < 5 * S + 12) return (int)cudaErrorInvalidValue;
-    vote<<<(S + kThreads - 1) / kThreads, kThreads, 0, stream>>>(rows, out, C, L, S,
+// trust masked in place; out: (2, S) f32; master_idx in [0, C).
+PYCUSDR_API int pycusdr_vote(float* rows, float* out, int C, int L, int S, int master_idx,
+                             float master_weight, cudaStream_t stream) {
+    if (C <= 0 || S <= 0 || L < 5 * S + 12 || master_idx < 0 || master_idx >= C)
+        return (int)cudaErrorInvalidValue;
+    vote<<<(S + kThreads - 1) / kThreads, kThreads, 0, stream>>>(rows, out, C, L, S, master_idx,
                                                                  master_weight);
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 interpolation and SNR (K5) | the fixed shift] -> best-shift
 matched-filter bank reduced over masks (K2) -> symbol timing (K3) ->
 symbol detection with bits, trust and the clip window (K4) [-> NRZ-S
-bits from the symbol transitions (K4n)] -> one packed f32 row per block.
+bits from the symbol transitions (K4n)] -> one packed f32 row per block. A runtime
+``centre_shift`` moves the Doppler grid of K1 and K5 (tracking).
 
 The bracketed stages follow the spec: the UHF mode searches Doppler and
 does not clip; the STX mode (``doppler_search=False``,
@@ -117,10 +118,11 @@ def _k4_kwargs(spec: DemodSpec, c: DeviceConsts) -> dict:
                 numSymMax=spec.numSymMax, trust_normal=c.trust_normal)
 
 
-def _k5_kwargs(spec: DemodSpec) -> dict:
+def _k5_kwargs(spec: DemodSpec, centre: torch.Tensor = None) -> dict:
     return dict(num_dopplers=spec.num_dopplers, array_offset=spec.dopp_array_offset,
                 sum_all_masks=spec.sum_all_masks, snr_window=spec.snr_window,
-                centre_freq_offset=spec.centreFreqOffset)
+                centre_freq_offset=spec.centreFreqOffset, centre_shift=centre,
+                bin_hz=spec.sampleRate / spec.Nfft)
 
 
 def _fixed_tail(spec: DemodSpec, dev) -> torch.Tensor:
@@ -133,9 +135,11 @@ def _fixed_tail(spec: DemodSpec, dev) -> torch.Tensor:
 
 
 def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
-                  fixed_tail: torch.Tensor, row: torch.Tensor = None) -> torch.Tensor:
+                  fixed_tail: torch.Tensor, row: torch.Tensor = None,
+                  centre: torch.Tensor = None) -> torch.Tensor:
     """The kernel path on a (B, N) complex64 batch; returns the (B, L)
-    rows, written into ``row`` when given."""
+    rows, written into ``row`` when given. ``centre``: None or the (B,)
+    int32 grid recentre that K1 and K5 take."""
     M, S_ = spec.num_masks, spec.numSymMax
     if row is None:
         row = torch.empty((x.shape[0], packed_len(spec)), dtype=torch.float32, device=x.device)
@@ -147,9 +151,9 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
     S = torch.fft.fft(x)
     if spec.doppler_search:
         P = S.real * S.real + S.imag * S.imag
-        E = doppler_energy(P, c.Q, c.shifts)
+        E = doppler_energy(P, c.Q, c.shifts, centre)
         shift = doppler_estimate(E, P, c.shifts, c.shifts_signed, c.hz_lut,
-                                 **_k5_kwargs(spec), tail=tail)[-1]
+                                 **_k5_kwargs(spec, centre), tail=tail)[-1]
     else:
         tail[:, SCALAR["dopp_idx"]:] = fixed_tail  # the one fill of the STX path
         shift = c.fixed_shift
@@ -165,7 +169,8 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
     return row
 
 
-def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
+def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
+                   centre: torch.Tensor = None) -> dict:
     """The plain path on a (B, N) complex64 batch; returns the batched dict."""
     D, M = spec.D, spec.num_masks
     B = x.shape[0]
@@ -177,9 +182,10 @@ def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
     S = torch.fft.fft(x)
     if spec.doppler_search:
         P = S.real * S.real + S.imag * S.imag
-        E = doppler_energy_plain(P, c.Q, c.shifts)
+        E = doppler_energy_plain(P, c.Q, c.shifts, centre)
         dopp_idx, quality_db, doppler_hz, freq_offset_hz, snr_db, shift = \
-            doppler_estimate_plain(E, P, c.shifts, c.shifts_signed, c.hz_lut, **_k5_kwargs(spec))
+            doppler_estimate_plain(E, P, c.shifts, c.shifts_signed, c.hz_lut,
+                                   **_k5_kwargs(spec, centre))
     else:
         E = torch.zeros((B, D, M), dtype=torch.float32, device=dev)
         dopp_idx = quality_db = doppler_hz = freq_offset_hz = snr_db = \
@@ -212,12 +218,34 @@ def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts) -> dict:
     }
 
 
+def _centre(centre_shift, B: int, dev) -> torch.Tensor:
+    """None, or the recentre as a (B,) int32 tensor on ``dev`` from an int
+    or a tensor of one or B values. An int is filled on the device: a copy
+    from pageable host memory would synchronise the stream first."""
+    if centre_shift is None:
+        return None
+    if isinstance(centre_shift, (int, np.integer)):
+        return torch.full((B,), int(centre_shift), dtype=torch.int32, device=dev)
+    c = torch.as_tensor(centre_shift, dtype=torch.int32).to(dev)
+    if c.numel() not in (1, B):
+        raise ValueError(f"centre_shift: expected 1 or {B} values, got {c.numel()}")
+    return c.reshape(-1).expand(B).contiguous()
+
+
 def build_process_batch(spec: DemodSpec, device=None, packed: bool = False,
                         plain: bool = False):
-    """Return ``process(blocks, row=None) -> outputs`` for (B, Nfft)
-    complex64 blocks: a dict of (B, ...) tensors, or with ``packed`` one
-    (B, L) f32 tensor in the layout of ``pack_block_outputs``, written
-    into ``row`` (a (B, L) f32 tensor on the device) when given.
+    """Return ``process(blocks, row=None, centre_shift=None) -> outputs``
+    for (B, Nfft) complex64 blocks: a dict of (B, ...) tensors, or with
+    ``packed`` one (B, L) f32 tensor in the layout of
+    ``pack_block_outputs``, written into ``row`` (a (B, L) f32 tensor on
+    the device) when given.
+
+    ``centre_shift``: None, an int or a (B,) int32 tensor: recentres the
+    Doppler grid by that many FFT bins at runtime (the search-and-track
+    loop, ``models/tracking.py``), in K1 and K5 and in their plain
+    versions, as ``pycusdr_tpu/dsp/block.py:205-266`` does. None leaves
+    the graph as it is without a recentre; a spec without a Doppler search
+    ignores it, as JAX's does.
 
     ``device``: None means the card (raises without one); pass "cpu" to
     run on the CPU, where every wrapper takes its kernel's plain version.
@@ -230,35 +258,37 @@ def build_process_batch(spec: DemodSpec, device=None, packed: bool = False,
     consts = DeviceConsts.from_spec(spec, dev)
     fixed_tail = None if spec.doppler_search else _fixed_tail(spec, dev)
 
-    def process(blocks, row=None):
+    def process(blocks, row=None, centre_shift=None):
         x = torch.as_tensor(blocks).to(dev, torch.complex64).contiguous()
         if x.dim() != 2 or x.shape[1] != spec.Nfft:
             raise ValueError(f"expected (B, {spec.Nfft}) blocks, got {tuple(x.shape)}")
         if row is not None and (not packed or tuple(row.shape) != (x.shape[0], packed_len(spec))):
             raise ValueError("row: needs packed=True and shape (B, L)")
+        centre = _centre(centre_shift, x.shape[0], dev) if spec.doppler_search else None
         if plain:
-            out = _process_plain(x, spec, consts)
+            out = _process_plain(x, spec, consts, centre)
             if not packed:
                 return out
             return pack_block_outputs(out) if row is None else row.copy_(pack_block_outputs(out))
-        row = _process_rows(x, spec, consts, fixed_tail, row=row)
+        row = _process_rows(x, spec, consts, fixed_tail, row=row, centre=centre)
         return row if packed else unpack_rows(row, spec)
 
     process.device = dev
     return process
 
 
-def build_process_block(spec: DemodSpec, device=None, packed: bool = False):
-    """Return ``process_block(samples)`` for one (Nfft,) block or a (B,
-    Nfft) batch of complex64 samples; outputs drop the batch axis for a
-    single block. Arguments as ``build_process_batch``."""
-    batch = build_process_batch(spec, device=device, packed=packed)
+def build_process_block(spec: DemodSpec, device=None, packed: bool = False,
+                        plain: bool = False):
+    """Return ``process_block(samples, centre_shift=None)`` for one (Nfft,)
+    block or a (B, Nfft) batch of complex64 samples; outputs drop the batch
+    axis for a single block. Arguments as ``build_process_batch``."""
+    batch = build_process_batch(spec, device=device, packed=packed, plain=plain)
 
-    def process_block(samples):
+    def process_block(samples, centre_shift=None):
         x = torch.as_tensor(samples)
         if x.dim() != 1:
-            return batch(x)
-        out = batch(x[None])
+            return batch(x, centre_shift=centre_shift)
+        out = batch(x[None], centre_shift=centre_shift)
         return out[0] if packed else {k: v[0] for k, v in out.items()}
 
     process_block.device = batch.device

@@ -2,8 +2,9 @@
 demodulation path (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
 ``timing_band``, K4 ``symbol_detect`` with K4n ``nrzs_bits`` for NRZ-S,
 K5 ``doppler_estimate``, K6 ``threshold_input``), the decoder's Viterbi
-trellis (K7 ``viterbi``) and the channel group's vote (K8 ``vote``,
-``parallel/vote.py``)."""
+trellis (K7 ``viterbi``), the channel group's vote (K8 ``vote``,
+``parallel/vote.py``) and the wideband channelizer (K9 ``channelize``,
+``parallel/channelizer.py``)."""
 
 
 def kernel_wrappers() -> dict:
@@ -18,12 +19,14 @@ def kernel_wrappers() -> dict:
     )
     from pycusdr_tpu_torch.ops.doppler_search import doppler_energy, doppler_estimate
     from pycusdr_tpu_torch.ops.viterbi import viterbi_sweep
+    from pycusdr_tpu_torch.parallel.channelizer import channelize
     from pycusdr_tpu_torch.parallel.vote import vote_rows
 
     return {"doppler_energy": doppler_energy, "mf_bank_colreduce": mf_bank_colreduce,
             "timing_band": timing_band, "symbol_detect": symbol_detect,
             "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
-            "viterbi": viterbi_sweep, "nrzs_bits": nrzs_bits, "vote": vote_rows}
+            "viterbi": viterbi_sweep, "nrzs_bits": nrzs_bits, "vote": vote_rows,
+            "channelize": channelize}
 
 
 def reset_launches() -> None:

@@ -48,9 +48,10 @@ SIGNATURES = {
     "pycusdr_symbol_detect": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # E, P, shifts, shifts_signed, hz, sc, sc_stride, e_out, e_stride, shift_out,
-    # B, N, D, M, num_dopplers, offset, sum_all, snr_window, centre_hz, stream
-    "pycusdr_doppler_estimate": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # centre|NULL, B, N, D, M, num_dopplers, offset, sum_all, snr_window, if_hz,
+    # bin_hz, stream
+    "pycusdr_doppler_estimate": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # x, y, part, hits, clipped_any, B, N, chunk, scale, stream
     "pycusdr_threshold": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # sym, lengths, dec|NULL, bits|NULL, met, S, Tmax, soft, terminated, invert_g2,
@@ -58,8 +59,10 @@ SIGNATURES = {
     "pycusdr_viterbi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # row, lut, L, B, S, M, K, stream
     "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # rows, out, C, L, S, master_weight, stream
-    "pycusdr_vote": [_P, _P, _I, _I, _I, _F, _P],
+    # rows, out, C, L, S, master_idx, master_weight, stream
+    "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # x, state|NULL, h2, tw, y, T, M, K, stream
+    "pycusdr_channelize": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

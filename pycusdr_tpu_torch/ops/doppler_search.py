@@ -150,13 +150,19 @@ K5_MAX_D = 1024
 
 def doppler_estimate_plain(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
                            array_offset: int, sum_all_masks: bool, snr_window: int,
-                           centre_freq_offset: float):
+                           centre_freq_offset: float, centre_shift: torch.Tensor = None,
+                           bin_hz: float = 0.0):
     """Plain PyTorch K5: ``find_doppler_estimate``, the fractional
     interpolation of ``pycusdr_tpu/dsp/block.py:248-267`` and
     ``compute_snr``, batched. E: (B, D, M) f32; P: (B, N) f32 = |S|^2;
     shifts: (D,) int32 in [0, N); shifts_signed: the same unwrapped into
     [-N/2, N/2); hz_lut: (D,) f32. Returns (dopp_idx, quality_db,
-    doppler_hz, freq_offset_hz, snr_db) f32 and shift int32, each (B,)."""
+    doppler_hz, freq_offset_hz, snr_db) f32 and shift int32, each (B,).
+
+    ``centre_shift``: optional (B,) int32 runtime recentre of the grid in
+    FFT bins of width ``bin_hz`` (fs/N, taken as f32): JAX adds
+    f32(c) * f32(bin_hz) to doppler_hz after the interpolation, c to the
+    shift before the mod and to both SNR bands (``dsp/block.py:254-266``)."""
     N, D = P.shape[-1], E.shape[1]
     dopp_idx, quality_db = find_doppler_estimate(E, num_dopplers, array_offset, sum_all_masks)
     # interpolate on UNWRAPPED shifts: a grid straddling DC has
@@ -167,18 +173,27 @@ def doppler_estimate_plain(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers:
     doppler_hz = hz_lut[lowIdx] + (hz_lut[highIdx] - hz_lut[lowIdx]) * frac
     sl = shifts_signed[lowIdx].float()
     sh = shifts_signed[highIdx].float()
-    shift = torch.remainder(torch.round(sl + (sh - sl) * frac).to(torch.int32), N)
-    snr_db = compute_snr(torch.sqrt(P), shifts[lowIdx], shifts[highIdx], snr_window, N)
+    shift = torch.round(sl + (sh - sl) * frac).to(torch.int32)
+    lo, hi = shifts[lowIdx], shifts[highIdx]
+    if centre_shift is not None:
+        c = centre_shift.to(torch.int32)
+        bin32 = torch.tensor(bin_hz, dtype=torch.float32, device=E.device)
+        doppler_hz = doppler_hz + c.float() * bin32
+        shift, lo, hi = shift + c, lo + c, hi + c
+    shift = torch.remainder(shift, N)
+    snr_db = compute_snr(torch.sqrt(P), lo, hi, snr_window, N)
     return dopp_idx, quality_db, doppler_hz, doppler_hz - centre_freq_offset, snr_db, shift
 
 
 def doppler_estimate(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
                      array_offset: int, sum_all_masks: bool, snr_window: int,
-                     centre_freq_offset: float, tail: torch.Tensor = None):
+                     centre_freq_offset: float, tail: torch.Tensor = None,
+                     centre_shift: torch.Tensor = None, bin_hz: float = 0.0):
     """K5: the Doppler estimate, interpolation and SNR of a block in one
-    launch (see ``doppler_estimate_plain`` for the arguments and outputs).
-    A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/doppler_estimate.cu`` or raises.
+    launch (see ``doppler_estimate_plain`` for the arguments and outputs,
+    ``centre_shift`` and ``bin_hz`` among them). A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/doppler_estimate.cu`` or
+    raises.
 
     ``tail``: the packed rows from their first scalar on (``row[:, 5 S:]``,
     a view with unit column stride). The five f32 outputs, the shift and E
@@ -186,7 +201,8 @@ def doppler_estimate(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
     of it."""
     kw = dict(num_dopplers=num_dopplers, array_offset=array_offset,
               sum_all_masks=sum_all_masks, snr_window=snr_window,
-              centre_freq_offset=centre_freq_offset)
+              centre_freq_offset=centre_freq_offset, centre_shift=centre_shift,
+              bin_hz=bin_hz)
     if E.device.type == "cpu":
         out = doppler_estimate_plain(E, P, shifts, shifts_signed, hz_lut, **kw)
         if tail is not None:
@@ -207,6 +223,8 @@ def doppler_estimate(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
     _lib.check(shifts, "shifts", torch.int32, (D,), dev)
     _lib.check(shifts_signed, "shifts_signed", torch.int32, (D,), dev)
     _lib.check(hz_lut, "hz_lut", torch.float32, (D,), dev)
+    if centre_shift is not None:
+        _lib.check(centre_shift, "centre_shift", torch.int32, (B,), dev)
     if tail is None:
         sc = torch.empty((B, len(K5_OUTPUTS)), dtype=torch.float32, device=dev)
         sc_at, e_at = 0, None
@@ -221,8 +239,8 @@ def doppler_estimate(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
     _lib.launch("pycusdr_doppler_estimate", _lib.ptr(E), _lib.ptr(P), _lib.ptr(shifts),
                 _lib.ptr(shifts_signed), _lib.ptr(hz_lut), base + 4 * sc_at, sc.stride(0),
                 None if e_at is None else base + 4 * e_at, sc.stride(0), _lib.ptr(shift),
-                B, N, D, M, num_dopplers, array_offset, int(sum_all_masks), snr_window,
-                float(centre_freq_offset))
+                _lib.ptr(centre_shift), B, N, D, M, num_dopplers, array_offset,
+                int(sum_all_masks), snr_window, float(centre_freq_offset), float(bin_hz))
     doppler_estimate.launches += 1
     return tuple(sc[:, sc_at + i] for i in range(5)) + (shift,)
 

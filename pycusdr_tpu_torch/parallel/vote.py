@@ -2,7 +2,7 @@
 
 The port of ``pycusdr_tpu/parallel/vote.py``: bits whose trust is
 negative are disqualified, each remaining channel votes with weight
-``trust`` (the master channel, index 0, scaled by ``masterVoteWeight``),
+``trust`` (the master channel, ``master_idx``, scaled by ``masterVoteWeight``),
 and the combined trust is ``votersAgreed + quorum/10``, or -1 when no
 voter qualifies (reference ``softCombiner.py:570-618``).
 
@@ -43,8 +43,15 @@ def vote_n_device_plain(bits: torch.Tensor, trust: torch.Tensor, master_idx: int
     return voted, torch.where(quorum == 0, -1.0, combined)
 
 
+def _master(master_idx: int, C: int) -> int:
+    """``master_idx`` in [0, C), a negative one counted from the end."""
+    if not -C <= master_idx < C:
+        raise ValueError(f"master_idx {master_idx} out of range for {C} channels")
+    return master_idx % C
+
+
 def vote_rows_plain(rows: torch.Tensor, numSymMax: int, master_weight: float,
-                    out: torch.Tensor) -> torch.Tensor:
+                    out: torch.Tensor, master_idx: int = 0) -> torch.Tensor:
     """The plain version of ``vote_rows``: trust -1 in place at each row's
     slots s >= nBits, then ``vote_n_device_plain`` on the rows' bits and
     trust, into ``out``."""
@@ -54,32 +61,33 @@ def vote_rows_plain(rows: torch.Tensor, numSymMax: int, master_weight: float,
     trust = rows[:, S:2 * S]
     trust.copy_(torch.where(slot[None, :] < nbits[:, None], trust, -1.0))
     voted, combined = vote_n_device_plain(rows[:, :S].to(torch.int8), trust.to(torch.int8),
-                                          0, master_weight)
+                                          _master(master_idx, rows.shape[0]), master_weight)
     out[0] = voted.float()
     out[1] = combined
     return out
 
 
 def vote_rows(rows: torch.Tensor, numSymMax: int, master_weight: float,
-              out: torch.Tensor = None) -> torch.Tensor:
+              out: torch.Tensor = None, master_idx: int = 0) -> torch.Tensor:
     """K8: vote the (C, L) f32 packed rows of C lockstep channels (channel
-    0 the master). Their pad slots' trust becomes -1 in place (as in
+    ``master_idx`` the master). Their pad slots' trust becomes -1 in place (as in
     ``vote_rows_plain``); the voted bits and the combined trust go to
     ``out`` (2, S) f32 (allocated when None), which is returned."""
     S = numSymMax
     C = rows.shape[0]
     if rows.dim() != 2 or rows.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
         raise ValueError(f"vote_rows: rows shape {tuple(rows.shape)} too small for S={S}")
+    master_idx = _master(master_idx, C)
     if out is None:
         out = torch.empty((2, S), dtype=torch.float32, device=rows.device)
     if rows.device.type == "cpu":
-        return vote_rows_plain(rows, S, master_weight, out)
+        return vote_rows_plain(rows, S, master_weight, out, master_idx)
     if rows.device.type != "cuda":
         raise ValueError(f"vote_rows: unsupported device {rows.device}")
     _lib.check(rows, "rows", torch.float32)
     _lib.check(out, "out", torch.float32, (2, S), rows.device)
     _lib.launch("pycusdr_vote", _lib.ptr(rows), _lib.ptr(out), C, rows.shape[1], S,
-                float(master_weight))
+                master_idx, float(master_weight))
     vote_rows.launches += 1
     return out
 

@@ -46,7 +46,9 @@ import json, numpy as np, torch
 from pycusdr_tpu_torch.configs import RADIO, ccsds_conf, tiny_conf, tiny_spec
 from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_block
-from pycusdr_tpu_torch.models import UHF
+from pycusdr_tpu_torch.models import UHF, DopplerTracker
+from pycusdr_tpu_torch.parallel import (Channelizer, build_sharded_demod_step,
+                                        build_time_sharded_stream, make_mesh)
 from pycusdr_tpu_torch.ops.viterbi import ViterbiStream, viterbi_decode
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
@@ -62,7 +64,12 @@ for make in (lambda: build_process_block(tiny_spec()),
              lambda: ViterbiStream(),
              lambda: Decoder({}, ccsds).findFrames(np.zeros(100, np.uint8), 0),
              lambda: build_group_graph(tiny_spec(), 3, 1.2),
-             lambda: PyCuSDR(dict(conf, Interfaces={}))):
+             lambda: PyCuSDR(dict(conf, Interfaces={})),
+             lambda: Channelizer(64),
+             lambda: DopplerTracker(spec=tiny_spec()),
+             lambda: make_mesh({"channel": 1, "dopp": 1}),
+             lambda: build_sharded_demod_step(tiny_spec(), make_mesh({"channel": 1})),
+             lambda: build_time_sharded_stream(tiny_spec(), make_mesh({"time": 1}))):
     try:
         make()
     except RuntimeError as e:
@@ -99,12 +106,15 @@ def test_port_imports_no_jax():
                  "pycusdr_tpu_torch.runtime.decoder_process", "pycusdr_tpu_torch.runtime.sigfifo",
                  "pycusdr_tpu_torch.runtime.pipeline", "pycusdr_tpu_torch.runtime.cli",
                  "pycusdr_tpu_torch.__main__", "pycusdr_tpu_torch.control.rpc",
-                 "pycusdr_tpu_torch.config.loader", "pycusdr_tpu_torch.obs.stats"):
+                 "pycusdr_tpu_torch.config.loader", "pycusdr_tpu_torch.obs.stats",
+                 "pycusdr_tpu_torch.parallel.channelizer", "pycusdr_tpu_torch.parallel.mesh",
+                 "pycusdr_tpu_torch.parallel.sharded_demod", "pycusdr_tpu_torch.parallel.halo",
+                 "pycusdr_tpu_torch.models.tracking"):
         assert name in res["modules"]
 
 
 def test_cuda_entry_points_raise_without_a_card():
-    assert _run(NO_CARD)["raised"] == [True] * 8
+    assert _run(NO_CARD)["raised"] == [True] * 13
 
 
 def test_cli_help_imports_no_jax():

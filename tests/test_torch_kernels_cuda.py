@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
 at small T with ragged lengths; K4n at the tiny bench_BPSK shape; K8 on
-random rows and in the group graph).
+random rows and in the group graph; K9 at four shapes; K1 and K5 with
+``centre_shift``; K8 with ``master_idx``; the channel-parallel step).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -20,6 +21,8 @@ from pycusdr_tpu_torch.dsp.spec import build_spec
 from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.ops import viterbi as vit
+from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import channelizer as pch
 from pycusdr_tpu_torch.parallel import vote as pv
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
@@ -512,3 +515,100 @@ def test_group_graph_matches_plain(case, cuda):
     for ch in range(3):
         assert torch.equal(got[ch * L:ch * L + 4 * S], want[ch * L:ch * L + 4 * S])
     assert torch.equal(got[3 * L:], want[3 * L:])
+
+
+# ---- slice 5: K9 channelize, K5 and K1 with centre_shift, K8 with master_idx
+
+
+@pytest.mark.parametrize("M,K,T", [(64, 8, 4096), (8, 4, 1001), (1024, 32, 40), (1, 3, 7)])
+@pytest.mark.parametrize("with_state", [True, False])
+def test_channelize(cuda, M, K, T, with_state):
+    """K9 against its plain version: y within 1e-5 of max|y| (a radix-2 DFT
+    against cuFFT), the carry equal; a ragged last tile, the largest M and
+    K, and M = 1 (no DFT) included."""
+    rng = np.random.RandomState(M + K + T)
+    x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
+    h2 = torch.from_numpy(rng.randn(K, M).astype(np.float32)).to(cuda)
+    st = (torch.from_numpy((rng.randn(K - 1, M) + 1j * rng.randn(K - 1, M)).astype(np.complex64))
+          .to(cuda) if with_state else None)
+    yk, sk = pch.channelize(x, h2, st)
+    yp, sp = pch.channelize_plain(x, h2, st)
+    torch.cuda.synchronize()
+    assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert torch.equal(sk, sp)
+
+
+def test_channelize_halves_equal_one_shot(cuda):
+    """Two half hops through the card's Channelizer with the carried state
+    give the one-shot hop (same kernel, same rows: equal)."""
+    M, T = 64, 2048
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
+    ch = pch.Channelizer(M, device=cuda)
+    one, st = ch(x)
+    halves = torch.cat([ch.process(x[:T * M // 2]), ch.process(x[T * M // 2:])], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(halves, one) and torch.equal(ch.state, st)
+
+
+@pytest.mark.parametrize("sum_all", [True, False])
+def test_doppler_estimate_centre_shift(case, sum_all):
+    """K1 and K5 with a runtime recentre (0, positive, negative, wrapping
+    past N) against their plain versions."""
+    spec, c, x, _ = case
+    N = spec.Nfft
+    S = torch.fft.fft(x)
+    P = S.real * S.real + S.imag * S.imag
+    for vals in ((0, 3, -5), (N - 2, -N - 7, 2 * N + 1)):
+        centre = torch.tensor(vals, dtype=torch.int32, device=x.device)
+        E = ds.doppler_energy(P, c.Q, c.shifts, centre)
+        Ep = ds.doppler_energy_plain(P, c.Q, c.shifts, centre)
+        assert float((E - Ep).abs().max()) <= 1e-4 * float(Ep.abs().max())
+        args = (Ep, P, c.shifts, c.shifts_signed, c.hz_lut)
+        kw = dict(_k5_kw(spec, sum_all), centre_shift=centre, bin_hz=spec.sampleRate / N)
+        _assert_k5_close(ds.doppler_estimate(*args, **kw), ds.doppler_estimate_plain(*args, **kw))
+
+
+def test_recentred_graph_matches_plain(case):
+    spec, c, x, _ = case
+    centre = torch.tensor([0, 4, -6], dtype=torch.int32)
+    got = build_process_batch(spec, device="cuda")(x, centre_shift=centre)
+    want = build_process_batch(spec, device="cuda", plain=True)(x, centre_shift=centre)
+    for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift"):
+        assert torch.equal(got[k], want[k].to(got[k].dtype)), k
+
+
+@pytest.mark.parametrize("C,master", [(3, 0), (3, 1), (3, 2), (7, 6), (64, 63), (64, -1)])
+def test_vote_master_idx(cuda, C, master):
+    """K8 with another master channel against the plain vote, ties included
+    (master trust 5 -> weight 6.0 against 3 + 3)."""
+    S, L = 300, 5 * 300 + 12 + 8
+    rng = np.random.RandomState(C + 7)
+    rows = np.zeros((C, L), np.float32)
+    rows[:, :S] = rng.randint(0, 2, (C, S))
+    rows[:, S:2 * S] = rng.choice([-2, -1, 0, 1, 2, 3, 5, 127], (C, S))
+    rows[:, 5 * S + 1] = rng.randint(S // 2, S + 1, C)
+    m = master % C
+    others = [o for o in range(C) if o != m][:2]
+    rows[m, :S:10], rows[m, S:2 * S:10] = 1, 5
+    rows[others, :S:10], rows[others, S:2 * S:10] = 0, 3
+    rows[[o for o in range(C) if o != m and o not in others], S:2 * S:10] = -1
+    rows = torch.from_numpy(rows).to(cuda)
+    rk, rp = rows.clone(), rows.clone()
+    ok = pv.vote_rows(rk, S, 1.2, master_idx=master)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device=cuda), master)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(ok, op)
+
+
+def test_channel_parallel_step_matches_plain(case, cuda):
+    """The one-card channel-parallel step with the vote, kernel path against
+    plain path: every decision and the voted pair equal; K8 launched once."""
+    spec, c, x, _ = case
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=[cuda])
+    pv.vote_rows.launches = 0
+    got = build_sharded_demod_step(spec, mesh, master_idx=1)(x)
+    want = build_sharded_demod_step(spec, mesh, master_idx=1, plain=True)(x)
+    assert pv.vote_rows.launches == 1
+    for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift", "bits_voted", "trust_voted"):
+        assert torch.equal(got[k], want[k]), k
