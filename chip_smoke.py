@@ -65,11 +65,23 @@ and then no result line is printed):
       the flagship spec over a 48-block S-curve pass at 10 dB: the kernel
       and plain trackers equal in modes and bits on every block; the first
       lock, the lock fraction after it and the median error in bins;
+   i. generic: ``build_sharded_demod_step(force_generic=True)`` on the
+      one-card mesh at C=16 flagship channels of seeded GFSK (the vote on):
+      K1, K2, K3, K4l, K4s, K5 and K8 launch, K4 does not; bits, symbols
+      and centres equal the channel-parallel step's per channel; decisions
+      and the voted pair equal the plain generic step's; BER < 1e-3 per
+      channel;
+   j. ranks: the generic step on {"channel": 2, "dopp": 2} in four
+      processes of one gloo world, all on cuda:0 (NCCL refuses two ranks on
+      one card), C=4 with the vote: each rank within the golden table of
+      the one-process step, the voted pair equal on every rank;
    (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K8 at
-   C=3/16/64, S=4608, with pinned ties and master_idx 0, 1 and C-1, K9 at
-   M=64, K=8, T=2^16 with a random carry (1e-5 of max|y|; two half hops
-   equal one hop), and K1 and K5 with centre_shift at B=1/16 against their
-   plain versions;)
+   C=3/16/64, S=4608, with pinned ties and master_idx 0, 1 and C-1, with
+   and without its pad mask, K9 at M=64, K=8, T=2^16 with a random carry
+   (1e-5 of max|y|; two half hops equal one hop), K1 and K5 with
+   centre_shift at B=1/16 against their plain versions, and K4l and K4s
+   at B=1/16 at the flagship, STX (clip window) and bench_BPSK (K4n after
+   K4s) shapes, on one shard and on the two halves of the mask bank;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, and the whole block graph against the plain
@@ -79,11 +91,13 @@ and then no result line is printed):
    beside the graph's and the runtime's demod child host ms per block;
    K9 with its two-call yardstick (grouped conv1d + torch.fft.fft); the
    wideband chain per hop against the signal a hop holds; the tracker's
-   acquire and track graphs per block at B=1; every time must clear its
-   bound;
+   acquire and track graphs per block at B=1; K4l and K4s at B=1/16/64
+   and the generic step at C=16 against the channel-parallel step on the
+   same blocks; every time must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1 and 16,
-   STX at B=1; and of the wideband chain (K9 + the step at C=64).
+   STX at B=1; of the wideband chain (K9 + the step at C=64); and of the
+   generic step at C=16.
 
 It then prints the card line, one JSON line with every kernel's numbers,
 and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -92,6 +106,9 @@ nothing of JAX.
 
 import json
 import math
+import multiprocessing
+import queue
+import socket
 import statistics
 import subprocess
 import sys
@@ -130,7 +147,12 @@ from pycusdr_tpu_torch.ops import demod_kernels as dk
 from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.ops import viterbi as vit
 from pycusdr_tpu_torch.ops.layout import PACK_ARRAYS, SCALAR
-from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import (
+    build_sharded_demod_step,
+    init_distributed,
+    local_channel_slice,
+    make_mesh,
+)
 from pycusdr_tpu_torch.parallel import channelizer as pch
 from pycusdr_tpu_torch.parallel import vote as pv
 from pycusdr_tpu_torch.protocol import loadProtocol
@@ -189,6 +211,10 @@ K9_REL = 1e-5
 TRACK_BLOCKS, TRACK_SNR_DB = 48, 10.0
 #: K8's master channels in the phase-3 check (the last one is C - 1)
 VOTE_MASTERS = (0, 1, -1)
+#: the generic channel x dopp step: C channels in one process (phase 4i), and
+#: the four ranks of {"channel": 2, "dopp": 2} on the one card over gloo with
+#: C channels in all (phase 4j), each rank given this long to report
+GENERIC_C, RANKS_C, RANKS, RANKS_WAIT_S = 16, 4, 4, 300.0
 
 KERNELS = {
     "doppler_energy": ("pycusdr_tpu_torch/csrc/doppler_energy.cu",
@@ -209,6 +235,10 @@ KERNELS = {
     "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
     "channelize": ("pycusdr_tpu_torch/csrc/channelizer.cu",
                    "pycusdr_tpu/parallel/channelizer.py:43"),
+    "symbol_detect_local": ("pycusdr_tpu_torch/csrc/shard_select.cu",
+                            "pycusdr_tpu/parallel/sharded_demod.py:46"),
+    "shard_select": ("pycusdr_tpu_torch/csrc/shard_select.cu",
+                     "pycusdr_tpu/parallel/sharded_demod.py:361"),
 }
 #: the kernels each configuration's path runs
 PATH_KERNELS = {
@@ -225,6 +255,8 @@ PATH_KERNELS = {
                  "timing_band", "symbol_detect", "vote"),
     "tracking": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                  "symbol_detect"),
+    "generic": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                "symbol_detect_local", "shard_select", "vote"),
 }
 
 
@@ -853,6 +885,13 @@ def check_vote(C, S, L, master=0):
     assert torch.equal(ok, op), f"K8 C={C}: voted pair differs from the plain vote"
     assert not bool(ok[0, 0:n_tie:10].any()), f"K8 C={C}: a pinned tie voted 1"
     assert bool((ok[1, 5:S:10] == -1).all()), f"K8 C={C}: a disqualified slot has trust"
+    # the generic step's vote: the trust as the rows hold it, no pad mask
+    rk, rp = rows.clone(), rows.clone()
+    ok = pv.vote_rows(rk, S, 1.2, master_idx=master, mask_pad=False)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device="cuda"), master, False)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rows) and torch.equal(rp, rows), f"K8 C={C}: pad mask off wrote rows"
+    assert torch.equal(ok, op), f"K8 C={C}: voted pair without the pad mask differs"
     return 0.0
 
 
@@ -1278,6 +1317,269 @@ def main_path_tracking(spec):
                 launches=launches), tracker, xb
 
 
+# ------------------------------------ slice 6: the generic channel x dopp step
+
+
+def k4l_kwargs(spec):
+    return dict(M=spec.num_masks, Nfft=spec.Nfft, windowWidth=spec.windowWidth,
+                spsymMin=spec.spsymMin, numSymMax=spec.numSymMax)
+
+
+def shard_columns(spec, consts, inp, nd):
+    """Each of nd shards' (colmax, colargmax) over its Ml = M / nd masks
+    (the plain K2 on the card; the whole bank's for nd = 1)."""
+    if nd == 1:
+        return [(inp["colmax"], inp["colarg"])]
+    Ml = spec.num_masks // nd
+    cols = [dk.mf_bank_colreduce_plain(inp["S"], consts.masks_f[d * Ml:(d + 1) * Ml],
+                                       inp["shift"], 0, Ml) for d in range(nd)]
+    return [(c[1], c[2]) for c in cols]
+
+
+def check_split_detector(spec, consts, B):
+    """K4l on one shard and on the two halves of the bank, and K4s on the
+    stacked pairs, against their plain versions on the card: the pairs and
+    the rows equal (values, keys, symbols, centres, trust with the clip
+    window). At nd = 1 the rows' bits, symbols, centres and mags equal
+    K4's; without a centre-bit LUT K4n runs after K4s on both rows.
+    Returns (nd -> slots set to trust -2, slots the upper half won)."""
+    inp = kernel_inputs(spec, consts, B)
+    kw = k4l_kwargs(spec)
+    kw4 = k4_kwargs(spec, consts)
+    S, L = spec.numSymMax, packed_len(spec)
+    sp, co, hits = inp["spSym"], inp["codeOffset"], inp.get("hits")
+    clipped, split = {}, 0
+    for nd in (1, 2):
+        cols = shard_columns(spec, consts, inp, nd)
+        Ml = spec.num_masks // nd
+        pk = [dk.symbol_detect_local(cm, ca, sp, co, m0=d * Ml, **kw)
+              for d, (cm, ca) in enumerate(cols)]
+        pp = [dk.symbol_detect_local_plain(cm, ca, sp, co, m0=d * Ml, **kw)
+              for d, (cm, ca) in enumerate(cols)]
+        torch.cuda.synchronize()
+        for d, ((vk, kk), (vp, kp)) in enumerate(zip(pk, pp)):
+            assert torch.equal(vk, vp) and torch.equal(kk, kp), \
+                f"K4l B={B} nd={nd} shard {d}: pairs differ from the plain version's"
+        vals, keys = torch.stack([p[0] for p in pp]), torch.stack([p[1] for p in pp])
+        args = (vals, keys, sp, co, consts.bitLUT)
+        rk = dk.shard_select(*args, **kw4, M=spec.num_masks, code_val=inp["code_val"], hits=hits,
+                             row=torch.zeros((B, L), device="cuda"))
+        rp = dk.shard_select_rows_plain(*args, **kw4, M=spec.num_masks, code_val=inp["code_val"],
+                                        hits=hits, row=torch.zeros((B, L), device="cuda"))
+        if consts.bitLUT is None:
+            dk.nrzs_bits(rk, consts.symbolLUT, S)
+            dk.nrzs_rows_plain(rp, consts.symbolLUT, S)
+        torch.cuda.synchronize()
+        assert torch.equal(rk, rp), f"K4s B={B} nd={nd}: rows differ from the plain version's"
+        clipped[nd] = int((rk[:, S:2 * S] == dk.TRUST_CLIPPED).sum())
+        if nd == 2:
+            split = int((rk[:, 2 * S:3 * S] >= Ml).sum())
+        if hits is not None:
+            assert clipped[nd] > 0, f"K4s B={B}: no slot met the clip window"
+        if nd == 1 and consts.bitLUT is not None:
+            k4 = dk.symbol_detect(inp["colmax"], inp["colarg"], sp, co, consts.bitLUT, **kw4,
+                                  hits=hits)
+            for j, name in enumerate(("symbols", "centres", "mags", "bits")):
+                i = PACK_ARRAYS.index(name)
+                assert torch.equal(rk[:, i * S:(i + 1) * S], k4[j].float()), \
+                    f"K4l + K4s at nd = 1: {name} differ from K4's"
+    return clipped, split
+
+
+def generic_blocks(spec, C, seed=SEED + 60):
+    """C flagship blocks of seeded GFSK, each with its own bits, Doppler
+    offset (-DOPPLER_HZ .. +DOPPLER_HZ) and noise; returns (blocks complex64,
+    sent bits per channel, the offsets)."""
+    dopp = [DOPPLER_HZ * (2.0 * c / max(C - 1, 1) - 1.0) for c in range(C)]
+    out = [signal_stream(spec, spec.Nfft, seed=seed + c, doppler_hz=dopp[c]) for c in range(C)]
+    return np.stack([o[0] for o in out]), [o[1] for o in out], dopp
+
+
+def main_path_generic(spec):
+    """Phase 4i: ``build_sharded_demod_step(force_generic=True)`` on the
+    one-card mesh at C=GENERIC_C (with the vote): K1, K2, K3, K4l, K4s, K5
+    and K8 launch, K4 does not; bits, symbols and centres equal the
+    channel-parallel step's on every channel; decisions and the voted pair
+    equal the plain generic step's; BER < 1e-3 and the Doppler offset
+    within baud/2 on every channel."""
+    blocks, sent, dopp = generic_blocks(spec, GENERIC_C)
+    x = torch.from_numpy(blocks).cuda()
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
+    gen = build_sharded_demod_step(spec, mesh, force_generic=True)
+    ops.reset_launches()
+    res = gen(x)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("generic", launches)
+    fast = build_sharded_demod_step(spec, mesh)(x)
+    plain = build_sharded_demod_step(spec, mesh, force_generic=True, plain=True)(x)
+    torch.cuda.synchronize()
+    for k in ("bits", "symbols", "centres"):
+        assert torch.equal(res[k], fast[k]), f"generic: {k} differ from the channel-parallel step's"
+    for k in DECISIONS + ("bits_voted", "trust_voted"):
+        assert torch.equal(res[k], plain[k]), f"generic: {k} differ from the plain step's"
+    out = {k: v.cpu().numpy() for k, v in res.items()}
+    bers = []
+    for c in range(GENERIC_C):
+        ber, lag = best_aligned_ber(out["bits"][c, :out["nBits"][c]].astype(np.int64), sent[c])
+        off = float(out["freq_offset_hz"][c])
+        assert ber < 1e-3, f"generic channel {c}: BER {ber} at lag {lag}"
+        assert abs(off - dopp[c]) < spec.baudRate / 2, f"generic channel {c}: {off} Hz vs {dopp[c]}"
+        bers.append(ber)
+    return dict(C=GENERIC_C, max_ber=max(bers), launches=launches,
+                trust_minus1_beyond_nsym=int((out["trust"] == -1).sum()))
+
+
+def _generic_rank(rank, port, blocks, results):
+    """One rank of phase 4j: the generic step on its channel shard of
+    ``blocks`` in the {"channel": 2, "dopp": 2} mesh over gloo on cuda:0;
+    puts (rank, outputs, launches, backend, median ms per call of five
+    timed calls) on ``results``."""
+    import torch.distributed as dist
+
+    init_distributed(f"127.0.0.1:{port}", RANKS, rank, backend="gloo")
+    mesh = make_mesh({"channel": 2, "dopp": 2}, devices=["cuda:0"] * RANKS)
+    step = build_sharded_demod_step(configuration("flagship")[2], mesh)
+    x = torch.from_numpy(blocks[local_channel_slice(mesh, len(blocks))]).cuda()
+    step(x)  # builds the library's handle and the allocator caches
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = step(x)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    times = []
+    for _ in range(5):  # host clock per call: the collectives cross the host on gloo
+        dist.barrier()
+        t0 = time.perf_counter()
+        step(x)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    results.put((rank, {k: v.cpu().numpy() for k, v in res.items()}, launches,
+                 dist.get_backend(), statistics.median(times)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def main_path_ranks(spec):
+    """Phase 4j: four ranks of one ``torch.distributed`` world (gloo; NCCL
+    refuses two ranks on one card), all on cuda:0, run the generic step on
+    {"channel": 2, "dopp": 2} over RANKS_C channels with the vote; each
+    rank's outputs held against the one-process generic step on the same
+    blocks by the golden table (bits equal, symbols >= 99.9% equal, centres
+    within W, spSym within 1e-3, Doppler within 1 Hz), the voted pair equal
+    on all ranks. Every wait is bounded; every rank is ended."""
+    blocks, _, _ = generic_blocks(spec, RANKS_C, seed=SEED + 80)
+    mesh1 = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
+    ref = {k: v.cpu().numpy() for k, v in build_sharded_demod_step(
+        spec, mesh1, force_generic=True)(torch.from_numpy(blocks).cuda()).items()}
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_generic_rank, args=(r, port, blocks, results))
+             for r in range(RANKS)]
+    got = {}
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while len(got) < RANKS:
+            assert time.perf_counter() - t0 < RANKS_WAIT_S, \
+                f"phase 4j: {RANKS - len(got)} ranks did not report in {RANKS_WAIT_S} s"
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            assert not failed, f"phase 4j: ranks exited with {failed}"
+            try:
+                rank, out, launches, backend, ms = results.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            got[rank] = (out, launches, backend, ms)
+        for p in procs:
+            p.join(timeout=60)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    W = spec.windowWidth
+    stats = {}
+    for r, (out, launches, backend, ms) in sorted(got.items()):
+        rows = slice(2 * (r // 2), 2 * (r // 2) + 2)
+        want = {k: v[rows] for k, v in ref.items() if k not in ("bits_voted", "trust_voted")}
+        for k in ("bits", "nBits"):
+            assert np.array_equal(out[k], want[k]), f"rank {r}: {k} differ from one process's"
+        sym = float(np.mean(out["symbols"] == want["symbols"]))
+        assert sym >= 0.999, f"rank {r}: symbols {sym} equal"
+        assert np.abs(out["centres"] - want["centres"]).max() <= W, f"rank {r}: centres"
+        assert np.abs(out["spSym"] - want["spSym"]).max() <= 1e-3, f"rank {r}: spSym"
+        assert np.abs(out["doppler_hz"] - want["doppler_hz"]).max() <= 1.0, f"rank {r}: Doppler"
+        for k in ("bits_voted", "trust_voted"):
+            assert np.array_equal(out[k], got[0][0][k]), f"rank {r}: {k} differ from rank 0's"
+        assert all(launches[k] > 0 for k in PATH_KERNELS["generic"]), f"rank {r}: {launches}"
+        stats[r] = dict(symbols_equal=sym, spsym_err=float(np.abs(out["spSym"] - want["spSym"])
+                                                           .max()), backend=backend,
+                        ms_per_call=ms,
+                        launches={k: launches[k] for k in PATH_KERNELS["generic"]})
+    voted_as_one = bool(np.array_equal(got[0][0]["bits_voted"], ref["bits_voted"]))
+    return dict(C=RANKS_C, ranks=RANKS, backend=got[0][2], per_rank=stats,
+                voted_equal_one_process=voted_as_one,
+                seconds=round(time.perf_counter() - t0, 2))
+
+
+def k4l_bound(spec, B):
+    """K4l's least time: per block the W-sample windows (at most N samples)
+    and one colargmax word a slot read, spSym and codeOffset; the value and
+    key written (8 bytes a slot) | W compares and ~8 slot operations a slot."""
+    N, S, W = spec.Nfft, spec.numSymMax, spec.windowWidth
+    return bound_of(B * (4 * min(S * W, N) + 4 * S + 8 + 8 * S), B * S * (W + 8))
+
+
+def k4s_bound(spec, B, nd, clip=False):
+    """K4s's least time: nd values and keys read and the five arrays written
+    a slot (8 nd + 20 bytes), the scalars, (clip) the hit bitmask | 2 nd
+    compares and ~12 operations a slot."""
+    N, S = spec.Nfft, spec.numSymMax
+    return bound_of(B * (S * (8 * nd + 20) + 36 + (N // 8 if clip else 0)),
+                    B * S * (2 * nd + 12))
+
+
+def time_slice6(spec, consts):
+    """K4l (the whole bank, the one-card generic path's shape) and K4s
+    (nd = 1) at B=1/16/64: name -> {B: (ms, plain_ms, (bound ms, by))}; the
+    generic step against the channel-parallel step at C=GENERIC_C on the
+    same blocks (ms per call)."""
+    out = {"symbol_detect_local": {}, "shard_select": {}}
+    kw, kw4 = k4l_kwargs(spec), k4_kwargs(spec, consts)
+    L = packed_len(spec)
+    for B in BATCHES:
+        inp = kernel_inputs(spec, consts, B)
+        a = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"])
+        out["symbol_detect_local"][B] = (
+            cuda_ms(lambda: dk.symbol_detect_local(*a, m0=0, **kw)),
+            cuda_ms(lambda: dk.symbol_detect_local_plain(*a, m0=0, **kw)), k4l_bound(spec, B))
+        v, k = dk.symbol_detect_local(*a, m0=0, **kw)
+        s4 = (v[None], k[None], inp["spSym"], inp["codeOffset"], consts.bitLUT)
+        row = torch.empty((B, L), device="cuda")
+        k4s = dict(kw4, M=spec.num_masks, code_val=inp["code_val"], row=row)
+        out["shard_select"][B] = (cuda_ms(lambda: dk.shard_select(*s4, **k4s)),
+                                  cuda_ms(lambda: dk.shard_select_rows_plain(*s4, **k4s)),
+                                  k4s_bound(spec, B, 1))
+    x = torch.from_numpy(generic_blocks(spec, GENERIC_C)[0]).cuda()
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
+    gen = build_sharded_demod_step(spec, mesh, force_generic=True)
+    fast = build_sharded_demod_step(spec, mesh)
+    out["generic_ms"] = cuda_ms(lambda: gen(x), iters=5, reps=5)
+    out["channel_parallel_ms"] = cuda_ms(lambda: fast(x), iters=5, reps=5)
+    out["generic_ms_again"] = cuda_ms(lambda: gen(x), iters=5, reps=5)
+    out["channel_parallel_ms_again"] = cuda_ms(lambda: fast(x), iters=5, reps=5)
+    return out
+
+
 def k9_bound(wb, T):
     """K9's least time: the input, the carry and the taps read, y and the
     new carry written | (4 K + 5 log2 M) T M f32 operations (the K-tap sum,
@@ -1622,7 +1924,8 @@ def main() -> int:
             errs["vote"] = check_vote(C, fspec.numSymMax, packed_len(fspec), master)
     say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CS)}, S={fspec.numSymMax}, master_idx "
                    f"{list(VOTE_MASTERS)}: masked rows and voted pair equal, pinned ties vote 0, "
-                   f"disqualified slots trust -1")
+                   f"disqualified slots trust -1; with the pad mask off (the generic step's "
+                   f"vote) rows untouched and voted pair equal")
     wb = wideband_conf()
     k9_abs, k9_rel, halves_equal = check_channelize(wb, fspec.Nfft)
     errs["channelize"] = k9_abs
@@ -1636,6 +1939,18 @@ def main() -> int:
         errs["doppler_estimate"] = max(errs["doppler_estimate"], e5)
         say("kernels", f"K1, K5 with centre_shift {recentres(fspec.Nfft, B).tolist()} vs plain "
                        f"OK at B={B}: K1 max abs err {e1:.4g}, K5 {e5:.4g}")
+    for label, spec_, consts_ in (("flagship", fspec, consts["flagship"]),
+                                  ("stx", cfg["stx"][2], consts["stx"]),
+                                  ("bench_BPSK", bspec, bconsts)):
+        for B in (1, 16):
+            clipped, split = check_split_detector(spec_, consts_, B)
+            half = spec_.num_masks // 2
+            say("kernels", f"K4l, K4s vs plain OK at the {label} shape B={B} (M="
+                           f"{spec_.num_masks}: one shard and the halves [0, {half}) and "
+                           f"[{half}, {spec_.num_masks})): pairs and rows "
+                           f"equal{' with K4n after K4s' if consts_.bitLUT is None else ''}; slots "
+                           f"the upper half won {split}; trust -2 slots {clipped}")
+    errs["symbol_detect_local"] = errs["shard_select"] = 0.0
 
     res = {"flagship": main_path_flagship(*cfg["flagship"]),
            "stx": main_path_stx(*cfg["stx"])}
@@ -1663,6 +1978,17 @@ def main() -> int:
                 f"plain trackers equal in modes and bits on every block; "
                 + json.dumps(res["tracking"]))
     say("main", f"slice-5 paths took {time.perf_counter() - t_s5:.1f} s")
+    t_s6 = time.perf_counter()
+    res["generic"] = main_path_generic(fspec)
+    say("main", f"generic step (force_generic, one card) C={GENERIC_C}: bits, symbols, centres "
+                f"equal to the channel-parallel step's; decisions and voted pair equal to the "
+                f"plain step's; BER < 1e-3 and Doppler within baud/2 per channel; "
+                + json.dumps(res["generic"]))
+    ranks = main_path_ranks(fspec)
+    say("main", f"generic step on {{\"channel\": 2, \"dopp\": 2}}: {RANKS} ranks on cuda:0 over "
+                f"{ranks['backend']}, C={RANKS_C}: every rank within the golden table of the "
+                f"one-process step, the voted pair equal on all ranks; " + json.dumps(ranks))
+    say("main", f"slice-6 paths took {time.perf_counter() - t_s6:.1f} s")
     t_rt = time.perf_counter()
     runtime = main_path_runtime()
     say("main", f"runtime: PyCuSDR decoded the payload from bench_3_chan_rx.json (channel group) "
@@ -1737,14 +2063,31 @@ def main() -> int:
                  f"{t5['acquire_ms']:.4f} ms/block, track (D={tracker.track_spec.D}, "
                  f"centre_shift) {t5['track_ms']:.4f} ms/block, ratio "
                  f"{t5['acquire_ms'] / t5['track_ms']:.3f}")
+    t6 = time_slice6(fspec, consts["flagship"])
+    for k, unit in (("symbol_detect_local", "B"), ("shard_select", "B")):
+        for n, (ms, pms, (bms, by)) in t6[k].items():
+            assert ms >= bms and pms >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
+            say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
+                         f"library_ms=null bound_ms={bms:.4g} ({by}) "
+                         f"launches_per_block={1 / n:.4f}")
+    say("times", f"{card} | generic step C={GENERIC_C} {t6['generic_ms']:.4f} / "
+                 f"{t6['generic_ms_again']:.4f} ms/call against the channel-parallel step "
+                 f"{t6['channel_parallel_ms']:.4f} / {t6['channel_parallel_ms_again']:.4f} ms/call "
+                 f"on the same blocks (in turns: generic, parallel, generic, parallel)")
     for key, r in runtime.items():
         host = (f"Rx child host ms per block (timeMA) {r['host_ms_per_block']}, "
                 if r["host_ms_per_block"] else "")
         say("times", f"{card} | runtime {key} ({r['config']}): {host}first packet after "
                      f"{r['first_packet_s']:.2f} s of feed")
 
-    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1), ("wideband", 64)):
-        if p == "wideband":
+    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1), ("wideband", 64),
+                 ("generic", GENERIC_C)):
+        if p == "generic":
+            x = torch.from_numpy(generic_blocks(fspec, GENERIC_C)[0]).cuda()
+            step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
+                                                             devices=["cuda"]), force_generic=True)
+            wall, busy, n, tops = profile_calls(lambda: step(x))
+        elif p == "wideband":
             x, _ = k9_inputs(wb, fspec.Nfft)
             ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
             step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
@@ -1753,13 +2096,25 @@ def main() -> int:
         else:
             wall, busy, n, tops = profile_graph(cfg[p][2], B)
         idle = "not measured" if n == 0 else f"{100 * (1 - busy / wall):.1f}%"
-        say("profile", f"{card} | {p} B={B} {'chain' if p == 'wideband' else 'graph'}: wall "
+        what = {"wideband": "chain", "generic": "step"}.get(p, "graph")
+        say("profile", f"{card} | {p} B={B} {what}: wall "
                        f"{wall:.4f} ms/call, device busy {busy:.4f} ms/call, idle {idle}; {n} "
                        f"kernel names, top (ms/call): {tops}")
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         by_path = {p: res[p]["launches"][k] for p in res}
+        if k in t6:
+            ms, pms, (bms, by) = t6[k][LINE_BATCH]
+            kernels.append({
+                "name": k, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                "bound_by": by, "library_ms": None, "batch": LINE_BATCH,
+                "shape": "flagship" + (", nd=1" if k == "shard_select" else ""),
+                "by_B": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                             "bound_by": v[2][1]} for n, v in t6[k].items()}})
+            continue
         if k in t4:
             unit = "B" if k == "nrzs_bits" else "C"
             at = LINE_BATCH if k == "nrzs_bits" else GROUP_C

@@ -5,7 +5,8 @@ The demodulator has no weights; what plays their part is the resolved
 ``spec_from_numpy`` rebuilds the port's ``DemodSpec`` from the JAX
 spec's fields given as plain numpy and Python values, so both packages
 can compute from identical constants. ``DeviceConsts.from_spec`` puts
-the tensors the block graph reads on the device.
+the tensors the block graph reads on the device (one shard's masks for
+the generic channel x dopp step).
 
 The decoder's tables (the branch tables of ``ops/viterbi._branch_tables``,
 the RS generator and GF tables) are numpy copies that the tests hold
@@ -52,7 +53,7 @@ def spec_from_numpy(fields: dict) -> DemodSpec:
 class DeviceConsts:
     """The spec's tensors on one device."""
 
-    masks_f: torch.Tensor  # (M, N) complex64
+    masks_f: torch.Tensor  # (M, N) complex64 (the shard's rows with a mask_range)
     Q: torch.Tensor  # (M, N) f32, |masks_f|^2 computed in float64
     shifts: torch.Tensor  # (D,) int32 grid shifts in [0, N)
     shifts_signed: torch.Tensor  # (D,) int32 unwrapped into [-N/2, N/2)
@@ -66,10 +67,19 @@ class DeviceConsts:
     threshold_scale: float  # spike clipping: thr = scale * mean|x|
 
     @classmethod
-    def from_spec(cls, spec: DemodSpec, device) -> "DeviceConsts":
+    def from_spec(cls, spec: DemodSpec, device, mask_range: tuple = None) -> "DeviceConsts":
+        """``mask_range``: (m0, m1), one shard's masks of the generic
+        channel x dopp step: ``masks_f`` and ``Q`` hold rows [m0, m1) only
+        (the LUTs stay whole: they are indexed by the global symbol).
+        None: every mask."""
         N = spec.Nfft
         shifts = np.asarray(spec.dopp_shifts, np.int64)
         masks = np.asarray(spec.masks_f, np.complex64)
+        if mask_range is not None:
+            m0, m1 = mask_range
+            if not 0 <= m0 < m1 <= masks.shape[0]:
+                raise ValueError(f"mask_range {mask_range} outside [0, {masks.shape[0]})")
+            masks = masks[m0:m1]
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -2,8 +2,12 @@
 // of a channel group, read straight from their packed result rows.
 //
 // For each bit slot s (one thread), over c = 0..C-1 in channel order:
-//   trust[c][s] = -1 when s >= nBits[c] (written back into the row: a pad
-//                 slot must not vote, and the rows leave with it masked);
+//   trust[c][s] = -1 when s >= nBits[c] and mask_pad is set (written back
+//                 into the row: a pad slot must not vote, and the rows
+//                 leave with it masked); with mask_pad 0 the trust votes
+//                 as it is (the generic channel x dopp step, whose K4s
+//                 already wrote -1 beyond nSym, sharded_demod.py:378-379,
+//                 429-434, and whose NRZ-S nBits = nSym - 1 is not masked);
 //   valid       = trust >= 0; weight w = trust as f32, the master's (c =
 //                 master_idx) times master_weight;
 //   score      += w * (2 bit - 1)          (f32, channel order)
@@ -32,14 +36,14 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S, int master,
-     float master_weight) {
+     float master_weight, int mask_pad) {
     const int s = blockIdx.x * kThreads + threadIdx.x;
     if (s >= S) return;
     float score = 0.f;
     for (int c = 0; c < C; ++c) {
         float* r = rows + (size_t)c * L;
         float t = r[S + s];
-        if ((float)s >= r[5 * (size_t)S + 1]) {  // s >= nBits[c]
+        if (mask_pad && (float)s >= r[5 * (size_t)S + 1]) {  // s >= nBits[c]
             t = -1.f;
             r[S + s] = -1.f;
         }
@@ -64,12 +68,13 @@ vote(float* __restrict__ rows, float* __restrict__ out, int C, int L, int S, int
 }  // namespace
 
 // rows: (C, L) f32 packed rows (bits at 0, trust at S, nBits at 5 S + 1),
-// trust masked in place; out: (2, S) f32; master_idx in [0, C).
+// trust masked in place when mask_pad != 0; out: (2, S) f32; master_idx
+// in [0, C).
 PYCUSDR_API int pycusdr_vote(float* rows, float* out, int C, int L, int S, int master_idx,
-                             float master_weight, cudaStream_t stream) {
+                             float master_weight, int mask_pad, cudaStream_t stream) {
     if (C <= 0 || S <= 0 || L < 5 * S + 12 || master_idx < 0 || master_idx >= C)
         return (int)cudaErrorInvalidValue;
     vote<<<(S + kThreads - 1) / kThreads, kThreads, 0, stream>>>(rows, out, C, L, S, master_idx,
-                                                                 master_weight);
+                                                                 master_weight, mask_pad);
     return (int)cudaGetLastError();
 }

@@ -106,16 +106,21 @@ class Demodulator:
 
     # ---------------- host <-> device ----------------
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
+    def _upload(self, host: np.ndarray, staging: torch.Tensor = None) -> torch.Tensor:
         """ONE host-to-device copy. On the card the samples are staged in
         pinned memory, so the caller may reuse its buffer at once (on the
-        CPU the graph has run before dispatch returns)."""
+        CPU the graph has run before dispatch returns). ``staging``: a 1-D
+        pinned buffer of at least ``host.size`` samples to stage in (the
+        caller makes sure its previous copy has left it); None allocates one."""
         t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.complex64))
         if not self._cuda:
             return t
-        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        pinned.copy_(t)
-        return pinned.to(self.device, non_blocking=True)
+        if staging is None:
+            staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        else:
+            staging = staging[:t.numel()].view(t.shape)
+        staging.copy_(t)
+        return staging.to(self.device, non_blocking=True)
 
     # ---------------- reference-parity public API ----------------
 
@@ -254,44 +259,60 @@ class Demodulator:
 
     def processCapture(self, capture, max_hops_per_dispatch=64):
         """Offline pass reprocessing: demodulate a whole recorded capture at
-        batch throughput. The capture is uploaded once and framed on the
-        device with ``Tensor.unfold`` (block k = capture[k*hop : k*hop +
-        Nfft] behind the overlap-save history), then demodulated in
-        dispatches of at most ``max_hops_per_dispatch`` blocks, each
-        dispatched before the previous one's results are fetched. Host-side
-        healing runs per block exactly as in streaming.
+        batch throughput, in dispatches of at most ``max_hops_per_dispatch``
+        hops. Each dispatch uploads only its own hops, through one pinned
+        staging buffer of that many hops, and frames its blocks on the
+        device behind the ``sigOverlap``-sample tail the previous dispatch
+        left there (the overlap-save carry of JAX's ``processCapture``), as
+        one contiguous (n, Nfft) batch like ``processMany``'s. Dispatch k+1
+        is queued before dispatch k's results are fetched; host-side healing
+        runs per block exactly as in streaming.
 
         ``capture``: 1-D complex64 array of ANY length, padded with zeros
         to whole hops. The overlap-save history enters from (and is left
         in) the staging buffer. Returns a list of per-block result dicts.
         """
-        capture = np.ascontiguousarray(capture, dtype=np.complex64)
+        capture = np.ascontiguousarray(capture, dtype=np.complex64).reshape(-1)
         ov = self.sigOverlap
         hop = self.Nfft - ov
         K_total = -(-len(capture) // hop)
         if K_total == 0:
             return []
-        full = np.zeros(ov + K_total * hop, np.complex64)
-        full[:ov] = self._signal_buffer[:ov]
-        full[ov : ov + len(capture)] = capture
-        blocks = self._upload(full).unfold(0, self.Nfft, hop)  # (K_total, Nfft) view
-
         P = max(1, int(max_hops_per_dispatch))
+        staging = (torch.empty(P * hop, dtype=torch.complex64, pin_memory=True)
+                   if self._cuda else None)
+        staged = None  # the event after the last copy out of ``staging``
+        head = self._upload(self._signal_buffer[:ov])  # the carry, on the device
         out, pending = [], None
         for pos in range(0, K_total, P):
-            # copied out of the overlapping view: the FFT of a contiguous
-            # batch rounds exactly as processMany's, so a block's decisions
-            # do not depend on how it was framed
-            chunk = blocks[pos : pos + P].contiguous()
-            nxt = (start_download(self._process_batch(chunk)), min(P, K_total - pos))
+            n = min(P, K_total - pos)
+            seg = capture[pos * hop:(pos + n) * hop]
+            if len(seg) < n * hop:  # the last hop, zero-padded
+                seg = np.concatenate([seg, np.zeros(n * hop - len(seg), np.complex64)])
+            if staged is not None:
+                staged.synchronize()
+            new = self._upload(seg, staging)
+            if self._cuda:
+                staged = torch.cuda.Event()
+                staged.record()
+            sig = torch.cat([head, new])  # (ov + n hop,)
+            head = sig[n * hop:]
+            # a contiguous batch: the FFT of an overlapping view rounds
+            # otherwise on the card, and a block's decisions must not
+            # depend on how it was framed
+            blocks = sig.unfold(0, self.Nfft, hop).contiguous()  # (n, Nfft)
+            nxt = (start_download(self._process_batch(blocks)), n)
             if pending is not None:
                 res = finish_download(pending[0])
                 out.extend(self._emit_packed_row(res[i]) for i in range(pending[1]))
             pending = nxt
         res = finish_download(pending[0])
         out.extend(self._emit_packed_row(res[i]) for i in range(pending[1]))
-        # leave the overlap-save history where live streaming expects it
-        self._signal_buffer[:ov] = full[-ov:]
+        # leave the overlap-save history where live streaming expects it:
+        # the last ov samples of [history, capture, zero padding]
+        pad = np.zeros(K_total * hop - len(capture), np.complex64)
+        self._signal_buffer[:ov] = np.concatenate(
+            [self._signal_buffer[:ov], capture[-ov:], pad])[-ov:]
         return out
 
     # ---------------- block-boundary healing ----------------

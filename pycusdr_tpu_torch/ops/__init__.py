@@ -1,7 +1,9 @@
 """Device ops of the port and the hand-written kernels behind them: the
 demodulation path (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
 ``timing_band``, K4 ``symbol_detect`` with K4n ``nrzs_bits`` for NRZ-S,
-K5 ``doppler_estimate``, K6 ``threshold_input``), the decoder's Viterbi
+K5 ``doppler_estimate``, K6 ``threshold_input``), the generic channel x
+dopp step's split detector (K4l ``symbol_detect_local``, K4s
+``shard_select``), the decoder's Viterbi
 trellis (K7 ``viterbi``), the channel group's vote (K8 ``vote``,
 ``parallel/vote.py``) and the wideband channelizer (K9 ``channelize``,
 ``parallel/channelizer.py``)."""
@@ -13,7 +15,9 @@ def kernel_wrappers() -> dict:
     from pycusdr_tpu_torch.ops.demod_kernels import (
         mf_bank_colreduce,
         nrzs_bits,
+        shard_select,
         symbol_detect,
+        symbol_detect_local,
         threshold_input,
         timing_band,
     )
@@ -26,7 +30,8 @@ def kernel_wrappers() -> dict:
             "timing_band": timing_band, "symbol_detect": symbol_detect,
             "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
             "viterbi": viterbi_sweep, "nrzs_bits": nrzs_bits, "vote": vote_rows,
-            "channelize": channelize}
+            "channelize": channelize, "symbol_detect_local": symbol_detect_local,
+            "shard_select": shard_select}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,9 @@
 """Demodulation-stage ops: interference spike clipping (kernel K6), the
 matched-filter bank reduced over masks (K2), the symbol-timing band
 search (K3), symbol detection with bits, trust and the clip window
-(K4), and NRZ-S bit extraction over K4's symbols (K4n).
+(K4), NRZ-S bit extraction over K4's symbols (K4n), and K4 split in two
+for the generic channel x dopp step: the shard-local window maximum (K4l)
+and the cross-shard select that fills the packed row (K4s).
 
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor
 and launches its hand-written CUDA kernel (``csrc/``) for a CUDA tensor,
@@ -238,6 +240,16 @@ timing_band.launches = 0
 # ---------------------------------------------------------------- K4
 
 
+def _slot_geometry(spSym, codeOffset, W: int, N: int, S: int, spsymMin: int):
+    """K4's slot arithmetic, one rounded f32 op at a time: (spc, x*spc -
+    W/2, A0, A clamped to [0, N - W]), each (B, S) but spc (B,)."""
+    spc = torch.clamp(spSym, min=float(spsymMin))
+    x = torch.arange(S, dtype=torch.float32, device=spSym.device)
+    xs = x[None, :] * spc[:, None] - W // 2
+    A0 = torch.trunc(xs + codeOffset[:, None]).to(torch.int32)
+    return spc, xs, A0, torch.clamp(A0, 0, max(N - W, 0)).long()
+
+
 def symbol_detect_plain(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
                         windowWidth: int, spsymMin: int, numSymMax: int,
                         trust_normal: int, clip_mask: torch.Tensor = None):
@@ -252,13 +264,9 @@ def symbol_detect_plain(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     samples it (``ops/demod_kernels.py:476-480,572-583``, JAX); those
     slots get trust -2, and the sampled mask is a 7th output, at_win."""
     B, N = colmax.shape
-    W, Wl = windowWidth, windowWidth // 2
-    spc = torch.clamp(spSym, min=float(spsymMin))
-    x = torch.arange(numSymMax, dtype=torch.float32, device=colmax.device)
-    xs = x[None, :] * spc[:, None] - Wl
-    A0 = torch.trunc(xs + codeOffset[:, None]).to(torch.int32)
+    W = windowWidth
+    spc, xs, A0, A = _slot_geometry(spSym, codeOffset, W, N, numSymMax, spsymMin)
     comp = torch.trunc(codeOffset).to(torch.int32)[:, None] - torch.clamp(A0, max=0)
-    A = torch.clamp(A0, 0, max(N - W, 0)).long()
     idx = A[:, :, None] + torch.arange(W, device=colmax.device)  # (B, S, W)
     win = torch.gather(colmax, 1, idx.reshape(B, -1)).reshape(B, numSymMax, W)
     k = torch.argmax(win, dim=-1, keepdim=True)  # first index: earliest wins
@@ -437,3 +445,155 @@ def nrzs_bits(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> tor
 
 
 nrzs_bits.launches = 0
+
+
+# ---------------------------------------------------------------- K4l, K4s
+
+
+def symbol_detect_local_plain(colmax, colarg, spSym, codeOffset, *, m0: int, M: int,
+                              Nfft: int, windowWidth: int, spsymMin: int, numSymMax: int):
+    """Plain PyTorch K4l: ``_local_find_centres`` of
+    ``pycusdr_tpu/parallel/sharded_demod.py:46-104`` (JAX). colmax,
+    colarg: (B, N) f32 / i32 over the shard's masks (K2's, local indices);
+    m0: the shard's first global mask; M: all masks. Returns (val (B, S)
+    f32, the window maximum with the earliest sample winning; key (B, S)
+    i32, k_win * M + (m0 + m_local))."""
+    B, N = colmax.shape
+    W = windowWidth
+    _, _, _, A = _slot_geometry(spSym, codeOffset, W, N, numSymMax, spsymMin)
+    idx = A[:, :, None] + torch.arange(W, device=colmax.device)  # (B, S, W)
+    win = torch.gather(colmax, 1, idx.reshape(B, -1)).reshape(B, numSymMax, W)
+    k = torch.argmax(win, dim=-1, keepdim=True)  # first index: earliest wins
+    val = torch.gather(win, -1, k)[..., 0]
+    m_l = torch.gather(colarg, 1, A + k[..., 0])
+    return val, (k[..., 0] * M + m0 + m_l).to(torch.int32)
+
+
+def symbol_detect_local(colmax, colarg, spSym, codeOffset, *, m0: int, M: int, Nfft: int,
+                        windowWidth: int, spsymMin: int, numSymMax: int):
+    """K4l: the shard-local half of the symbol detector (see
+    ``symbol_detect_local_plain``), one thread per slot as K4. spSym and
+    codeOffset stay on the device."""
+    kw = dict(m0=m0, M=M, Nfft=Nfft, windowWidth=windowWidth, spsymMin=spsymMin,
+              numSymMax=numSymMax)
+    if colmax.device.type == "cpu":
+        return symbol_detect_local_plain(colmax, colarg, spSym, codeOffset, **kw)
+    if colmax.device.type != "cuda":
+        raise ValueError(f"symbol_detect_local: unsupported device {colmax.device}")
+    B, N = colmax.shape
+    dev = colmax.device
+    if N != Nfft or not 0 < windowWidth <= N or not 0 <= m0 < M:
+        raise ValueError(f"symbol_detect_local: bad shape N={N} Nfft={Nfft} W={windowWidth} "
+                         f"m0={m0} M={M}")
+    _lib.check(colmax, "colmax", torch.float32, (B, N))
+    _lib.check(colarg, "colargmax", torch.int32, (B, N), dev)
+    _lib.check(spSym, "spSym", torch.float32, (B,), dev)
+    _lib.check(codeOffset, "codeOffset", torch.float32, (B,), dev)
+    val = torch.empty((B, numSymMax), dtype=torch.float32, device=dev)
+    key = torch.empty((B, numSymMax), dtype=torch.int32, device=dev)
+    _lib.launch("pycusdr_symbol_detect_local", _lib.ptr(colmax), _lib.ptr(colarg),
+                _lib.ptr(spSym), _lib.ptr(codeOffset), _lib.ptr(val), _lib.ptr(key), B, N,
+                windowWidth, spsymMin, numSymMax, M, m0)
+    symbol_detect_local.launches += 1
+    return val, key
+
+
+symbol_detect_local.launches = 0
+
+
+def shard_select_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
+                       windowWidth: int, spsymMin: int, numSymMax: int, trust_normal: int,
+                       clip_mask: torch.Tensor = None):
+    """Plain PyTorch K4s: the cross-shard lexicographic select and the
+    tail of ``pycusdr_tpu/parallel/sharded_demod.py:361-411`` (JAX).
+    vals, keys: (nd, B, S) from ``symbol_detect_local`` on every shard.
+    The largest value wins, among equal values the smallest key. Returns
+    (symbols, centres, mags, bits, trust, nSym) as ``symbol_detect_plain``,
+    but with trust -1 at slots >= nSym. ``bitLUT`` None: bits 0 (NRZ-S).
+    ``clip_mask``: the dilated (B, N) bool clip mask, sampled at each slot's
+    winning sample (trust -2)."""
+    N, W, S = Nfft, windowWidth, numSymMax
+    best = vals.amax(dim=0)
+    big = torch.iinfo(torch.int32).max
+    g = torch.where(vals == best[None], keys, big).amin(dim=0)
+    symbols, k = g % M, g // M
+    spc, xs, A0, A = _slot_geometry(spSym, codeOffset, W, N, S, spsymMin)
+    comp = torch.trunc(codeOffset).to(torch.int32)[:, None] - torch.clamp(A0, max=0)
+    centres = torch.trunc(xs + k.float()).to(torch.int32) + comp
+    nSym = (Nfft / spc).to(torch.int32)
+    slot = torch.arange(S, device=vals.device)
+    trust = torch.where(slot[None, :] < nSym[:, None], trust_normal, -1).to(torch.int8)
+    bits = (torch.zeros_like(symbols, dtype=torch.int8) if bitLUT is None
+            else bitLUT[symbols.long()])
+    if clip_mask is not None:
+        at_win = torch.gather(clip_mask, 1, torch.clamp(A + k, 0, N - 1))
+        trust = torch.where(at_win, torch.tensor(TRUST_CLIPPED, dtype=torch.int8), trust)
+    return symbols.to(torch.int32), centres, best, bits, trust, nSym
+
+
+def shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
+                           windowWidth: int, spsymMin: int, numSymMax: int, trust_normal: int,
+                           row: torch.Tensor, code_val: torch.Tensor, hits: torch.Tensor = None,
+                           clipped_any: torch.Tensor = None) -> torch.Tensor:
+    """The plain version of ``shard_select``: ``shard_select_plain`` with the
+    clip mask dilated from ``hits``, written into the packed rows."""
+    clip = None
+    if hits is not None:
+        clip = dilate_mask_plain(unpack_bits(hits, Nfft), clip_halfwidth(spSym, spsymMin))
+    out = shard_select_plain(vals, keys, spSym, codeOffset, bitLUT, M=M, Nfft=Nfft,
+                             windowWidth=windowWidth, spsymMin=spsymMin, numSymMax=numSymMax,
+                             trust_normal=trust_normal, clip_mask=clip)
+    _write_row_k4(row, out, numSymMax, spSym, codeOffset, code_val, clipped_any)
+    return row
+
+
+def shard_select(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
+                 windowWidth: int, spsymMin: int, numSymMax: int, trust_normal: int,
+                 row: torch.Tensor, code_val: torch.Tensor, hits: torch.Tensor = None,
+                 clipped_any: torch.Tensor = None) -> torch.Tensor:
+    """K4s: the cross-shard select (see ``shard_select_plain``) written into
+    the (B, L) f32 packed rows: the five arrays and the scalars nSym, nBits
+    = nSym, spSym, codeOffset, ``code_val`` (B,) and ``clipped_any`` (B,)
+    int32 (0 when None). ``hits``: K6's (B, Nfft/32) int32 bitmask; a slot
+    whose winning sample has a hit within ``clip_halfwidth`` (clamped to
+    2048) gets trust -2. K4n runs after it for NRZ-S. Returns ``row``."""
+    kw = dict(M=M, Nfft=Nfft, windowWidth=windowWidth, spsymMin=spsymMin, numSymMax=numSymMax,
+              trust_normal=trust_normal)
+    S = numSymMax
+    if vals.dim() != 3 or tuple(keys.shape) != tuple(vals.shape):
+        raise ValueError(f"shard_select: vals {tuple(vals.shape)} and keys "
+                         f"{tuple(keys.shape)} must both be (nd, B, S)")
+    nd, B, _ = vals.shape
+    if row.shape[0] != B or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
+        raise ValueError(f"shard_select: row shape {tuple(row.shape)} too small")
+    if vals.device.type == "cpu":
+        return shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, **kw, row=row,
+                                       code_val=code_val, hits=hits, clipped_any=clipped_any)
+    if vals.device.type != "cuda":
+        raise ValueError(f"shard_select: unsupported device {vals.device}")
+    dev = vals.device
+    if vals.shape[2] != S or not 0 < windowWidth <= Nfft:
+        raise ValueError(f"shard_select: bad shape {tuple(vals.shape)} S={S} W={windowWidth}")
+    _lib.check(vals, "vals", torch.float32, (nd, B, S))
+    _lib.check(keys, "keys", torch.int32, (nd, B, S), dev)
+    _lib.check(spSym, "spSym", torch.float32, (B,), dev)
+    _lib.check(codeOffset, "codeOffset", torch.float32, (B,), dev)
+    _lib.check(code_val, "code_val", torch.float32, (B,), dev)
+    _lib.check(row, "row", torch.float32, None, dev)
+    if bitLUT is not None:
+        _lib.check(bitLUT, "bitLUT", torch.int8, (M,), dev)
+    if hits is not None:
+        if Nfft % 32:
+            raise ValueError(f"shard_select: a clip bitmask needs N % 32 == 0, got {Nfft}")
+        _lib.check(hits, "hits", torch.int32, (B, Nfft // 32), dev)
+    if clipped_any is not None:
+        _lib.check(clipped_any, "clipped_any", torch.int32, (B,), dev)
+    _lib.launch("pycusdr_shard_select", _lib.ptr(vals), _lib.ptr(keys), nd, _lib.ptr(spSym),
+                _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(hits), _lib.ptr(code_val),
+                _lib.ptr(clipped_any), _lib.ptr(row), row.shape[1], B, Nfft, windowWidth,
+                spsymMin, S, M, trust_normal, CLIP_HW_MAX)
+    shard_select.launches += 1
+    return row
+
+
+shard_select.launches = 0

@@ -25,7 +25,8 @@ from pycusdr_tpu_torch.ops.demod_kernels import twiddle_table
 
 #: K9 takes power-of-two M up to this many branches ...
 K9_MAX_M = 1024
-#: ... and up to this many taps per branch
+#: ... and up to this many taps per branch (the plain version takes any
+#: power-of-two M and any K >= 1, as JAX's channelizer does)
 K9_MAX_K = 32
 
 
@@ -53,9 +54,17 @@ def channelize_numpy(x: np.ndarray, M: int, taps_per_branch: int = 8,
 
 
 def _check_shape(M: int, K: int) -> None:
-    if M < 1 or M > K9_MAX_M or M & (M - 1) or not 1 <= K <= K9_MAX_K:
-        raise ValueError(f"channelizer: M must be a power of two <= {K9_MAX_M} and "
-                         f"1 <= K <= {K9_MAX_K}, got M={M}, K={K}")
+    if M < 1 or M & (M - 1) or K < 1:
+        raise ValueError(f"channelizer: M must be a power of two and K >= 1, got M={M}, K={K}")
+
+
+def k9_check_shape(M: int, K: int) -> None:
+    """K9's own limits (its shared-memory tile): a power-of-two M <= 1024
+    and 1 <= K <= 32. Beyond them the wrapper raises on a CUDA tensor."""
+    _check_shape(M, K)
+    if M > K9_MAX_M or K > K9_MAX_K:
+        raise ValueError(f"channelize: K9 takes M <= {K9_MAX_M} and K <= {K9_MAX_K} (a power "
+                         f"of two M), got M={M}, K={K}")
 
 
 def _rows(x: torch.Tensor, M: int) -> int:
@@ -95,14 +104,15 @@ def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
     """K9: the channelizer in one launch (arguments and outputs as
     ``channelize_plain``; ``tw``: the (M, 2) ``twiddle_table(M)``, built
     when None). A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/channelizer.cu`` or raises. ``new_state`` is a copy of
-    the last K-1 input rows."""
+    launches ``csrc/channelizer.cu`` or raises (``k9_check_shape``): it
+    never gives way to the plain version. ``new_state`` is a copy of the
+    last K-1 input rows."""
     if x.device.type == "cpu":
         return channelize_plain(x, h2, state)
     if x.device.type != "cuda":
         raise ValueError(f"channelize: unsupported device {x.device}")
     K, M = h2.shape
-    _check_shape(M, K)
+    k9_check_shape(M, K)
     T = _rows(x, M)
     _lib.check(x, "x", torch.complex64, (T * M,))
     _lib.check(h2, "h2", torch.float32, (K, M), x.device)

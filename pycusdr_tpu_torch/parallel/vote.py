@@ -10,7 +10,9 @@ voter qualifies (reference ``softCombiner.py:570-618``).
 trust. ``vote_rows`` is K8's wrapper: it votes straight from the C
 channels' packed result rows (``ops/layout.py``), marking each channel's
 slots at or beyond its nBits with trust -1 first, as the channel group's
-graph does (``pycusdr_tpu/runtime/channel_group_process.py:308-314``).
+graph does (``pycusdr_tpu/runtime/channel_group_process.py:308-314``);
+``mask_pad=False`` skips that mask, for the generic channel x dopp step
+(``pycusdr_tpu/parallel/sharded_demod.py:429-434``).
 """
 
 import torch
@@ -51,15 +53,16 @@ def _master(master_idx: int, C: int) -> int:
 
 
 def vote_rows_plain(rows: torch.Tensor, numSymMax: int, master_weight: float,
-                    out: torch.Tensor, master_idx: int = 0) -> torch.Tensor:
-    """The plain version of ``vote_rows``: trust -1 in place at each row's
-    slots s >= nBits, then ``vote_n_device_plain`` on the rows' bits and
-    trust, into ``out``."""
+                    out: torch.Tensor, master_idx: int = 0, mask_pad: bool = True) -> torch.Tensor:
+    """The plain version of ``vote_rows``: with ``mask_pad``, trust -1 in
+    place at each row's slots s >= nBits; then ``vote_n_device_plain`` on
+    the rows' bits and trust, into ``out``."""
     S = numSymMax
-    nbits = rows[:, len(PACK_ARRAYS) * S + SCALAR["nBits"]]
-    slot = torch.arange(S, device=rows.device, dtype=torch.float32)
     trust = rows[:, S:2 * S]
-    trust.copy_(torch.where(slot[None, :] < nbits[:, None], trust, -1.0))
+    if mask_pad:
+        nbits = rows[:, len(PACK_ARRAYS) * S + SCALAR["nBits"]]
+        slot = torch.arange(S, device=rows.device, dtype=torch.float32)
+        trust.copy_(torch.where(slot[None, :] < nbits[:, None], trust, -1.0))
     voted, combined = vote_n_device_plain(rows[:, :S].to(torch.int8), trust.to(torch.int8),
                                           _master(master_idx, rows.shape[0]), master_weight)
     out[0] = voted.float()
@@ -68,11 +71,14 @@ def vote_rows_plain(rows: torch.Tensor, numSymMax: int, master_weight: float,
 
 
 def vote_rows(rows: torch.Tensor, numSymMax: int, master_weight: float,
-              out: torch.Tensor = None, master_idx: int = 0) -> torch.Tensor:
+              out: torch.Tensor = None, master_idx: int = 0,
+              mask_pad: bool = True) -> torch.Tensor:
     """K8: vote the (C, L) f32 packed rows of C lockstep channels (channel
-    ``master_idx`` the master). Their pad slots' trust becomes -1 in place (as in
-    ``vote_rows_plain``); the voted bits and the combined trust go to
-    ``out`` (2, S) f32 (allocated when None), which is returned."""
+    ``master_idx`` the master). With ``mask_pad`` their pad slots' trust
+    becomes -1 in place (as in ``vote_rows_plain``); without it the trust
+    votes as the rows hold it (the generic step's, masked at nSym by K4s).
+    The voted bits and the combined trust go to ``out`` (2, S) f32
+    (allocated when None), which is returned."""
     S = numSymMax
     C = rows.shape[0]
     if rows.dim() != 2 or rows.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
@@ -81,13 +87,13 @@ def vote_rows(rows: torch.Tensor, numSymMax: int, master_weight: float,
     if out is None:
         out = torch.empty((2, S), dtype=torch.float32, device=rows.device)
     if rows.device.type == "cpu":
-        return vote_rows_plain(rows, S, master_weight, out, master_idx)
+        return vote_rows_plain(rows, S, master_weight, out, master_idx, mask_pad)
     if rows.device.type != "cuda":
         raise ValueError(f"vote_rows: unsupported device {rows.device}")
     _lib.check(rows, "rows", torch.float32)
     _lib.check(out, "out", torch.float32, (2, S), rows.device)
     _lib.launch("pycusdr_vote", _lib.ptr(rows), _lib.ptr(out), C, rows.shape[1], S,
-                master_idx, float(master_weight))
+                master_idx, float(master_weight), int(mask_pad))
     vote_rows.launches += 1
     return out
 

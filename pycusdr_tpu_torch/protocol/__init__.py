@@ -1,6 +1,10 @@
 """Protocol registry: maps protocol names (config ``Main.protocols``) to
 classes. Ported so far: the benchmark FSK/GFSK/BPSK protocols and CCSDS
-(plain and concatenated with the convolutional inner code)."""
+(plain and concatenated with the convolutional inner code).
+
+A name the JAX package's registry (``pycusdr_tpu/protocol/__init__.py``)
+knows but the port lacks raises ``NotImplementedError``; any other name
+raises ``ValueError``, as JAX's does."""
 
 from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
     Packet,
@@ -8,6 +12,9 @@ from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
     PacketLenEndianness,
     ProtocolBase,
 )
+
+#: names the JAX registry resolves that the port does not have yet
+NOT_PORTED = ("cc11xx", "ax25", "bench_gmsk", "bench")
 
 
 def loadProtocol(name: str):
@@ -33,4 +40,7 @@ def loadProtocol(name: str):
         from pycusdr_tpu_torch.protocol.ccsds import CCSDSConv
 
         return CCSDSConv
-    raise NotImplementedError(f"protocol '{name}' is not yet ported")
+    if key in NOT_PORTED:
+        raise NotImplementedError(
+            f"protocol '{name}' is not yet ported (ROADMAP.md Queue 1 item 23)")
+    raise ValueError(f"Unknown protocol '{name}'")

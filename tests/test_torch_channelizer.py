@@ -28,6 +28,7 @@ from pycusdr_tpu_torch.parallel.channelizer import (
     channelize_numpy,
     channelize_plain,
     design_prototype,
+    k9_check_shape,
 )
 
 from conftest import make_fsk_signal
@@ -109,10 +110,28 @@ def test_taps_equal_jax(M, K, beta):
 
 @pytest.mark.parametrize("M,K", [(3, 8), (2048, 8), (64, 33), (64, 0)])
 def test_unsupported_shapes_raise(M, K):
-    """K9 takes power-of-two M <= 1024 and 1 <= K <= 32; the port's
-    channelizer refuses anything else on every device."""
-    with pytest.raises(ValueError, match="power of two"):
+    """The channelizer takes any power-of-two M and any K >= 1, as JAX's
+    does: M=3 and K=0 are refused on every device (JAX fails on them too).
+    K9 takes M <= 1024 and K <= 32 on top: its shape check, which its
+    wrapper runs on a CUDA tensor, refuses the rest without a card."""
+    if M & (M - 1) or K < 1:
+        with pytest.raises(ValueError, match="power of two"):
+            Channelizer(M, K, device="cpu")
+    else:
         Channelizer(M, K, device="cpu")
+    with pytest.raises(ValueError, match="power of two|K9 takes"):
+        k9_check_shape(M, K)
+
+
+@pytest.mark.parametrize("M,K,T", [(2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
+def test_wide_shapes_match_jax(M, K, T):
+    """Beyond K9's limits the plain version matches JAX and the numpy golden."""
+    x = _noise(M * T, M + K)
+    y, st = Channelizer(M, K, device="cpu")(torch.from_numpy(x))
+    jy, jst = JaxChannelizer(M, K, jit=False)(c2ri(x))
+    assert _rel(y.numpy(), ri2c(np.asarray(jy))) < REL
+    assert _rel(y.numpy(), channelize_numpy(x, M, K)) < REL
+    np.testing.assert_array_equal(st.numpy(), _state(jst))
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

@@ -68,7 +68,7 @@ def test_process_many_matches_per_block(bench_conf, stream):
 
 
 def test_process_capture_matches_process_many(bench_conf, stream):
-    """processCapture frames the blocks on the device with unfold; a final
+    """processCapture frames each dispatch's blocks on the device; a final
     partial hop is zero-padded, and dispatch cap 4 splits the 6 blocks
     into 4 + 2, like the two processMany calls it is held against."""
     protocol, history, hops = stream
@@ -84,6 +84,39 @@ def test_process_capture_matches_process_many(bench_conf, stream):
     seqA = _per_block(dA, hops)
     for i in range(K - 1):  # every whole hop matches live streaming
         np.testing.assert_array_equal(seqA[i]["bits"], seqC[i]["bits"])
+    ov = dC.sigOverlap
+    np.testing.assert_array_equal(dC.get_signalBufferHostPointer()[:ov],
+                                  dD.get_signalBufferHostPointer()[:ov])
+
+
+def test_process_capture_uploads_one_dispatch_at_a_time(bench_conf, stream):
+    """A capture of 2.5 P hops at P = 2: every upload holds at most P hops
+    (the carry stays on the device between dispatches), and the results
+    equal processMany's over the same dispatches and JAX's processCapture."""
+    protocol, history, hops = stream
+    P, n_hops = 2, 5
+    hop = hops.shape[1]
+    capture = hops[:n_hops].reshape(-1)
+    dC, dD = (_dem(bench_conf, protocol, history, device="cpu") for _ in range(2))
+    sizes = []
+    upload = dC._upload
+
+    def spy(host, *args):
+        sizes.append(np.asarray(host).size)
+        return upload(host, *args)
+
+    dC._upload = spy
+    seqC = dC.processCapture(capture, max_hops_per_dispatch=P)
+    assert len(sizes) == 1 + 3 and max(sizes) <= P * hop, sizes  # the history, then 2 + 2 + 1
+    seqD = sum((dD.processMany(hops[i:min(i + P, n_hops)]) for i in range(0, n_hops, P)), [])
+    jprotocol = jax_loadProtocol("bench_FSK")(conf=bench_conf)
+    seqJ = _dem(bench_conf, jprotocol, history, make=JaxUHF.Demodulator).processCapture(
+        capture, max_hops_per_dispatch=P)
+    assert len(seqC) == len(seqD) == len(seqJ) == n_hops
+    for i, (c, d, j) in enumerate(zip(seqC, seqD, seqJ)):
+        for k in ("bits", "trust"):
+            np.testing.assert_array_equal(c[k], d[k], err_msg=f"{k} vs processMany, block {i}")
+            np.testing.assert_array_equal(c[k], j[k], err_msg=f"{k} vs JAX, block {i}")
     ov = dC.sigOverlap
     np.testing.assert_array_equal(dC.get_signalBufferHostPointer()[:ov],
                                   dD.get_signalBufferHostPointer()[:ov])

@@ -48,7 +48,7 @@ from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_block
 from pycusdr_tpu_torch.models import UHF, DopplerTracker
 from pycusdr_tpu_torch.parallel import (Channelizer, build_sharded_demod_step,
-                                        build_time_sharded_stream, make_mesh)
+                                        build_time_sharded_stream, make_global_mesh, make_mesh)
 from pycusdr_tpu_torch.ops.viterbi import ViterbiStream, viterbi_decode
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
@@ -69,7 +69,9 @@ for make in (lambda: build_process_block(tiny_spec()),
              lambda: DopplerTracker(spec=tiny_spec()),
              lambda: make_mesh({"channel": 1, "dopp": 1}),
              lambda: build_sharded_demod_step(tiny_spec(), make_mesh({"channel": 1})),
-             lambda: build_time_sharded_stream(tiny_spec(), make_mesh({"time": 1}))):
+             lambda: build_time_sharded_stream(tiny_spec(), make_mesh({"time": 1})),
+             lambda: build_sharded_demod_step(tiny_spec(), make_global_mesh(),
+                                              force_generic=True)):
     try:
         make()
     except RuntimeError as e:
@@ -109,12 +111,14 @@ def test_port_imports_no_jax():
                  "pycusdr_tpu_torch.config.loader", "pycusdr_tpu_torch.obs.stats",
                  "pycusdr_tpu_torch.parallel.channelizer", "pycusdr_tpu_torch.parallel.mesh",
                  "pycusdr_tpu_torch.parallel.sharded_demod", "pycusdr_tpu_torch.parallel.halo",
-                 "pycusdr_tpu_torch.models.tracking"):
+                 "pycusdr_tpu_torch.models.tracking", "pycusdr_tpu_torch.parallel.collectives",
+                 "pycusdr_tpu_torch.parallel.multihost", "pycusdr_tpu_torch.utils.xcorr",
+                 "pycusdr_tpu_torch.utils.device_info", "pycusdr_tpu_torch.obs.profiling"):
         assert name in res["modules"]
 
 
 def test_cuda_entry_points_raise_without_a_card():
-    assert _run(NO_CARD)["raised"] == [True] * 13
+    assert _run(NO_CARD)["raised"] == [True] * 14
 
 
 def test_cli_help_imports_no_jax():

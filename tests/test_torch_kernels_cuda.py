@@ -2,7 +2,9 @@
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
 at small T with ragged lengths; K4n at the tiny bench_BPSK shape; K8 on
 random rows and in the group graph; K9 at four shapes; K1 and K5 with
-``centre_shift``; K8 with ``master_idx``; the channel-parallel step).
+``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
+and K4s on one and two shards, K4s with the clip window, K8 without its
+pad mask, and the generic step).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -612,3 +614,105 @@ def test_channel_parallel_step_matches_plain(case, cuda):
     assert pv.vote_rows.launches == 1
     for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift", "bits_voted", "trust_voted"):
         assert torch.equal(got[k], want[k]), k
+
+
+# ---- slice 6: K4l symbol_detect_local, K4s shard_select, K8 without its pad mask
+
+
+def _shard_pairs(colmax_parts, colarg_parts, sp, co, spec, kernel):
+    """K4l (or its plain version) on each shard's columns: (vals, keys) stacked."""
+    fn = dk.symbol_detect_local if kernel else dk.symbol_detect_local_plain
+    M, nd = spec.num_masks, len(colmax_parts)
+    kw = dict(M=M, Nfft=spec.Nfft, windowWidth=spec.windowWidth, spsymMin=spec.spsymMin,
+              numSymMax=spec.numSymMax)
+    out = [fn(cm, ca, sp, co, m0=d * (M // nd), **kw)
+           for d, (cm, ca) in enumerate(zip(colmax_parts, colarg_parts))]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+def test_symbol_detect_local_and_shard_select(case, nd):
+    """K4l on each half of the bank and K4s on the stacked pairs against
+    their plain versions (pairs, the rows exact); at nd = 1 the rows' bits,
+    symbols, centres and mags equal K4's."""
+    spec, c, x, ref = case
+    S = torch.fft.fft(x)
+    shift = ref["shift"].to(torch.int32)
+    M, Ml, L = spec.num_masks, spec.num_masks // nd, packed_len(spec)
+    cols = [dk.mf_bank_colreduce_plain(S, c.masks_f[d * Ml:(d + 1) * Ml], shift, 0, Ml)
+            for d in range(nd)]
+    colsum = sum(col[0] for col in cols)
+    sp, co, cv = dk.timing_band_plain(colsum, spec.code_idx_lo, spec.code_idx_hi)
+    cm, ca = [col[1] for col in cols], [col[2] for col in cols]
+    vk, kk = _shard_pairs(cm, ca, sp, co, spec, True)
+    vp, kp = _shard_pairs(cm, ca, sp, co, spec, False)
+    assert torch.equal(vk, vp) and torch.equal(kk, kp)
+    kw = dict(M=M, Nfft=spec.Nfft, windowWidth=spec.windowWidth, spsymMin=spec.spsymMin,
+              numSymMax=spec.numSymMax, trust_normal=c.trust_normal, code_val=cv)
+    rk = dk.shard_select(vp, kp, sp, co, c.bitLUT, row=torch.zeros((3, L), device=x.device),
+                         **kw)
+    rp = dk.shard_select(vp.cpu(), kp.cpu(), sp.cpu(), co.cpu(), c.bitLUT.cpu(),
+                         row=torch.zeros((3, L)), **dict(kw, code_val=cv.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(rk.cpu(), rp)
+    if nd == 1:
+        k4 = dk.symbol_detect(cm[0], ca[0], sp, co, c.bitLUT, Nfft=spec.Nfft,
+                              windowWidth=spec.windowWidth, spsymMin=spec.spsymMin,
+                              numSymMax=spec.numSymMax, trust_normal=c.trust_normal)
+        Sn = spec.numSymMax
+        for j, at in ((3, 0), (0, 2), (1, 3), (2, 4)):  # bits, symbols, centres, mags
+            assert torch.equal(rk[:, at * Sn:(at + 1) * Sn], k4[j].float())
+
+
+def test_shard_select_clip(cuda):
+    """K4s with a clip bitmask against its plain version (trust -2 equal)."""
+    N, M, S, B = 4096, 8, 200, 2
+    rng = np.random.RandomState(4)
+    vals = torch.from_numpy(rng.randint(0, 4, (2, B, S)).astype(np.float32)).to(cuda)
+    keys = torch.from_numpy(rng.randint(0, 7 * M, (2, B, S)).astype(np.int32)).to(cuda)
+    sp = torch.tensor([16.2, 15.9], device=cuda)
+    co = torch.tensor([3.5, 11.25], device=cuda)
+    hit = torch.zeros((B, N), dtype=torch.bool)
+    hit[:, [5, 1000, 4095]] = True
+    hits = dk.pack_bits(hit).to(cuda)
+    kw = dict(M=M, Nfft=N, windowWidth=7, spsymMin=8, numSymMax=S, trust_normal=2)
+    L = 5 * S + 12
+    cv, ca = torch.ones(B, device=cuda), torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    rk = dk.shard_select(vals, keys, sp, co, None, row=torch.zeros((B, L), device=cuda),
+                         code_val=cv, hits=hits, clipped_any=ca, **kw)
+    rp = dk.shard_select(vals.cpu(), keys.cpu(), sp.cpu(), co.cpu(), None,
+                         row=torch.zeros((B, L)), code_val=cv.cpu(), hits=hits.cpu(),
+                         clipped_any=ca.cpu(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rk.cpu(), rp) and (rp[:, S:2 * S] == -2).any()
+
+
+@pytest.mark.parametrize("C", [2, 16])
+def test_vote_without_pad_mask(cuda, C):
+    S, L = 300, 5 * 300 + 12 + 8
+    rng = np.random.RandomState(C + 3)
+    rows = np.zeros((C, L), np.float32)
+    rows[:, :S] = rng.randint(0, 2, (C, S))
+    rows[:, S:2 * S] = rng.choice([-2, -1, 0, 1, 2, 3, 5], (C, S))
+    rows[:, 5 * S + 1] = rng.randint(S // 2, S + 1, C)
+    rows = torch.from_numpy(rows).to(cuda)
+    rk, rp = rows.clone(), rows.clone()
+    ok = pv.vote_rows(rk, S, 1.2, mask_pad=False)
+    op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device=cuda), mask_pad=False)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rows) and torch.equal(rp, rows) and torch.equal(ok, op)
+
+
+def test_generic_step_matches_channel_parallel(case, cuda):
+    """The generic step on the one-card mesh: bits, symbols and centres
+    equal the channel-parallel step's, and its kernel path equals its plain
+    path's decisions."""
+    spec, c, x, _ = case
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=[cuda])
+    fast = build_sharded_demod_step(spec, mesh)(x)
+    gen = build_sharded_demod_step(spec, mesh, force_generic=True)(x)
+    plain = build_sharded_demod_step(spec, mesh, force_generic=True, plain=True)(x)
+    for k in ("bits", "symbols", "centres"):
+        assert torch.equal(fast[k], gen[k]), k
+    for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift", "bits_voted"):
+        assert torch.equal(gen[k], plain[k]), k

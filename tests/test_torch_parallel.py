@@ -5,7 +5,10 @@ step at C=4 for bench_GFSK and bench_BPSK (``tests/test_parallel.py:
 plain version against ``vote_n_device`` at every ``master_idx`` (the
 wrong-master case of ``:181-199`` included), the time-sharded stream
 against JAX's on ``make_mesh({"time": 8})`` with ``carry_out`` equal, and
-the layouts the port refuses (more than one device, ``force_generic``)."""
+the layouts the port refuses (ranks the world does not have, a bank that
+does not divide over ``dopp``, a hop shorter than the overlap). The
+generic step is ``tests/test_torch_generic.py``, the forms across
+processes ``tests/test_torch_multihost.py``."""
 
 import dataclasses
 
@@ -25,6 +28,7 @@ from pycusdr_tpu_torch import configs
 from pycusdr_tpu_torch.convert import spec_from_numpy
 from pycusdr_tpu_torch.ops.layout import PACK_ARRAYS, SCALAR
 from pycusdr_tpu_torch.parallel import (
+    Mesh,
     build_sharded_demod_step,
     build_time_sharded_stream,
     choose_mesh,
@@ -175,19 +179,28 @@ def test_time_sharded_stream_matches_jax():
     assert torch.equal(res2["bits"], head["bits"])
 
 
-def test_multi_device_layouts_raise():
-    """A mesh of more than one device, a ``dopp`` axis and the generic
-    program are ROADMAP Queue 1 item 16: refused, never run on one device."""
+@pytest.mark.parametrize("case", ["channel4", "dopp2", "time8", "choose4", "masks3", "hop"])
+def test_multi_device_layouts_raise(case):
+    """What the multi-device forms still refuse: a mesh whose ranks the
+    world does not have (here: no world at all) is never run on one device
+    in its place; a mask bank that does not divide over ``dopp``; a hop
+    shorter than the overlap (JAX refuses it too)."""
     _, spec = _specs("bench_GFSK")
-    for axes in ({"channel": 4, "dopp": 1}, {"channel": 1, "dopp": 2}, {"time": 8}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            make_mesh(axes, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        choose_mesh(4, devices=["cpu"] * 4)
-    mesh = choose_mesh(1, devices=["cpu"])
-    assert mesh.shape == {"channel": 1, "dopp": 1} and mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        build_sharded_demod_step(spec, mesh, force_generic=True)
-    wide = dataclasses.replace(mesh, shape={"channel": 1, "dopp": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        build_sharded_demod_step(spec, wide)
+    axes = {"channel4": {"channel": 4, "dopp": 1}, "dopp2": {"channel": 1, "dopp": 2},
+            "time8": {"time": 8}}
+    if case in axes:
+        with pytest.raises(ValueError, match="ranks"):
+            make_mesh(axes[case], devices=["cpu"] * 8)
+    elif case == "choose4":
+        with pytest.raises(ValueError, match="ranks"):
+            choose_mesh(4, devices=["cpu"] * 4)
+        mesh = choose_mesh(1, devices=["cpu"])
+        assert mesh.shape == {"channel": 1, "dopp": 1} and mesh.device == torch.device("cpu")
+    elif case == "masks3":
+        mesh = Mesh({"channel": 1, "dopp": 3}, (torch.device("cpu"),), {"channel": 0, "dopp": 0})
+        with pytest.raises(ValueError, match="divide"):
+            build_sharded_demod_step(spec, mesh)
+    else:
+        short = dataclasses.replace(spec, sigOverlap=spec.Nfft // 2 + 8)
+        with pytest.raises(ValueError, match="hop"):
+            build_time_sharded_stream(short, _cpu_mesh(time=1))

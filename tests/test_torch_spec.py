@@ -75,3 +75,19 @@ def test_device_consts():
     np.testing.assert_allclose(tw[:, 0] + 1j * tw[:, 1], np.exp(2j * np.pi * j / N), atol=1e-7)
     assert c.n1 * (N // c.n1) == N and c.n1 <= 512 and N // c.n1 <= 512
     assert c.trust_normal == 2
+
+
+@pytest.mark.parametrize("name", ["nope", "Bench_QPSK", ""])
+def test_unknown_protocol_raises_value_error_as_jax(name):
+    with pytest.raises(ValueError) as jerr:
+        jax_loadProtocol(name)
+    with pytest.raises(ValueError) as err:
+        loadProtocol(name)
+    assert str(err.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("name", ["CC11xx", "ax25", "bench_GMSK", "bench"])
+def test_protocols_jax_knows_but_the_port_lacks(name):
+    assert jax_loadProtocol(name) is not None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 23"):
+        loadProtocol(name)
