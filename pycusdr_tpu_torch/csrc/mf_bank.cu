@@ -15,126 +15,135 @@
 //
 // Design: a two-pass four-step transform with N = N1 * N2, both at most
 // 512 (N from 2^2 to 2^18), input index k = N2*k1 + k2, output index
-// n = n1 + N1*n2, each pass a radix-2 transform in shared memory.
+// n = n1 + N1*n2. Each pass runs its transforms in shared memory with the
+// register-radix Stockham passes of fft_smem.cuh (radix 8, one barrier
+// pair per pass, twiddles staged in shared memory).
 //   Pass 1, one block per (b, m, tile of C columns k2): loads the rolled
-//     spectrum (the shift is read on the device) times masks_f[m],
-//     runs C N1-point column transforms, applies the exp(+2πi k2 n1/N)
-//     twiddle and writes Y[b, m, n1, k2].
-//   Pass 2, one block per (b, tile of R rows n1): for m = 0..M-1 loads
-//     the R rows, runs R N2-point transforms, squares, and folds the
-//     power into per-thread running sum / max / argmax (strict '>', so
-//     the lowest mask wins ties). Only the three N-vectors are written.
+//     spectrum (the shift is read on the device) times masks_f[m] as N1
+//     coalesced rows of C values, runs the C N1-point column transforms,
+//     applies exp(+2πi k2 n1/N) (two staged tables) and writes
+//     Y[b, m, n1, k2] in rows of C.
+//   Pass 2, one block per (b, tile of R rows n1): for each group of Mg
+//     masks it loads the Mg R rows (contiguous), runs their N2-point
+//     transforms, squares, and folds the power into per-thread running
+//     sum / max / argmax over m in increasing order (strict '>', so the
+//     lowest mask wins ties). Only the three N-vectors are written, in
+//     runs of R. R shrinks at small B so that B=1 still fills the SMs; the
+//     plan (ops/demod_kernels.py:mf_bank_plan) never changes a result bit.
 // Bound: compulsory traffic is S, masks_f and the three outputs (~5.5 MB
 // at B=1, masks_f read once per call); at B=1 HBM bytes bound it, from
-// B=5 the 5 N log2 N flops of the M inverse transforms do. This first
-// version also writes and reads back the (B, M, N) complex intermediate
-// Y (4 MB per flagship block), and pass 2's stores are runs of R outputs.
-// Twiddles come from one table tw[j] = exp(+2πi j/N), built in float64.
-#include "common.cuh"
+// B=5 the 5 N log2 N flops of the M inverse transforms do. This design
+// still writes and reads back the (B, M, N) complex intermediate Y (4 MB
+// per flagship block); keeping it on chip needs a thread-block cluster
+// per transform (distributed shared memory), the next step.
+#include "fft_smem.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile1 = 4096;  // complex elements per pass-1 block (32 KB)
-constexpr int kTile2 = 1024;  // complex elements per pass-2 block
-constexpr int kEPT2 = kTile2 / kThreads;
+using pycusdr::kFftEPT;
+using pycusdr::kFftThreads;
+constexpr int kOut2 = 8;  // outputs of a pass-2 thread: R * N2 <= 8 * 256
+// blocks per SM each pass is compiled for (registers: 65536 / (256 x this))
+constexpr int kMinBlocks1 = 4, kMinBlocks2 = 3;
 
-// In-place radix-2 transforms of `count` contiguous length-2^logL rows of
-// buf, input in bit-reversed order, sign +1. tw has 2^logN entries.
-__device__ void fft_shared(float2* buf, int count, int logL, const float2* __restrict__ tw,
-                           int logN) {
-    const int half = 1 << (logL - 1);
-    const int nbf = count * half;
-    for (int s = 0; s < logL; ++s) {
-        const int h = 1 << s;
-        __syncthreads();
-        for (int t = threadIdx.x; t < nbf; t += kThreads) {
-            const int tr = t >> (logL - 1);
-            const int u = t & (half - 1);
-            const int pos = u & (h - 1);
-            const int i0 = (tr << logL) + ((u >> s) << (s + 1)) + pos;
-            const int i1 = i0 + h;
-            const float2 w = tw[pos << (logN - s - 1)];  // exp(+2πi pos / 2h)
-            const float2 a = buf[i0];
-            const float2 x = pycusdr::cmul(w, buf[i1]);
-            buf[i0] = pycusdr::cadd(a, x);
-            buf[i1] = pycusdr::csub(a, x);
-        }
-    }
-    __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFftThreads, kMinBlocks1)
 mf_pass1(const float2* __restrict__ S, const float2* __restrict__ masks,
          const int* __restrict__ shift, int shift_stride, const float2* __restrict__ tw,
          float2* __restrict__ Y, int logN, int M, int logN1, int logC) {
-    __shared__ float2 buf[kTile1];
-    const int N = 1 << logN, N2 = N >> logN1, C = 1 << logC;
+    extern __shared__ float2 smem[];
+    const pycusdr::FftSmem sm = pycusdr::fft_smem(smem, logN);
+    float2* buf = sm.buf;
+    const int N = 1 << logN, logN2 = logN - logN1, C = 1 << logC;
     const int c0 = blockIdx.x << logC, m = blockIdx.y, b = blockIdx.z;
-    const int tile = C << logN1;
+    const int pitch = pycusdr::fft_pitch(1 << logN1), tile = C << logN1;
+    pycusdr::fft_stage_twiddles(sm, tw, logN1, logN);
     const int sh = shift[b * shift_stride] & (N - 1);
     const float2* Sb = S + ((size_t)b << logN);
     const float2* Mm = masks + ((size_t)m << logN);
-    for (int e = threadIdx.x; e < tile; e += kThreads) {
-        const int c = e & (C - 1), k1 = e >> logC;
-        const int k = k1 * N2 + c0 + c;
-        buf[(c << logN1) + pycusdr::bitrev(k1, logN1)] =
-            pycusdr::cmul(Sb[(k + sh) & (N - 1)], Mm[k]);
+#pragma unroll
+    for (int t = 0; t < kFftEPT; ++t) {  // unrolled: the loads are in flight together
+        const int e = threadIdx.x + t * kFftThreads;
+        if (e < tile) {
+            const int cc = e & (C - 1), k1 = e >> logC;
+            const int k = (k1 << logN2) + c0 + cc;
+            buf[cc * pitch + pycusdr::fft_pad(k1)] = pycusdr::cmul(Sb[(k + sh) & (N - 1)], Mm[k]);
+        }
     }
-    fft_shared(buf, C, logN1, tw, logN);
+    __syncthreads();
+    pycusdr::fft_rows<1>(buf, C, logN1, pitch, sm.twL);
     float2* Yb = Y + (((size_t)b * M + m) << logN);
-    for (int e = threadIdx.x; e < tile; e += kThreads) {
-        const int c = e & (C - 1), n1 = e >> logC;
-        const int k2 = c0 + c;
-        Yb[n1 * N2 + k2] = pycusdr::cmul(buf[(c << logN1) + n1], tw[k2 * n1]);
+#pragma unroll
+    for (int t = 0; t < kFftEPT; ++t) {
+        const int e = threadIdx.x + t * kFftThreads;
+        if (e < tile) {
+            const int cc = e & (C - 1), n1 = e >> logC;
+            const int k2 = c0 + cc;
+            Yb[(n1 << logN2) + k2] = pycusdr::cmul(buf[cc * pitch + pycusdr::fft_pad(n1)],
+                                                   pycusdr::fft_twiddle<1>(sm, k2 * n1));
+        }
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFftThreads, kMinBlocks2)
 mf_pass2(const float2* __restrict__ Y, const float2* __restrict__ tw,
          float* __restrict__ colsum, float* __restrict__ colmax, int* __restrict__ colarg,
-         int logN, int M, int logN1, int logR, int sum_lo, int sum_hi) {
-    __shared__ float2 buf[kTile2];
+         int logN, int M, int logN1, int logR, int Mg, int sum_lo, int sum_hi) {
+    extern __shared__ float2 smem[];
+    const pycusdr::FftSmem sm = pycusdr::fft_smem(smem, logN);
+    float2* buf = sm.buf;
     const int logN2 = logN - logN1;
     const int N2 = 1 << logN2, R = 1 << logR;
     const int r0 = blockIdx.x << logR, b = blockIdx.y;
-    const int tile = R << logN2;
-    float sum[kEPT2], mx[kEPT2];
-    int arg[kEPT2];
+    const int pitch = pycusdr::fft_pitch(N2), outs = R << logN2;
+    pycusdr::fft_stage_twiddles(sm, tw, logN2, logN);
+    float sum[kOut2], mx[kOut2];
+    int arg[kOut2];
 #pragma unroll
-    for (int j = 0; j < kEPT2; ++j) {
+    for (int j = 0; j < kOut2; ++j) {
         sum[j] = 0.f;
         mx[j] = 0.f;
         arg[j] = 0;
     }
-    for (int m = 0; m < M; ++m) {
-        const float2* Yr = Y + (((size_t)b * M + m) << logN) + ((size_t)r0 << logN2);
-        for (int e = threadIdx.x; e < tile; e += kThreads) {
-            const int r = e >> logN2, k2 = e & (N2 - 1);
-            buf[(r << logN2) + pycusdr::bitrev(k2, logN2)] = Yr[e];
-        }
-        fft_shared(buf, R, logN2, tw, logN);
+    for (int m0 = 0; m0 < M; m0 += Mg) {
+        const int mg = min(Mg, M - m0), rows = mg << logR;
+        const float2* Yg = Y + (((size_t)b * M + m0) << logN) + ((size_t)r0 << logN2);
 #pragma unroll
-        for (int j = 0; j < kEPT2; ++j) {
-            const int e = threadIdx.x + j * kThreads;
-            if (e < tile) {
-                const float2 v = buf[((e & (R - 1)) << logN2) + (e >> logR)];
-                const float p = v.x * v.x + v.y * v.y;
-                if (m >= sum_lo && m < sum_hi) sum[j] += p;
-                if (m == 0 || p > mx[j]) {  // strict: the lowest mask wins ties
-                    mx[j] = p;
-                    arg[j] = m;
+        for (int t = 0; t < kFftEPT; ++t) {
+            const int e = threadIdx.x + t * kFftThreads;
+            if (e < (rows << logN2)) {
+                const int row = e >> logN2, i = e & (N2 - 1);
+                const int mm = row >> logR, r = row & (R - 1);
+                buf[row * pitch + pycusdr::fft_pad(i)] =
+                    Yg[((size_t)mm << logN) + ((size_t)r << logN2) + i];
+            }
+        }
+        __syncthreads();
+        pycusdr::fft_rows<1>(buf, rows, logN2, pitch, sm.twL);
+#pragma unroll
+        for (int j = 0; j < kOut2; ++j) {
+            const int p = threadIdx.x + j * kFftThreads;
+            if (p < outs) {
+                const int r = p & (R - 1), n2 = p >> logR;
+                for (int mm = 0; mm < mg; ++mm) {
+                    const int m = m0 + mm;
+                    const float2 v = buf[((mm << logR) + r) * pitch + pycusdr::fft_pad(n2)];
+                    const float pw = v.x * v.x + v.y * v.y;
+                    if (m >= sum_lo && m < sum_hi) sum[j] += pw;
+                    if (m == 0 || pw > mx[j]) {  // strict: the lowest mask wins ties
+                        mx[j] = pw;
+                        arg[j] = m;
+                    }
                 }
             }
         }
-        __syncthreads();  // buf is reloaded for the next mask
+        __syncthreads();  // buf is reloaded for the next group of masks
     }
     const size_t ob = (size_t)b << logN;
 #pragma unroll
-    for (int j = 0; j < kEPT2; ++j) {
-        const int e = threadIdx.x + j * kThreads;
-        if (e < tile) {
-            const size_t n = ob + r0 + (e & (R - 1)) + ((size_t)(e >> logR) << logN1);
+    for (int j = 0; j < kOut2; ++j) {
+        const int p = threadIdx.x + j * kFftThreads;
+        if (p < outs) {
+            const size_t n = ob + r0 + (p & (R - 1)) + ((size_t)(p >> logR) << logN1);
             colsum[n] = sum[j];
             colmax[n] = mx[j];
             colarg[n] = arg[j];
@@ -152,23 +161,32 @@ int ilog2_exact(int v) {
 }  // namespace
 
 // shift: (B,) i32 with shift_stride 1, or (1,) with 0; Y: (B, M, N) complex
-// scratch; colsum/colmax: (B, N) f32; colargmax: (B, N) i32.
+// scratch; colsum/colmax: (B, N) f32; colargmax: (B, N) i32. The plan n1,
+// C, R, Mg is ops/demod_kernels.py:mf_bank_plan's.
 PYCUSDR_API int pycusdr_mf_bank_colreduce(const float2* S, const float2* masks, const int* shift,
                                           int shift_stride, const float2* tw, float2* Y,
-                                          float* colsum,
-                                          float* colmax, int* colargmax, int B, int N, int M,
-                                          int n1, int sum_lo, int sum_hi, cudaStream_t stream) {
+                                          float* colsum, float* colmax, int* colargmax, int B,
+                                          int N, int M, int n1, int C, int R, int Mg, int sum_lo,
+                                          int sum_hi, cudaStream_t stream) {
     const int logN = ilog2_exact(N), logN1 = ilog2_exact(n1);
-    if (B <= 0 || M <= 0 || logN < 2 || logN1 < 1 || logN1 >= logN) return (int)cudaErrorInvalidValue;
-    const int logN2 = logN - logN1;
-    if (logN1 > 9 || logN2 > 9) return (int)cudaErrorInvalidValue;
-    int logC = 12 - logN1;  // kTile1 = 2^12
-    if (logC > logN2) logC = logN2;
-    int logR = 10 - logN2;  // kTile2 = 2^10
-    if (logR > logN1) logR = logN1;
-    mf_pass1<<<dim3(1 << (logN2 - logC), M, B), kThreads, 0, stream>>>(
+    const int logC = ilog2_exact(C), logR = ilog2_exact(R);
+    if (B <= 0 || M <= 0 || logN < 2 || logN1 < 1 || logN1 >= logN || logC < 0 || logR < 0 ||
+        Mg <= 0)
+        return (int)cudaErrorInvalidValue;
+    const int N2 = N >> logN1;
+    if (n1 > pycusdr::kFftMaxL || N2 > pycusdr::kFftMaxL || C > N2 || R > n1 ||
+        C > pycusdr::kFftMaxRows || Mg * R > pycusdr::kFftMaxRows ||
+        C * n1 > pycusdr::kFftElems || Mg * R * N2 > pycusdr::kFftElems ||
+        R * N2 > kOut2 * kFftThreads)
+        return (int)cudaErrorInvalidValue;
+    static unsigned long long smem1 = 0, smem2 = 0;
+    cudaError_t e = pycusdr::fft_allow_smem(mf_pass1, smem1);
+    if (e == cudaSuccess) e = pycusdr::fft_allow_smem(mf_pass2, smem2);
+    if (e != cudaSuccess) return (int)e;
+    constexpr int sb = pycusdr::kFftSmemBytes;
+    mf_pass1<<<dim3(N2 / C, M, B), kFftThreads, sb, stream>>>(
         S, masks, shift, shift_stride, tw, Y, logN, M, logN1, logC);
-    mf_pass2<<<dim3(1 << (logN1 - logR), B), kThreads, 0, stream>>>(
-        Y, tw, colsum, colmax, colargmax, logN, M, logN1, logR, sum_lo, sum_hi);
+    mf_pass2<<<dim3(n1 / R, B), kFftThreads, sb, stream>>>(
+        Y, tw, colsum, colmax, colargmax, logN, M, logN1, logR, Mg, sum_lo, sum_hi);
     return (int)cudaGetLastError();
 }

@@ -36,12 +36,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # P, Q, shifts, centre|NULL, partial, E, B, N, D, M, chunk, scale, stream
     "pycusdr_doppler_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # S, masks, shift, shift_stride, tw, Y, colsum, colmax, colargmax, B, N, M, n1,
-    # sum_lo, sum_hi, stream
+    # S, masks, shift, shift_stride, tw, Y, colsum, colmax, colargmax, B, N, M, n1, C, R,
+    # Mg, sum_lo, sum_hi, stream
     "pycusdr_mf_bank_colreduce": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _P],
-    # x, tw, band, spSym, codeOffset, code_val, B, N, lo, hi, stream
-    "pycusdr_timing_band": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _P],
+    # x, tw, part, spSym, codeOffset, code_val, B, N, lo, hi, n1, cw, groups, stream
+    "pycusdr_timing_band": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any,
     # symbols, centres, mags, bits, trust, nSym, row, L, B, N, W, spsymMin,
     # numSymMax, trust_normal, hw_max, stream
@@ -190,12 +190,17 @@ def launch(name: str, *args) -> None:
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
-    """Validate what a kernel takes: device, dtype, shape, contiguity."""
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if t.dtype != dtype:
+    """Validate what a kernel takes: device, dtype, shape, contiguity.
+    Called on every launch, so the common case compares cheaply (dtypes
+    are singletons, a ``torch.Size`` is a tuple, and an indexed device is
+    matched by ``get_device()``, -1 on the CPU, without building a
+    ``torch.device``)."""
+    if t.dtype is not dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if device is not None and (t.get_device() != device.index if device.index is not None
+                               else t.device != device):
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")

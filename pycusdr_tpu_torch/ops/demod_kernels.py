@@ -13,6 +13,7 @@ ties in the column argmax, the earliest sample wins in the symbol
 window, and slots are clamped to [0, N - W].
 """
 
+import functools
 import math
 
 import numpy as np
@@ -45,6 +46,73 @@ def fft_split(N: int) -> int:
         raise ValueError(f"K2 needs a power-of-two Nfft in [4, 2^18], got {N}")
     log2n = N.bit_length() - 1
     return 1 << ((log2n + 1) // 2)
+
+
+# The shared-memory tiles of K2 and K3 (``csrc/fft_smem.cuh``): complex
+# elements of a tile, rows of a tile, row length, threads of a block.
+FFT_TILE, FFT_MAX_ROWS, FFT_MAX_L, FFT_THREADS = 2048, 32, 512, 256
+#: outputs of one K2 pass-2 thread (R * n2 <= K2_OUT * FFT_THREADS)
+K2_OUT = 8
+#: the card's SMs: K2's pass 2 takes rows per block so that B=1 fills them
+SM_COUNT = 132
+#: K3's column tile width and its blocks per batch row
+K3_CW, K3_GROUPS = 4, 16
+
+
+def fft_pitch(L: int) -> int:
+    """Row pitch (complex elements) of a tile of rows of length L: the
+    padded length ``L + L // 16``, rounded up to 2 mod 16."""
+    p = L + L // 16
+    return p + ((2 - p) & 15)
+
+
+def fft_radices(L: int):
+    """The radices of the Stockham passes over a row of length L: one
+    radix-2 or radix-4 pass when log2 L is not a multiple of 3, then
+    radix 8."""
+    log2l = L.bit_length() - 1
+    head = {0: [], 1: [2], 2: [4]}[log2l % 3]
+    return head + [8] * (log2l // 3)
+
+
+#: dynamic shared memory of one K2/K3 block: the padded tile, the row
+#: transforms' twiddles and the two 512-entry four-step twiddle tables
+FFT_SMEM_BYTES = 8 * (FFT_TILE + FFT_TILE // 16 + 16 * FFT_MAX_ROWS + FFT_MAX_L + 2 * 512)
+
+
+@functools.lru_cache(maxsize=None)
+def timing_band_plan(N: int) -> dict:
+    """K3's launch plan, a function of N alone (so a block's bits do not
+    depend on the batch): N = n1 * n2, tiles of ``cw`` adjacent columns,
+    ``groups`` blocks per batch row each taking ``chunks`` tiles in order."""
+    if N < 4 or N & (N - 1) or N > 1 << 18:
+        raise ValueError(f"K3 needs a power-of-two N in [4, 2^18], got {N}")
+    n1 = min(N, FFT_MAX_L)
+    n2 = N // n1
+    cw = min(n2, K3_CW)
+    tiles = n2 // cw
+    groups = min(tiles, K3_GROUPS)
+    return dict(n1=n1, n2=n2, cw=cw, groups=groups, chunks=tiles // groups,
+                smem=FFT_SMEM_BYTES, cluster=1)
+
+
+@functools.lru_cache(maxsize=None)
+def mf_bank_plan(N: int, M: int, B: int) -> dict:
+    """K2's launch plan: the split N = n1 * n2, ``C`` columns per pass-1
+    block, ``R`` rows per pass-2 block (at most 8 and 2048 / n2 outputs,
+    halved while B * n1 / R blocks would not fill the SMs twice, down to
+    2) and ``Mg`` masks per pass-2
+    group. None of it changes a result bit: each output is the same
+    transform and sums its masks in increasing order."""
+    n1 = fft_split(N)
+    n2 = N // n1
+    C = min(n2, FFT_TILE // n1, FFT_MAX_ROWS)
+    R = min(8, n1, K2_OUT * FFT_THREADS // n2)
+    while R > 2 and B * (n1 // R) < 2 * SM_COUNT:
+        R //= 2
+    Mg = max(1, min(M, FFT_MAX_ROWS // R, FFT_TILE // (R * n2)))
+    return dict(n1=n1, n2=n2, C=C, R=R, Mg=Mg, grid1=(n2 // C, M, B), grid2=(n1 // R, B),
+                smem=FFT_SMEM_BYTES, cluster=1)
 
 
 # ---------------------------------------------------------------- K6
@@ -161,30 +229,32 @@ def mf_bank_colreduce(S: torch.Tensor, masks: torch.Tensor, shift: torch.Tensor,
     """K2: the best-Doppler matched-filter bank, reduced over the mask
     axis (see ``mf_bank_colreduce_plain``). ``tw``: the ``twiddle_table``
     of N on the device (built here when None)."""
-    if S.device.type == "cpu":
+    dev = S.device
+    if dev.type == "cpu":
         return mf_bank_colreduce_plain(S, masks, shift, sum_lo, sum_hi)
-    if S.device.type != "cuda":
-        raise ValueError(f"mf_bank_colreduce: unsupported device {S.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"mf_bank_colreduce: unsupported device {dev}")
     B, N = S.shape
     M = masks.shape[0]
-    n1 = fft_split(N)
     if not 0 <= sum_lo <= sum_hi <= M:
         raise ValueError(f"mask sum range [{sum_lo}, {sum_hi}) outside [0, {M})")
     if tuple(shift.shape) not in ((B,), (1,)):
         raise ValueError(f"shift: expected shape ({B},) or (1,), got {tuple(shift.shape)}")
     if tw is None:
-        tw = twiddle_table(N, S.device)
+        tw = twiddle_table(N, dev)
     _lib.check(S, "S", torch.complex64, (B, N))
-    _lib.check(masks, "masks", torch.complex64, (M, N), S.device)
-    _lib.check(shift, "shift", torch.int32, None, S.device)
-    _lib.check(tw, "tw", torch.float32, (N, 2), S.device)
-    Y = torch.empty((B, M, N), dtype=torch.complex64, device=S.device)
-    colsum = torch.empty((B, N), dtype=torch.float32, device=S.device)
-    colmax = torch.empty((B, N), dtype=torch.float32, device=S.device)
-    colarg = torch.empty((B, N), dtype=torch.int32, device=S.device)
+    _lib.check(masks, "masks", torch.complex64, (M, N), dev)
+    _lib.check(shift, "shift", torch.int32, None, dev)
+    _lib.check(tw, "tw", torch.float32, (N, 2), dev)
+    plan = mf_bank_plan(N, M, B)
+    Y = torch.empty((B, M, N), dtype=torch.complex64, device=dev)
+    colsum = torch.empty((B, N), dtype=torch.float32, device=dev)
+    colmax = torch.empty((B, N), dtype=torch.float32, device=dev)
+    colarg = torch.empty((B, N), dtype=torch.int32, device=dev)
     _lib.launch("pycusdr_mf_bank_colreduce", _lib.ptr(S), _lib.ptr(masks), _lib.ptr(shift),
                 int(shift.shape[0] == B), _lib.ptr(tw), _lib.ptr(Y), _lib.ptr(colsum),
-                _lib.ptr(colmax), _lib.ptr(colarg), B, N, M, n1, sum_lo, sum_hi)
+                _lib.ptr(colmax), _lib.ptr(colarg), B, N, M, plan["n1"], plan["C"], plan["R"],
+                plan["Mg"], sum_lo, sum_hi)
     mf_bank_colreduce.launches += 1
     return colsum, colmax, colarg
 
@@ -215,23 +285,26 @@ def timing_band_plain(x: torch.Tensor, lo: int, hi: int):
 def timing_band(x: torch.Tensor, lo: int, hi: int, tw: torch.Tensor = None):
     """K3: symbol rate and timing from the forward DFT of the mask-summed
     power at bins [lo, hi) (see ``timing_band_plain``)."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return timing_band_plain(x, lo, hi)
-    if x.device.type != "cuda":
-        raise ValueError(f"timing_band: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"timing_band: unsupported device {dev}")
     B, N = x.shape
     if not 0 <= lo < hi <= N // 2 + 1:
         raise ValueError(f"band [{lo}, {hi}) outside the rfft bins of N={N}")
+    plan = timing_band_plan(N)
     if tw is None:
-        tw = twiddle_table(N, x.device)
+        tw = twiddle_table(N, dev)
     _lib.check(x, "x", torch.float32, (B, N))
-    _lib.check(tw, "tw", torch.float32, (N, 2), x.device)
-    band = torch.empty((B, hi - lo, 2), dtype=torch.float32, device=x.device)
-    out = torch.empty((3, B), dtype=torch.float32, device=x.device)
-    _lib.launch("pycusdr_timing_band", _lib.ptr(x), _lib.ptr(tw), _lib.ptr(band),
-                _lib.ptr(out[0]), _lib.ptr(out[1]), _lib.ptr(out[2]), B, N, lo, hi)
+    _lib.check(tw, "tw", torch.float32, (N, 2), dev)
+    part = torch.empty((B, plan["groups"], hi - lo, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    o = out.data_ptr()
+    _lib.launch("pycusdr_timing_band", _lib.ptr(x), _lib.ptr(tw), _lib.ptr(part), o, o + 4 * B,
+                o + 8 * B, B, N, lo, hi, plan["n1"], plan["cw"], plan["groups"])
     timing_band.launches += 1
-    return out[0], out[1], out[2]
+    return out.unbind(0)
 
 
 timing_band.launches = 0

@@ -4,7 +4,8 @@ at small T with ragged lengths; K4n at the tiny bench_BPSK shape; K8 on
 random rows and in the group graph; K9 at four shapes; K1 and K5 with
 ``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
 and K4s on one and two shards, K4s with the clip window, K8 without its
-pad mask, and the generic step).
+pad mask, and the generic step; K2 at M=16 and 32, B=1 and 64, and K3 at
+every N from 2^2 to 2^18 at the band edges, with zero and NaN rows).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -139,6 +140,80 @@ def test_mf_bank_colreduce_sizes(cuda, N, M):
         top2 = torch.topk(dk.mf_bank_power_plain(S, masks, shift), 2, dim=1).values
         clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0]
         assert int(((ka != pa) & clear).sum()) == 0
+
+
+@pytest.mark.parametrize("M", [16, 32])
+@pytest.mark.parametrize("B", [1, 64])
+def test_mf_bank_colreduce_batches(cuda, B, M):
+    """K2 at bench_BPSK's 16 masks and at 32, B=1 and 64, on a mask-sum
+    subset, at the flagship Nfft 2^16: within 1e-4 of the plain version,
+    and each block's bits equal to that block alone (the plan's rows per
+    block change with B, the arithmetic does not)."""
+    N = 2 ** 16
+    rng = np.random.RandomState(B + M)
+    S = torch.from_numpy((rng.randn(B, N) + 1j * rng.randn(B, N)).astype(np.complex64)).to(cuda)
+    masks = torch.from_numpy((rng.randn(M, N) + 1j * rng.randn(M, N))
+                             .astype(np.complex64)).to(cuda)
+    shift = torch.from_numpy(rng.randint(0, N, B).astype(np.int32)).to(cuda)
+    lo, hi = 2, M - 3
+    ks, km, ka = dk.mf_bank_colreduce(S, masks, shift, lo, hi)
+    ps, pm, pa = dk.mf_bank_colreduce_plain(S, masks, shift, lo, hi)
+    assert float((ks - ps).abs().max()) <= 1e-4 * float(ps.abs().max())
+    assert float((km - pm).abs().max()) <= 1e-4 * float(pm.abs().max())
+    top2 = torch.topk(dk.mf_bank_power_plain(S, masks, shift), 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0]
+    assert int(((ka != pa) & clear).sum()) == 0
+    b = B - 1
+    one = dk.mf_bank_colreduce(S[b:].contiguous(), masks, shift[b:].contiguous(), lo, hi)
+    for u, v in zip(one, (ks, km, ka)):
+        assert torch.equal(u[0], v[b])
+
+
+def _band_kinds(N):
+    """Bands from bin 0, up to N/2+1, one bin wide, and across K3's tile
+    boundary k = n1 (tests/test_torch_fft_plan.py holds the model)."""
+    n1 = dk.timing_band_plan(N)["n1"]
+    half = N // 2 + 1
+    edge = min(n1, half - 1)
+    return {"lo0": (0, min(half, 40)), "top": (max(half - 40, 0), half),
+            "one": (half // 3, half // 3 + 1),
+            "straddle": (max(edge - 3, 0), min(edge + 5, half))}
+
+
+@pytest.mark.parametrize("kind", ["lo0", "top", "one", "straddle"])
+@pytest.mark.parametrize("N", [2 ** e for e in range(2, 19)])
+def test_timing_band_sizes(cuda, N, kind):
+    """K3 at every N it takes and at the band edges: a tone at a band bin
+    under noise (spSym exact, code_val within 1e-4, codeOffset within 1e-3
+    where the phase is clear of its wraps at 0 and ±π, and finite where
+    the plain one is), an all-zero row (the first
+    bin, code_val 0) and a NaN row (bin 0); each row alone gives its bits
+    in the batch."""
+    lo, hi = _band_kinds(N)[kind]
+    rng = np.random.RandomState(N % 1009 + len(kind))
+    kt = (lo + hi - 1) // 2
+    n = np.arange(N)
+    x = np.stack([0.2 * rng.randn(N) + np.cos(2 * np.pi * kt * n / N + 0.7),
+                  rng.randn(N), np.zeros(N), np.full(N, np.nan)]).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    sp, co, cv = dk.timing_band(x, lo, hi)
+    psp, pco, pcv = dk.timing_band_plain(x, lo, hi)
+    assert torch.equal(sp[:2], psp[:2]), (sp.tolist(), psp.tolist())
+    assert float(sp[2]) == float(np.float32(N) / np.float32(lo)) and float(cv[2]) == 0.0
+    assert float(sp[3]) == float(psp[3]) == float(np.float32(N) / np.float32(lo))
+    assert float((cv[:2] - pcv[:2]).abs().max()) <= 1e-4 * float(pcv[:2].abs().max())
+    R = torch.fft.rfft(x[:2].double())[:, lo:hi]
+    k = torch.argmax(R.abs(), dim=1)
+    phase = torch.angle(R.gather(1, k[:, None]))[:, 0].abs().cpu()
+    # codeOffset wraps where the phase crosses 0 (and ±π): compare away from both
+    clear = (phase > 1e-3) & (phase < np.pi - 1e-3) & torch.isfinite(pco[:2]).cpu()
+    d = (co[:2] - pco[:2]).abs().cpu()
+    assert float(torch.where(clear, d, torch.zeros_like(d)).max()) <= 1e-3
+    assert torch.equal(torch.isfinite(co), torch.isfinite(pco))
+    for b in range(4):
+        one = dk.timing_band(x[b:b + 1].contiguous(), lo, hi)
+        assert all(torch.equal(u[0].nan_to_num(), v[b].nan_to_num())
+                   for u, v in zip(one, (sp, co, cv)))
 
 
 def test_process_capture_matches_process_many_on_card(cuda):

@@ -14,8 +14,11 @@ rank one process of a gloo ``torch.distributed`` world on localhost, as
 - ``init_distributed``, ``make_global_mesh`` and ``local_channel_slice``
   in one process.
 
-The workers import only the port. Their ports lie in 39000-39499, every
-wait is bounded at 60 s, and each test ends its processes.
+The workers import only the port. Their ports lie in 16500-16999, below
+the kernel's ephemeral range (Linux's default, 32768-60999) and apart
+from the ports of ``tests/test_torch_runtime.py`` (16000-16499) and the
+JAX package's tests (20003-37560); every wait is bounded at 60 s, and
+each test ends its processes.
 """
 
 import os
@@ -121,7 +124,7 @@ def _run(tmp_path, body, n, port):
 
 
 def test_collectives_across_four_processes(tmp_path):
-    _run(tmp_path, COLLECTIVES, 4, 39011)
+    _run(tmp_path, COLLECTIVES, 4, 16511)
     x = {r: np.full((2, 3), float(r), np.float32) + np.arange(3.0, dtype=np.float32)
          for r in range(4)}
     for r in range(4):
@@ -150,7 +153,7 @@ def test_generic_step_across_four_processes_matches_jax(tmp_path):
     jspec, spec = _specs("bench_GFSK")
     blocks = _blocks(spec, "bench_GFSK", n_chan=4, seed=5)
     np.save(tmp_path / "blocks.npy", blocks)
-    _run(tmp_path, STEP, 4, 39023)
+    _run(tmp_path, STEP, 4, 16523)
     ref = {k: np.asarray(v) for k, v in
            jax_step(jspec, jax_make_mesh({"channel": 4, "dopp": 2}))(c2ri(blocks)).items()}
     for r in range(4):
@@ -172,7 +175,7 @@ def test_time_stream_across_two_processes_matches_jax(tmp_path):
                           seed=19, noise_std=0.05)
     carry, new = sig[:ov], sig[ov:ov + hop * T].reshape(T, hop)
     np.savez(tmp_path / "stream_in.npz", new=new, carry=carry)
-    _run(tmp_path, STREAM, 2, 39037)
+    _run(tmp_path, STREAM, 2, 16537)
     jres, jcarry = jax_stream(jspec, jax_make_mesh({"time": 8}))(c2ri(new), c2ri(carry))
     for r in range(2):
         z = dict(np.load(tmp_path / f"stream_{r}.npz"))
@@ -188,7 +191,7 @@ def test_single_process_world(monkeypatch):
     device, and this process feeds every channel."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert init_distributed() is False
-    assert init_distributed("127.0.0.1:39099", 1, 0) is False
+    assert init_distributed("127.0.0.1:16599", 1, 0) is False
     mesh = make_global_mesh(dopp=1, devices=["cpu"])
     assert mesh.shape == {"channel": 1, "dopp": 1} and mesh.device == torch.device("cpu")
     assert local_channel_slice(mesh, 8) == slice(0, 8)

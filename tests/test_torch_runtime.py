@@ -7,9 +7,15 @@ and two clock-shared radios through the lockstep channel group at
 pipeline depths 1 and 2 (cf. ``tests/test_runtime.py`` and
 ``tests/test_channel_group.py``).
 
-Every socket lives on ports 38000-38999, every wait has a deadline, the
-children are daemons that ``PyCuSDR.terminate`` stops, terminates and
-joins with timeouts, and sockets close with LINGER 0."""
+Every socket lives on ports 16000-16499: below the kernel's ephemeral
+range (Linux's default, 32768-60999), so no outgoing connection of a
+concurrent test can hold one of them as its local port, and apart from
+the ports of the JAX package's tests (20003-37560) and of
+``tests/test_torch_multihost.py`` (16500-16999). Warming the children
+and decoding have deadlines of their own, a failure names the flag or
+socket that failed, the children are daemons that ``PyCuSDR.terminate``
+stops, terminates and joins with timeouts, and sockets close with
+LINGER 0."""
 
 import os
 import time
@@ -36,7 +42,8 @@ CONFIGS = ["base.json", "CC11xx.json", "hamlib_sockets.json"] + [
     os.path.join("benchmark", n) for n in (
         "bench_base.json", "bench_FSK.json", "bench_GFSK.json", "bench_GMSK.json",
         "bench_BPSK.json", "bench_3_chan_rx.json")]
-WAIT_S = 60.0  # bound on each wait for the children
+WARM_S = 60.0  # bound on the wait for the children to warm and the decoder to bind
+DECODE_S = 60.0  # bound on the feed until decoded bytes arrive
 HOP = 2**13 - 2**10
 
 # (outLen, bufLen, operations): ("i", n) inserts the next n samples, ("p", n) pops n
@@ -74,11 +81,11 @@ def test_sigfifo_reblocking_matches_jax():
     ctx = zmq.Context()
     pub = ctx.socket(zmq.PUB)
     pub.setsockopt(zmq.LINGER, 0)
-    pub.bind("tcp://127.0.0.1:38010")
+    pub.bind("tcp://127.0.0.1:16010")
     kw = dict(dtype=np.complex64, timeOut_ms=200, enableTimeoutException=True,
               timeoutRetries=25)
-    port = SigFIFO("tcp://127.0.0.1:38010", 100, **kw)
-    jax = JaxSigFIFO("tcp://127.0.0.1:38010", 100, **kw)
+    port = SigFIFO("tcp://127.0.0.1:16010", 100, **kw)
+    jax = JaxSigFIFO("tcp://127.0.0.1:16010", 100, **kw)
     try:
         time.sleep(0.5)  # let both SUB sockets connect
         sizes = [37, 90, 100, 13, 160, 55, 45]
@@ -183,20 +190,25 @@ def _run_pipeline(conf, port0, n_rx, check=None):
     sdr = PyCuSDR(conf, args=None)
     sdr.start()
     try:
-        deadline = time.time() + WAIT_S
-        flags = [d.warmedFlag for d in sdr.demodulators] + [sdr.dec.boundFlag]
-        while time.time() < deadline and not all(f.is_set() for f in flags):
-            assert all(t.is_alive() for t in sdr.tasks), "a child died while warming"
+        t0 = time.time()
+        flags = {f"{type(d).__name__}[{i}].warmedFlag": d.warmedFlag
+                 for i, d in enumerate(sdr.demodulators)}
+        flags["Decoder.boundFlag"] = sdr.dec.boundFlag
+        while time.time() < t0 + WARM_S and not all(f.is_set() for f in flags.values()):
+            dead = [getattr(t, "name", str(t)) for t in sdr.tasks if not t.is_alive()]
+            assert not dead, f"children {dead} died while warming"
             time.sleep(0.2)
-        assert all(f.is_set() for f in flags), "children not warm"
+        unset = [k for k, f in flags.items() if not f.is_set()]
+        assert not unset, f"{unset} not set within {WARM_S} s"
         assert [d.device for d in sdr.demodulators] == ["cpu"] * len(sdr.demodulators)
-        # connect once the decoder listens: a connect retried against a
-        # port in the ephemeral range can connect the socket to itself
+        # connect once the decoder has bound its PUSH socket
         sink.connect(f"tcp://localhost:{port0 + 12}")
         time.sleep(0.5)  # let the SUB sockets connect
         rng = np.random.RandomState(5)
         payload = None
-        while payload is None and time.time() < deadline:
+        rounds, t1 = 0, time.time()
+        while payload is None and time.time() < t1 + DECODE_S:
+            rounds += 1
             chans = [awgn(stream, 14.0, rng=rng).astype(np.complex64) for _ in pubs]
             for pos in range(0, len(stream) - HOP, HOP):
                 for s, c in zip(pubs, chans):
@@ -206,6 +218,10 @@ def _run_pipeline(conf, port0, n_rx, check=None):
                 payload = sink.recv()
             except zmq.error.Again:
                 continue
+        assert payload is not None, (
+            f"no decoded bytes on the PULL socket tcp://localhost:{port0 + 12} after {rounds} "
+            f"feeds of the packet to {[f'tcp://127.0.0.1:{port0 + i}' for i in range(n_rx)]} "
+            f"within {DECODE_S} s (children warm after {t1 - t0:.1f} s)")
         if check is not None:
             check(sdr)
         expected = bytes(bytearray(sdr.protocols["UHF"].Packet(bits).getBinaryData()[0]))
@@ -222,7 +238,7 @@ def test_single_radio_pipeline(monkeypatch):
     """PUB IQ -> Demodulator_process -> Decoder -> the payload's bytes on
     the external PULL socket; the RPC server answers while it runs."""
     monkeypatch.setenv("PYCUSDR_TORCH_DEVICE", "cpu")
-    port0 = 38100
+    port0 = 16100
 
     def rpc(sdr):
         proxy = xmlrpc.client.ServerProxy(f"http://127.0.0.1:{port0 + 13}/RPC2")
@@ -240,7 +256,7 @@ def test_channel_group_pipeline(monkeypatch, depth):
     """Two clock-shared radios as ONE lockstep child (one dispatch per
     block, the vote on the device): the payload decodes."""
     monkeypatch.setenv("PYCUSDR_TORCH_DEVICE", "cpu")
-    port0 = 38200 + 50 * depth
+    port0 = 16200 + 50 * depth
     conf = _conf(port0, radios=("UHF-H", "UHF-V"), depth=depth)
 
     def one_child(sdr):
