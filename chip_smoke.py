@@ -16,10 +16,14 @@ and then no result line is printed):
    K1-K5 at the flagship shape (Nfft 2^16, D=64, M=8), and K6 with K2-K4
    (K4 with the clip window) at the STX shape (Nfft 2^17, M=8, W=3), K2
    and K3 also at B=64 (and each block alone equal to its row of the
-   batch); K7 (the Viterbi trellis) on
+   batch); K7 (the Viterbi trellis): ptxas's registers, stack and spills
+   of its four instantiations (none may spill), then the kernel on
    hard, soft ±1/0 and soft random-float symbols, terminated and
    streaming, metric-only and decode, at the node-sync shape (S=2,
-   T=2016/2015), the decode shape (S=1, T=2144) and T=2^15;
+   T=2016/2015), the decode shape (S=1, T=2144), a feed's one launch
+   (S=3), ragged lengths about the 32-step chunk edges (0 to 2144), S=64
+   and S=129, and T=2^15; ``ViterbiStream`` through K7 equal to
+   ``plain=True`` after every feed, one K7 launch a feed;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after it:
    a. flagship: the UHF demodulator (``models.uhf.Demodulator``) on a
@@ -41,7 +45,7 @@ and then no result line is printed):
       (the streaming Viterbi, frame sync, RS): all 16 payloads bit-exact
       both ways at both SNRs; at the low SNR the plain path (plain block
       graph, plain Viterbi stream) gives the same packets; K1-K5 and K7
-      must launch, K6 not;
+      must launch, K6 not, K7 at most once per ``ViterbiStream.feed``;
    d. bpsk: ``bench_BPSK.json`` at blockSize 16 (16 masks, the (8, 2, 2)
       NRZ-S LUT) through ``models.uhf.Demodulator``, the same four ways,
       on seeded 10000-bit packets back to back at +3000 Hz; BER < 1e-3,
@@ -87,9 +91,11 @@ and then no result line is printed):
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, and the whole block graph against the plain
-   path, for both configurations; K7 at S=1/2/64 with ns per trellis
-   step; K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3
-   against the block graph at B=3; the decoder's host ms per block
+   path, for both configurations; K7 at S=1/2/64 and at the feed's S=3
+   and S=1 metric-only, with ns per trellis step beside an estimate of
+   its dependency chain at ``clocks.max.sm``, and ``clocks.sm`` after;
+   K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3 against
+   the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
    K9 with its two-call yardstick (grouped conv1d + torch.fft.fft); the
    wideband chain per hop against the signal a hop holds; the tracker's
@@ -110,6 +116,7 @@ import json
 import math
 import multiprocessing
 import queue
+import re
 import socket
 import statistics
 import subprocess
@@ -177,10 +184,23 @@ CCSDS_FRAMES = 16
 #: the 153.6 kHz sample rate (Es/N0 is 12.04 dB higher); the low one gives a
 #: raw demodulated BER of a few 1e-3 (about 5e-3 at Nfft 2^13 on the CPU)
 SNRS_DB = (10.0, -3.0)
-#: K7's shapes on the ccsds path: the two node-sync sweeps of a feed (4032
-#: symbols per flagship block), the decode sweep (256 carried + 4032), and
-#: the batch a multi-channel decoder would run
+#: K7's shapes on the ccsds path: the two node-sync pairings of a feed (4032
+#: symbols per flagship block), the decode buffer (256 carried + 4032), the
+#: one launch a feed makes (all three), and the batch a multi-channel
+#: decoder would run; ragged lengths about the 32-step chunk edges, and
+#: those over 129 sequences (33 blocks of four warps)
 VIT_SYNC, VIT_DECODE, VIT_BATCH = [2016, 2015], [2144], [2144] * 64
+VIT_FEED = VIT_SYNC + VIT_DECODE
+VIT_EDGES = [0, 1, 31, 32, 33, 63, 65, 2144]
+VIT_WIDE = (VIT_EDGES * 17)[:129]
+#: the ccsds feed sizes of the ViterbiStream check (one slip after 2500 symbols)
+VIT_CHUNKS = (3, 30, 700, 1, 1300, 901, 2100, 64, 900, 4032, 4032)
+#: K7's dependency chain per trellis step as csrc/viterbi.cu builds it: the
+#: ALU operations from one step's minimum to the next (the subtraction, the
+#: candidate add, two fminf, the two-op key map, the three-op inverse map),
+#: at about this many cycles each, around one redux.sync whose latency is
+#: not published and is left out: an estimate, not a bound
+VIT_CHAIN_OPS, VIT_CYCLES_PER_OP = 9, 4
 VIT_KINDS = ("hard", "soft_pm1", "soft_float")
 CONFIGS = "pycusdr_tpu_torch/config/configs"
 #: K8's channel counts: the three-antenna station (bench_3_chan_rx), and wider groups
@@ -272,6 +292,15 @@ def card_line() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def sm_clocks():
+    """(maximum, current) SM clock of card 0 in MHz, as nvidia-smi reads them."""
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    top, now = out.stdout.strip().split(",")
+    return float(top), float(now)
 
 
 def configuration(name):
@@ -554,12 +583,16 @@ def viterbi_inputs(kind, lengths, seed=SEED):
 
 def check_viterbi():
     """K7 against its plain version on the card: every kind x terminated /
-    streaming x metric-only / decode at the node-sync (S=2) and decode
-    (S=1) shapes, and two cases at T=2^15. Bits equal; metrics equal
-    (random-float soft: within 1e-6 relative). Returns (max abs metric
-    error, number of cases)."""
-    cases = [(lengths, kind, term, dec) for lengths in (VIT_SYNC, VIT_DECODE)
+    streaming x metric-only / decode at the node-sync (S=2), decode (S=1)
+    and feed (S=3) shapes and at ragged lengths about the 32-step chunk
+    edges (S=8, lengths 0 to 2144); every kind x metric-only / decode,
+    streaming, at S=64 and at S=129 ragged (33 blocks); two cases at
+    T=2^15. Bits equal; metrics equal (random-float soft: within 1e-6
+    relative). Returns (max abs metric error, number of cases)."""
+    cases = [(lengths, kind, term, dec) for lengths in (VIT_SYNC, VIT_DECODE, VIT_FEED, VIT_EDGES)
              for kind in VIT_KINDS for term in (True, False) for dec in (False, True)]
+    cases += [(lengths, kind, False, dec) for lengths in (VIT_BATCH, VIT_WIDE)
+              for kind in VIT_KINDS for dec in (False, True)]
     cases += [([2 ** 15], "soft_pm1", False, True), ([2 ** 15], "hard", True, True)]
     err = 0.0
     for lengths, kind, term, dec in cases:
@@ -568,7 +601,7 @@ def check_viterbi():
         bk, mk = vit.viterbi_sweep(x, lengths, **kw)
         bp, mp = vit.viterbi_sweep_plain(x, lengths, **kw)
         torch.cuda.synchronize()
-        label = f"K7 {kind} T={lengths} terminated={term} decode={dec}"
+        label = f"K7 {kind} S={len(lengths)} T={max(lengths)} terminated={term} decode={dec}"
         e = float((mk - mp).abs().max())
         if kind == "soft_float":
             assert torch.allclose(mk, mp, rtol=1e-6, atol=0), f"{label}: metric err {e}"
@@ -580,6 +613,53 @@ def check_viterbi():
             assert bad == 0, f"{label}: {bad} bits differ"
         err = max(err, e)
     return err, len(cases)
+
+
+def check_viterbi_stream():
+    """``ViterbiStream`` on the card through K7 against ``plain=True``, hard
+    and soft ±1/0, over VIT_CHUNKS with a one-symbol slip: the same bits
+    and state after every feed, and at most one K7 launch a feed (exactly
+    one where it holds 64 symbols or more). Returns the launches per feed."""
+    per_feed = []
+    for kind in ("hard", "soft_pm1"):
+        x = viterbi_inputs(kind, [sum(VIT_CHUNKS) // 2 + 1]).reshape(-1).cpu().numpy()
+        x = np.r_[x[:2501], x[2502:]]
+        a = vit.ViterbiStream(soft=kind != "hard", device="cuda")
+        b = vit.ViterbiStream(soft=kind != "hard", device="cuda", plain=True)
+        pos, parities = 0, set()
+        for n in VIT_CHUNKS:
+            before = vit.viterbi_sweep.launches
+            ya = a.feed(x[pos:pos + n])
+            per_feed.append(vit.viterbi_sweep.launches - before)
+            yb = b.feed(x[pos:pos + n])
+            pos += n
+            label = f"ViterbiStream {kind} after {pos} symbols"
+            assert np.array_equal(ya, yb), f"{label}: bits differ"
+            assert a.parity == b.parity, label
+            assert np.array_equal(a.carry, b.carry) and np.array_equal(a.pending, b.pending), label
+            assert per_feed[-1] == 1 if n >= 64 else per_feed[-1] <= 1, \
+                f"{label}: {per_feed[-1]} K7 launches in a feed of {n} symbols"
+            parities.add(a.parity)
+        assert len(parities) == 2, f"ViterbiStream {kind}: the slip forced no resync"
+    assert max(per_feed) == 1, f"K7 launches per feed {per_feed}"
+    return per_feed
+
+
+def viterbi_ptxas():
+    """ptxas's report (``-Xptxas -v``, in the build log) of K7's four
+    instantiations: [(soft, decode, registers, stack bytes, spill stores,
+    spill loads)]."""
+    log = Path(_lib.build_info["log"]).read_text()
+    section = log.split("== viterbi.cu", 1)[1].split("\n== ", 1)[0]
+    out = []
+    for part in section.split("Compiling entry function")[1:]:
+        name = re.search(r"viterbiILb([01])ELb([01])EE", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", part)
+        out.append((int(name[1]), int(name[2]), int(regs[1]), *map(int, frame.groups())))
+    assert len(out) == 4, f"ptxas reported {len(out)} K7 instantiations: {section}"
+    return out
 
 
 def best_aligned_ber(rx, tx, max_lag=400):
@@ -804,11 +884,13 @@ def main_path_ccsds():
         out[snr] = run(snr, host_ms=host_ms if snr == SNRS_DB[-1] else None)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    feeds = len(SNRS_DB) * 2 * K  # one ViterbiStream.feed a block, two decoders an SNR
     check_launches("ccsds", launches)
+    assert launches["viterbi"] <= feeds, f"ccsds: {launches['viterbi']} K7 launches in {feeds} feeds"
     low = SNRS_DB[-1]
     _, pkts_plain, _, seq_plain = run(low, plain=True)
 
-    res = dict(frames=CCSDS_FRAMES, blocks=K, launches=launches)
+    res = dict(frames=CCSDS_FRAMES, blocks=K, launches=launches, viterbi_feeds=feeds)
     for snr, (pktsA, pktsB, seqA, seqB) in out.items():
         for how, pkts in (("process", pktsA), ("processMany", pktsB)):
             got, wrong = exact_frames(pkts, payloads)
@@ -1826,18 +1908,42 @@ def viterbi_bound(lengths, decode):
     return bound_of(nbytes, steps * (4 * 3 + 128 + 64 + 63 + 64 + 1))
 
 
-def time_viterbi():
-    """K7 at the ccsds path's shapes (soft ±1/0 symbols, streaming):
-    S -> (ms, plain_ms, (bound ms, by), lengths)."""
+def viterbi_chain_ms(lengths, max_mhz):
+    """An estimate, not a bound, of K7's serial time: the longest sequence's
+    steps, each VIT_CHAIN_OPS dependent ALU operations of VIT_CYCLES_PER_OP
+    cycles (redux.sync left out), at the card's maximum SM clock ``max_mhz``."""
+    return max(lengths) * VIT_CHAIN_OPS * VIT_CYCLES_PER_OP / (max_mhz * 1e3)
+
+
+#: K7's timed shapes (soft ±1/0 symbols, streaming), key -> (lengths,
+#: decode): by S, as the kernels line's ``by_S`` has them (S=2 is the
+#: node-sync pair, metric-only); and beside them the feed's one launch and
+#: S=1 metric-only, which against S=1 decode parts the sweep from the
+#: traceback
+VIT_BY_S = {1: (VIT_DECODE, True), 2: (VIT_SYNC, False), 64: (VIT_BATCH, True)}
+VIT_MORE = {"3 decode": (VIT_FEED, True), "1 metric": (VIT_DECODE, False)}
+
+
+def time_viterbi(shapes):
+    """K7 at ``shapes`` (key -> (lengths, decode)): key -> (ms, plain_ms,
+    (bound ms, by), lengths)."""
     out = {}
-    for lengths, decode in ((VIT_DECODE, True), (VIT_SYNC, False), (VIT_BATCH, True)):
+    for key, (lengths, decode) in shapes.items():
         x = viterbi_inputs("soft_pm1", lengths)
         kw = dict(soft=True, terminated=False, decode=decode)
-        out[len(lengths)] = (cuda_ms(lambda: vit.viterbi_sweep(x, lengths, **kw)),
-                             cuda_ms(lambda: vit.viterbi_sweep_plain(x, lengths, **kw),
-                                     iters=1, reps=3),
-                             viterbi_bound(lengths, decode), lengths)
+        out[key] = (cuda_ms(lambda: vit.viterbi_sweep(x, lengths, **kw)),
+                    cuda_ms(lambda: vit.viterbi_sweep_plain(x, lengths, **kw),
+                            iters=1, reps=3),
+                    viterbi_bound(lengths, decode), lengths)
     return out
+
+
+def viterbi_rows(times):
+    """time_viterbi's times as the kernels line gives them: key -> T, ms,
+    plain_ms, bound_ms, bound_by and ns a step."""
+    return {key: {"T": max(v[3]), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                  "bound_by": v[2][1], "ns_per_step": 1e6 * v[0] / max(v[3])}
+            for key, v in times.items()}
 
 
 def time_feed(blocks=12, plain_blocks=3):
@@ -1968,9 +2074,17 @@ def main() -> int:
         errs.update({k: max(errs[k], v) for k, v in e.items()})
         say("kernels", f"{p} B=64 K2, K3 vs plain OK (the last block alone equal to its row "
                        f"in the batch), max abs err " + json.dumps(e))
+    for soft, decode, regs, stack, st, ld in viterbi_ptxas():
+        say("kernels", f"K7 viterbi<soft={soft}, decode={decode}> ptxas: {regs} registers, "
+                       f"{stack} bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads")
+        assert st == ld == 0, f"K7 viterbi<soft={soft}, decode={decode}> spills"
     errs["viterbi"], n_cases = check_viterbi()
     say("kernels", f"K7 viterbi vs plain OK on {n_cases} cases (bits equal), max abs metric "
                    f"err {errs['viterbi']}")
+    per_feed = check_viterbi_stream()
+    say("kernels", f"K7 ViterbiStream on the card == plain=True (bits, carry, pending, parity "
+                   f"after every feed, hard and soft, a slip resynced); K7 launches per feed "
+                   f"{per_feed}")
     bcfg = bpsk_configuration()
     bspec = bcfg[2]
     bconsts = DeviceConsts.from_spec(bspec, torch.device("cuda"))
@@ -2075,12 +2189,19 @@ def main() -> int:
                          f"{B * hop / whole[0] / 1e3:.1f} Msamples/s of new samples); "
                          f"plain path {whole[1]:.4f} ms/call")
 
-    vt = time_viterbi()
-    for S, (ms, pms, (bms, by), lengths) in vt.items():
-        assert ms >= bms and pms >= bms, f"K7 S={S}: a time is below bound_ms {bms}"
-        say("times", f"{card} | viterbi S={S} T={max(lengths)}: ms={ms:.5f} plain_ms={pms:.5f} "
+    max_mhz, _ = sm_clocks()
+    vt, vt_more = time_viterbi(VIT_BY_S), time_viterbi(VIT_MORE)
+    _, now_mhz = sm_clocks()
+    for key, (ms, pms, (bms, by), lengths) in {**vt, **vt_more}.items():
+        assert ms >= bms and pms >= bms, f"K7 S={key}: a time is below bound_ms {bms}"
+        say("times", f"{card} | viterbi S={key} T={max(lengths)}: ms={ms:.5f} plain_ms={pms:.5f} "
                      f"library_ms=null bound_ms={bms:.4g} ({by}) "
-                     f"ns_per_step={1e6 * ms / max(lengths):.1f}")
+                     f"ns_per_step={1e6 * ms / max(lengths):.1f} chain_estimate_ms="
+                     f"{viterbi_chain_ms(lengths, max_mhz):.5f} (by chain: {VIT_CHAIN_OPS} "
+                     f"dependent ALU ops x {VIT_CYCLES_PER_OP} cycles a step at clocks.max.sm "
+                     f"{max_mhz:g} MHz, redux.sync not counted; an estimate, not a bound)")
+    say("times", f"{card} | clocks.sm {now_mhz:g} MHz after the K7 timings (clocks.max.sm "
+                 f"{max_mhz:g} MHz): a latency-bound kernel follows the clock")
     feed_ms, feed_plain_ms = time_feed()
     cspec = ccsds_spec()
     graph1 = build_process_batch(cspec, device="cuda", packed=True)
@@ -2197,15 +2318,14 @@ def main() -> int:
                 "shape": f"wideband M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}"})
             continue
         if k == "viterbi":
-            ms, pms, (bms, by), lengths = vt[1]
+            ms, pms, (bms, by), _ = vt[1]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None, "batch": 1, "shape": "ccsds decode T=2144",
-                "by_S": {S: {"T": max(v[3]), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                             "bound_by": v[2][1], "ns_per_step": 1e6 * v[0] / max(v[3])}
-                         for S, v in vt.items()}})
+                "by_S": viterbi_rows(vt),
+                "more_shapes": {f"S={key}": v for key, v in viterbi_rows(vt_more).items()}})
             continue
         home = "flagship" if k in PATH_KERNELS["flagship"] else "stx"
         t, bnd = times[home, LINE_BATCH]

@@ -15,21 +15,52 @@
 // only be close. Traceback starts at state 0 (terminated) or at the first
 // state of least metric (np.argmin), bits[t] = state & 1.
 //
-// Bound: a dependency chain of T steps, each a few shuffles deep; the
-// bytes (8 B of symbols in, 1 B of bits out per step) and the f32
-// operations (~330 per step) are tiny. Design: one warp per sequence,
-// lane l owns states l and l + 32. The four predecessor metrics come from
-// __shfl_sync (lanes l >> 1 and 16 + (l >> 1) hold them), the step's
-// minimum from a 5-step __shfl_xor_sync butterfly, the two 32-bit
-// decision words from __ballot_sync; no shared memory and no
-// __syncthreads. Symbols are loaded 32 steps at a time (one float2 per
-// lane, the next chunk in flight) and broadcast by shuffle; lane j keeps
-// step j's decision words and the chunk is stored with one coalesced
-// uint2 per lane into a (S, Tmax) scratch (17 KB at T = 2144, held in
-// L2). The traceback walks the same chunks backwards with the words in
-// registers, one shuffle per step. Sequences run in parallel, one warp
-// each: a batch of streams, not one stream, is what could approach the
-// card's rates.
+// Bound: a dependency chain of T steps; the bytes (8 B of symbols in, 1 B
+// of bits out per step) and the f32 operations (~330 per step) are tiny.
+// Sequences are independent, one warp each, so a batch of streams costs
+// about what one does.
+//
+// Design: one warp per sequence, lane l owns states l and l + 32, four
+// sequences to a block. The lanes keep their metrics un-normalised (pm =
+// lo - m, hi - m, m the last step's minimum) and subtract m after the
+// predecessor shuffle, which is the same f32 operation on the same
+// operands, so the same value: the 4 shuffles (lanes l >> 1 and
+// 16 + (l >> 1) hold pm[pa], pm[pb] of both new states) start as soon as
+// the new metrics exist, and their latency hides under the key map,
+// redux.sync and the inverse map. The chain of one step, from one
+// minimum to the next:
+//   the subtraction of m, the candidate add, fminf of the pair,
+//   fminf of the lane's two, the key map (2 ops),
+//   __reduce_min_sync (redux.sync) of the 32 keys, the inverse map (3 ops):
+// redux.sync and 9 dependent ALU operations; 110-140 cycles a step are
+// expected.
+// Off the chain: the two symbol broadcasts and the four branch metrics of
+// a step (they depend on the symbols alone; the full 32-step chunk is
+// unrolled, so the compiler hoists them into the previous step's wait),
+// the strict compares and the two __ballot_sync decision words (nothing
+// on the chain reads them), and tot += m.
+//
+// Exactness of the shortcuts. fminf(cand_a, cand_b) is the value of the
+// strict select (a tie gives equal values); the decision bit is the strict
+// compare itself. The step minimum is the integer minimum of an
+// order-preserving u32 key of each f32 (key = bits ^ 0x80000000 for a
+// sign bit of 0, ~bits for 1; inputs are finite), mapped back: the
+// minimum of f32 values is exact, so it is the same value fminf's
+// butterfly gave. The keys order -0 below +0, and fminf may return
+// either zero of a pair: a signed zero changes no comparison, no sum
+// with a non-zero value and no decision (x - x and x + (-x) are +0, so
+// neither tot nor a normalised metric ever holds -0), and torch.equal
+// holds -0 == +0.
+//
+// Decisions: lane j keeps step j's two decision words through the
+// unrolled index (a select, no branch on the chain), and the chunk is
+// stored with one coalesced uint2 per lane into a (S, Tmax) scratch (17
+// KB at T = 2144, held in L2); the last partial chunk runs a loop of its
+// own. Symbols are loaded 32 steps at a time (one float2 per lane, the
+// next chunk in flight) and broadcast by shuffle. The traceback walks
+// the same chunks backwards with the words in registers, one shuffle per
+// step. soft and decode are template flags: the entry point picks one of
+// four instantiations.
 //
 // Inputs: sym (S, Tmax, 2) f32, lengths (S,) int32 <= Tmax. Outputs:
 // met (S, 2) f32 = (tot, min pm); with decode, bits (S, Tmax) uint8 (0
@@ -48,8 +79,9 @@ __device__ __forceinline__ float2 expected(int state, int b, int invert) {
     return make_float2((float)(__popc(reg & kG1) & 1), (float)((__popc(reg & kG2) & 1) ^ invert));
 }
 
-__device__ __forceinline__ float branch_metric(float2 e, float r0, float r1, int soft) {
-    if (soft) {
+template <bool kSoft>
+__device__ __forceinline__ float branch_metric(float2 e, float r0, float r1) {
+    if (kSoft) {
         const float s0 = __fsub_rn(__fmul_rn(e.x, 2.f), 1.f);
         const float s1 = __fsub_rn(__fmul_rn(e.y, 2.f), 1.f);
         return -__fadd_rn(__fmul_rn(s0, r0), __fmul_rn(s1, r1));
@@ -57,64 +89,105 @@ __device__ __forceinline__ float branch_metric(float2 e, float r0, float r1, int
     return __fadd_rn(fabsf(__fsub_rn(e.x, r0)), fabsf(__fsub_rn(e.y, r1)));
 }
 
+// Order-preserving map of a finite f32 onto u32 (a < b implies key(a) <
+// key(b); -0 keys below +0), and its inverse.
+__device__ __forceinline__ unsigned f32_key(float f) {
+    const unsigned u = __float_as_uint(f);
+    return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_f32(unsigned k) {
+    return __uint_as_float(k ^ (~(unsigned)((int)k >> 31) | 0x80000000u));
+}
+
+// What a lane needs for its two new states ns = lane (lo) and lane + 32
+// (hi): the lanes that hold their predecessors' metrics in (lo, hi) =
+// (pa, pb), and the expected symbols of the four branches.
+struct Branches {
+    int src_lo, src_hi;
+    float2 a_lo, b_lo, a_hi, b_hi;
+};
+
+// One trellis step on symbols (r0, r1). The lane's metrics are held
+// un-normalised: pm[lane] = lo - m and pm[lane + 32] = hi - m, m the last
+// step's minimum (0 before the first). Updates lo, hi, m and tot; returns
+// the step's decision words (bit l of .x: state l took pb, of .y: state
+// l + 32), the same in every lane.
+template <bool kSoft>
+__device__ __forceinline__ uint2 acs(const Branches& br, float r0, float r1, float& lo, float& hi,
+                                     float& m, float& tot) {
+    const float bm_a_lo = branch_metric<kSoft>(br.a_lo, r0, r1);
+    const float bm_b_lo = branch_metric<kSoft>(br.b_lo, r0, r1);
+    const float bm_a_hi = branch_metric<kSoft>(br.a_hi, r0, r1);
+    const float bm_b_hi = branch_metric<kSoft>(br.b_hi, r0, r1);
+    const float pa_lo = __fsub_rn(__shfl_sync(kFull, lo, br.src_lo), m);
+    const float pb_lo = __fsub_rn(__shfl_sync(kFull, hi, br.src_lo), m);
+    const float pa_hi = __fsub_rn(__shfl_sync(kFull, lo, br.src_hi), m);
+    const float pb_hi = __fsub_rn(__shfl_sync(kFull, hi, br.src_hi), m);
+    const float ca_lo = __fadd_rn(pa_lo, bm_a_lo), cb_lo = __fadd_rn(pb_lo, bm_b_lo);
+    const float ca_hi = __fadd_rn(pa_hi, bm_a_hi), cb_hi = __fadd_rn(pb_hi, bm_b_hi);
+    const uint2 w = make_uint2(__ballot_sync(kFull, cb_lo < ca_lo), __ballot_sync(kFull, cb_hi < ca_hi));
+    lo = fminf(ca_lo, cb_lo);
+    hi = fminf(ca_hi, cb_hi);
+    m = key_f32(__reduce_min_sync(kFull, f32_key(fminf(lo, hi))));
+    tot = __fadd_rn(tot, m);
+    return w;
+}
+
+template <bool kSoft, bool kDecode>
 __global__ void __launch_bounds__(32 * kWarps)
 viterbi(const float2* __restrict__ sym, const int* __restrict__ lengths, uint2* __restrict__ dec,
-        unsigned char* __restrict__ bits, float* __restrict__ met, int S, int Tmax, int soft,
-        int terminated, int invert, int decode) {
+        unsigned char* __restrict__ bits, float* __restrict__ met, int S, int Tmax,
+        int terminated, int invert) {
     const int lane = threadIdx.x & 31;
     const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
     if (s >= S) return;  // the whole warp leaves together
     const int T = lengths[s];
     const float2* x = sym + (size_t)s * Tmax;
-    uint2* d = decode ? dec + (size_t)s * Tmax : nullptr;
+    uint2* d = kDecode ? dec + (size_t)s * Tmax : nullptr;
 
-    // new states ns = lane (lo) and lane + 32 (hi); both take input bit
-    // lane & 1; the lanes src_lo, src_hi hold their predecessors' metrics
-    // in (lo, hi) = (pa, pb)
+    // both new states of the lane take input bit lane & 1
     const int b = lane & 1;
-    const int src_lo = lane >> 1, src_hi = 16 + (lane >> 1);
-    const float2 e_a_lo = expected(src_lo, b, invert), e_b_lo = expected(src_lo | 32, b, invert);
-    const float2 e_a_hi = expected(src_hi, b, invert), e_b_hi = expected(src_hi | 32, b, invert);
+    Branches br;
+    br.src_lo = lane >> 1;
+    br.src_hi = 16 + (lane >> 1);
+    br.a_lo = expected(br.src_lo, b, invert);
+    br.b_lo = expected(br.src_lo | 32, b, invert);
+    br.a_hi = expected(br.src_hi, b, invert);
+    br.b_hi = expected(br.src_hi | 32, b, invert);
 
-    float lo = terminated && lane != 0 ? 1e6f : 0.f;  // pm[lane]
-    float hi = terminated ? 1e6f : 0.f;               // pm[lane + 32]
-    float tot = 0.f;
+    float lo = terminated && lane != 0 ? 1e6f : 0.f;  // pm[lane] + m
+    float hi = terminated ? 1e6f : 0.f;               // pm[lane + 32] + m
+    float m = 0.f, tot = 0.f;
 
     float2 nxt = lane < T ? x[lane] : make_float2(0.f, 0.f);
-    for (int t0 = 0; t0 < T; t0 += 32) {
+    int t0 = 0;
+    for (; t0 + 32 <= T; t0 += 32) {  // full chunks
         const float2 cur = nxt;
         if (t0 + 32 + lane < T) nxt = x[t0 + 32 + lane];
-        const int n = min(32, T - t0);
-        unsigned k0 = 0, k1 = 0;
-        for (int j = 0; j < n; ++j) {
-            const float r0 = __shfl_sync(kFull, cur.x, j);
-            const float r1 = __shfl_sync(kFull, cur.y, j);
-            const float pa_lo = __shfl_sync(kFull, lo, src_lo);
-            const float pb_lo = __shfl_sync(kFull, hi, src_lo);
-            const float pa_hi = __shfl_sync(kFull, lo, src_hi);
-            const float pb_hi = __shfl_sync(kFull, hi, src_hi);
-            const float ca_lo = __fadd_rn(pa_lo, branch_metric(e_a_lo, r0, r1, soft));
-            const float cb_lo = __fadd_rn(pb_lo, branch_metric(e_b_lo, r0, r1, soft));
-            const float ca_hi = __fadd_rn(pa_hi, branch_metric(e_a_hi, r0, r1, soft));
-            const float cb_hi = __fadd_rn(pb_hi, branch_metric(e_b_hi, r0, r1, soft));
-            const bool tk_lo = cb_lo < ca_lo, tk_hi = cb_hi < ca_hi;
-            const float n_lo = tk_lo ? cb_lo : ca_lo, n_hi = tk_hi ? cb_hi : ca_hi;
-            float m = fminf(n_lo, n_hi);
+        uint2 k = make_uint2(0u, 0u);
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, o));
-            lo = __fsub_rn(n_lo, m);
-            hi = __fsub_rn(n_hi, m);
-            tot = __fadd_rn(tot, m);
-            const unsigned w0 = __ballot_sync(kFull, tk_lo), w1 = __ballot_sync(kFull, tk_hi);
-            if (lane == j) {
-                k0 = w0;
-                k1 = w1;
-            }
+        for (int j = 0; j < 32; ++j) {
+            const uint2 w = acs<kSoft>(br, __shfl_sync(kFull, cur.x, j),
+                                       __shfl_sync(kFull, cur.y, j), lo, hi, m, tot);
+            if (kDecode) k = lane == j ? w : k;
         }
-        if (decode && lane < n) d[t0 + lane] = make_uint2(k0, k1);
+        if (kDecode) d[t0 + lane] = k;
+    }
+    const int n = T - t0;  // the last partial chunk, 0 <= n < 32 steps
+    if (n > 0) {
+        uint2 k = make_uint2(0u, 0u);
+        for (int j = 0; j < n; ++j) {
+            const uint2 w = acs<kSoft>(br, __shfl_sync(kFull, nxt.x, j),
+                                       __shfl_sync(kFull, nxt.y, j), lo, hi, m, tot);
+            if (kDecode) k = lane == j ? w : k;
+        }
+        if (kDecode && lane < n) d[t0 + lane] = k;
     }
 
     // least final metric and its first state (lower index wins ties)
+    lo = __fsub_rn(lo, m);
+    hi = __fsub_rn(hi, m);
     float v = lo;
     int arg = lane;
     if (hi < v) {
@@ -134,24 +207,32 @@ viterbi(const float2* __restrict__ sym, const int* __restrict__ lengths, uint2* 
         met[2 * s] = tot;
         met[2 * s + 1] = v;
     }
-    if (!decode) return;
+    if (!kDecode) return;
     __syncwarp();  // this warp's decision words are visible to all its lanes
 
     unsigned char* out = bits + (size_t)s * Tmax;
     int state = terminated ? 0 : arg;
     for (int t1 = T; t1 > 0; t1 -= 32) {
-        const int t0 = max(t1 - 32, 0);
-        const uint2 w = t0 + lane < t1 ? d[t0 + lane] : make_uint2(0u, 0u);
+        const int c0 = max(t1 - 32, 0);
+        const uint2 w = c0 + lane < t1 ? d[c0 + lane] : make_uint2(0u, 0u);
         unsigned char mine = 0;
-        for (int j = t1 - t0 - 1; j >= 0; --j) {
+        for (int j = t1 - c0 - 1; j >= 0; --j) {
             const unsigned w0 = __shfl_sync(kFull, w.x, j), w1 = __shfl_sync(kFull, w.y, j);
             if (lane == j) mine = (unsigned char)(state & 1);
             const unsigned word = state < 32 ? w0 : w1;
             state = (word >> (state & 31)) & 1u ? (state >> 1) | 32 : state >> 1;
         }
-        if (t0 + lane < t1) out[t0 + lane] = mine;
+        if (c0 + lane < t1) out[c0 + lane] = mine;
     }
     for (int t = T + lane; t < Tmax; t += 32) out[t] = 0;
+}
+
+template <bool kSoft, bool kDecode>
+void launch(const float* sym, const int* lengths, unsigned* dec, unsigned char* bits, float* met,
+            int S, int Tmax, int terminated, int invert_g2, cudaStream_t stream) {
+    viterbi<kSoft, kDecode><<<(S + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
+        reinterpret_cast<const float2*>(sym), lengths, reinterpret_cast<uint2*>(dec), bits, met, S,
+        Tmax, terminated, invert_g2);
 }
 
 }  // namespace
@@ -159,10 +240,16 @@ viterbi(const float2* __restrict__ sym, const int* __restrict__ lengths, uint2* 
 PYCUSDR_API int pycusdr_viterbi(const float* sym, const int* lengths, unsigned* dec,
                                 unsigned char* bits, float* met, int S, int Tmax, int soft,
                                 int terminated, int invert_g2, int decode, cudaStream_t stream) {
-    if (S <= 0 || Tmax < 0 || (decode && (dec == nullptr || bits == nullptr)))
+    // with Tmax = 0 the (S, 0) outputs may have no storage
+    if (S <= 0 || Tmax < 0 || (decode && Tmax > 0 && (dec == nullptr || bits == nullptr)))
         return (int)cudaErrorInvalidValue;
-    viterbi<<<(S + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
-        reinterpret_cast<const float2*>(sym), lengths, reinterpret_cast<uint2*>(dec), bits, met, S,
-        Tmax, soft, terminated, invert_g2, decode);
+    if (soft && decode)
+        launch<true, true>(sym, lengths, dec, bits, met, S, Tmax, terminated, invert_g2, stream);
+    else if (soft)
+        launch<true, false>(sym, lengths, dec, bits, met, S, Tmax, terminated, invert_g2, stream);
+    else if (decode)
+        launch<false, true>(sym, lengths, dec, bits, met, S, Tmax, terminated, invert_g2, stream);
+    else
+        launch<false, false>(sym, lengths, dec, bits, met, S, Tmax, terminated, invert_g2, stream);
     return (int)cudaGetLastError();
 }

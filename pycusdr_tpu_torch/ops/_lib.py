@@ -124,8 +124,9 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = _digest()
     out = BUILD_DIR / f"libpycusdr_kernels_{tag}.so"
+    log_path = BUILD_DIR / f"build_{tag}.log"
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, cached=True)
+        build_info.update(path=str(out), seconds=0.0, cached=True, log=str(log_path))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -143,7 +144,6 @@ def build() -> Path:
         logs.append(f"== {src.name}\n{text}")
         if p.returncode != 0:
             failed.append(src.name)
-    log_path = BUILD_DIR / f"build_{tag}.log"
     log_path.write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))

@@ -4,7 +4,8 @@
 The encoder and the branch tables are the same numpy code. The trellis
 sweep is kernel K7, ``viterbi_sweep``: on a CUDA tensor it launches
 ``csrc/viterbi.cu`` (one warp per sequence, add-compare-select over the
-64 states, decision words in a device scratch, traceback on the device);
+64 states with the step minimum in one ``redux.sync``, decision words in
+a device scratch, traceback on the device);
 on a CPU tensor it runs ``viterbi_sweep_plain``, a loop over t of
 (S, 64) tensor ops. Both repeat the JAX scan step in f32 in the same
 order (the branch metric, ``pm + bm``, the strict ``cand_b < cand_a``,
@@ -161,7 +162,8 @@ def viterbi_sweep(sym: torch.Tensor, lengths, *, soft: bool, terminated: bool,
     S, Tmax, _ = sym.shape
     dev = sym.device
     _lib.check(sym, "sym", torch.float32, (S, Tmax, 2))
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    # from pinned memory: the host enqueues the copy and goes on
+    ln = torch.tensor(lengths, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
     met = torch.empty((S, 2), dtype=torch.float32, device=dev)
     dec = torch.empty((S, Tmax, 2), dtype=torch.int32, device=dev) if decode else None
     bits = torch.empty((S, Tmax), dtype=torch.uint8, device=dev) if decode else None
@@ -222,11 +224,13 @@ class ViterbiStream:
     normalized path-metric growth; a clearly better alternative parity
     triggers a resync.
 
-    The state (``carry``, ``pending``, ``parity``) is host numpy. Per
-    call the two node-sync sweeps are one K7 launch (S = 2) and one read
-    of their metrics, and the decode is one launch and one copy of its
-    bits to the host. ``device``: None means the card (raises without
-    one); ``plain`` runs K7's plain version on that device.
+    The state (``carry``, ``pending``, ``parity``) is host numpy. A call
+    makes at most one K7 launch and one synchronisation: every buffer the
+    call may rate or decode is known before the node-sync decision (see
+    ``_buffers``), so one decode sweep covers them all, and its bits and
+    metrics come back to the host together. ``device``: None means the
+    card (raises without one); ``plain`` runs K7's plain version on that
+    device.
     """
 
     def __init__(self, invert_g2: bool = True, soft: bool = False,
@@ -241,22 +245,37 @@ class ViterbiStream:
         self.pending = np.zeros(0, np.float32)  # odd leftover symbol
         self.parity = None
 
-    def _sweep(self, bufs, decode: bool):
-        x = torch.from_numpy(_pairs(bufs)).to(self.device)
+    def _buffers(self, stream, sync: bool) -> dict:
+        """(carry kept, shift) -> the symbol buffer the call sweeps for it.
+        With node sync, (False, 0) and (False, 1) are the current pairing
+        and the shift-by-one one, whose metric rates decide; the decode
+        buffer is the carry before the chosen pairing, or the shifted
+        pairing alone after a resync (which drops the carry). The carry
+        survives a shift only when the parity is first chosen."""
+        heads = (stream[: len(stream) // 2 * 2], stream[1 : 1 + (len(stream) - 1) // 2 * 2])
+        keep = len(self.carry) > 0
+        keys = [(False, 0), (False, 1)] if sync else []
+        decodes = [(keep, 0), (keep, 1)] if sync and self.parity is None else [(keep, 0)]
+        keys += [k for k in decodes if k not in keys]
+        return {(c, s): np.r_[self.carry, heads[s]] if c else heads[s] for c, s in keys}
+
+    def _sweep(self, bufs):
+        """K7 (or its plain version) with decode on over ``bufs`` in one
+        launch; its bits (S, Tmax) and metrics (S, 2) as host numpy after
+        one synchronisation."""
+        x = torch.from_numpy(_pairs(bufs))
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
         sweep = viterbi_sweep_plain if self.plain else viterbi_sweep
-        return sweep(x, [len(b) // 2 for b in bufs], soft=self.soft, terminated=False,
-                     decode=decode, invert_g2=self.invert_g2)
-
-    def _decode(self, buf):
-        bits, _ = self._sweep([buf], decode=True)
-        return bits[0].cpu().numpy()  # n_bits = len(buf) // 2: every step
-
-    def _metric_rates(self, *bufs):
-        """The path-metric total per step of each buffer (JAX's
-        ``_metric_rate``), the sweeps of all of them in one launch."""
-        _, met = self._sweep(bufs, decode=False)
-        return [(float(tot) + float(pm_min)) / (len(b) // 2)
-                for b, (tot, pm_min) in zip(bufs, met.cpu().numpy())]
+        out = sweep(x, [len(b) // 2 for b in bufs], soft=self.soft, terminated=False,
+                    decode=True, invert_g2=self.invert_g2)
+        if self.device.type != "cuda":
+            return [t.numpy() for t in out]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in host]
 
     def feed(self, symbols) -> np.ndarray:
         symbols = np.asarray(symbols, np.float32)
@@ -266,10 +285,16 @@ class ViterbiStream:
         # pair-aligned (``pending`` preserves alignment), so r0 is the
         # CURRENT pairing and r1 the shift-by-one alternative — the
         # global parity flag only records the cumulative shift
-        shift = 0
-        if len(stream) >= 64:
-            r0, r1 = self._metric_rates(stream[: len(stream) // 2 * 2],
-                                        stream[1 : 1 + (len(stream) - 1) // 2 * 2])
+        sync = len(stream) >= 64
+        bufs = self._buffers(stream, sync)
+        keys = list(bufs)
+        bits = met = None
+        if sync or len(bufs[keys[0]]) >= 4:
+            bits, met = self._sweep(list(bufs.values()))
+        shift, kept = 0, len(self.carry) > 0
+        if sync:
+            r0, r1 = [(float(tot) + float(pm_min)) / (len(bufs[k]) // 2)
+                      for k, (tot, pm_min) in zip(keys[:2], met[:2])]
             if self.parity is None:
                 self.parity = 0 if r0 <= r1 else 1
                 shift = self.parity
@@ -278,23 +303,22 @@ class ViterbiStream:
                 # soft (negative correlation rate) metrics alike
                 self.parity ^= 1
                 self.carry = np.zeros(0, np.float32)  # resync
-                shift = 1
+                shift, kept = 1, False
         elif self.parity is None:
             self.parity = 0
 
         stream = stream[shift:] if shift else stream
         usable = len(stream) // 2 * 2
         self.pending = stream[usable:]
-        syms = stream[:usable]
 
         n_prev = len(self.carry) // 2
-        buf = np.r_[self.carry, syms]
-        if len(buf) < 4:
+        buf = bufs[kept, shift]
+        if bits is None:  # fewer than 4 symbols: nothing to decode yet
             self.carry = buf
             return np.zeros(0, np.uint8)
 
-        bits = self._decode(buf)
-        n = len(bits)
+        n = len(buf) // 2
+        bits = bits[keys.index((kept, shift)), :n]  # every step of the buffer
         start = max(n_prev - self.Dh, 0)
         end = max(n - self.Dh, start)
         out = bits[start:end]

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
-at small T with ragged lengths; K4n at the tiny bench_BPSK shape; K8 on
+on ragged batches at the chunk edges, up to T=2144 and S=129, and the
+ViterbiStream at one launch a feed; K4n at the tiny bench_BPSK shape; K8 on
 random rows and in the group graph; K9 at four shapes; K1 and K5 with
 ``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
 and K4s on one and two shards, K4s with the clip window, K8 without its
@@ -472,15 +473,24 @@ def viterbi_symbols(kind, S, Tmax, seed):
     return (x + 0.8 * rng.randn(S, Tmax, 2)).astype(np.float32)
 
 
+#: K7's ragged batches: lengths around the 32-step chunk edges (and 0), the
+#: one launch of a ccsds feed (the two node-sync pairings and the decode
+#: buffer), and 64 and 129 sequences (16 and 33 blocks of four warps)
+VIT_EDGES = [0, 1, 31, 32, 33, 63, 65, 2144]
+VIT_LENGTHS = {"edges": VIT_EDGES, "mixed": [300, 0, 1, 31, 32, 33, 257],
+               "feed": [2016, 2015, 2144], "S64": (VIT_EDGES * 8)[::-1],
+               "S129": (VIT_EDGES * 17)[:129]}
+
+
+@pytest.mark.parametrize("lengths", list(VIT_LENGTHS))
 @pytest.mark.parametrize("decode", [True, False])
 @pytest.mark.parametrize("terminated", [True, False])
 @pytest.mark.parametrize("kind", ["hard", "soft_pm1", "soft_float"])
-def test_viterbi_sweep(cuda, kind, terminated, decode):
-    """K7 against its plain version, S = 7 ragged sequences (lengths at and
-    around the 32-step chunk edges, and 0): bits equal, metrics equal
-    (random-float soft: within 1e-6 relative)."""
-    lengths = [300, 0, 1, 31, 32, 33, 257]
-    x = torch.from_numpy(viterbi_symbols(kind, len(lengths), 300, 11)).to(cuda)
+def test_viterbi_sweep(cuda, kind, terminated, decode, lengths):
+    """K7 against its plain version on ragged batches (VIT_LENGTHS): bits
+    equal, metrics equal (random-float soft: within 1e-6 relative)."""
+    lengths = VIT_LENGTHS[lengths]
+    x = torch.from_numpy(viterbi_symbols(kind, len(lengths), max(lengths), 11)).to(cuda)
     kw = dict(soft=kind != "hard", terminated=terminated, decode=decode)
     before = vit.viterbi_sweep.launches
     bk, mk = vit.viterbi_sweep(x, lengths, **kw)
@@ -509,14 +519,19 @@ def test_viterbi_long_sequence(cuda):
 @pytest.mark.parametrize("soft", [False, True])
 def test_viterbi_stream_kernel_matches_plain(cuda, soft):
     """ViterbiStream on the card through K7 and with ``plain=True`` give
-    the same bits and state after every feed, through a one-symbol slip."""
+    the same bits and state after every feed, through a one-symbol slip;
+    each feed launches K7 at most once (once when it holds 64 symbols)."""
     x = viterbi_symbols("soft_pm1" if soft else "hard", 1, 3000, 13).reshape(-1)
     x = np.r_[x[:2501], x[2502:]]
     a = vit.ViterbiStream(soft=soft, device=cuda)
     b = vit.ViterbiStream(soft=soft, device=cuda, plain=True)
     pos = 0
     for n in (3, 30, 700, 1, 1300, 901, 2100, 64, 900):
-        ya, yb = a.feed(x[pos:pos + n]), b.feed(x[pos:pos + n])
+        before = vit.viterbi_sweep.launches
+        ya = a.feed(x[pos:pos + n])
+        launched = vit.viterbi_sweep.launches - before
+        assert launched == 1 if n >= 64 else launched <= 1
+        yb = b.feed(x[pos:pos + n])
         pos += n
         assert np.array_equal(ya, yb) and a.parity == b.parity
         assert np.array_equal(a.carry, b.carry) and np.array_equal(a.pending, b.pending)
