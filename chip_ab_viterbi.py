@@ -1,28 +1,41 @@
-"""K7 and ``ViterbiStream.feed`` of two checkouts, timed in turns on one card.
+"""K7 and ``ViterbiStream.feed``, or K1 and the graphs around it, of two
+checkouts, timed in turns on one card.
 
-    python3 chip_ab_viterbi.py PARENT_DIR
+    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler] [--rounds R]
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
 the parent commit unpacked under ``build/``); the other tree is the one
 that holds this script. Each turn is a fresh process run from one tree's
 root, which builds that tree's kernels and times, on card 0:
 
-- K7 (``viterbi_sweep``, soft ±1/0 symbols, streaming) at chip_smoke's
-  shapes: S=1, T=2144, decode; S=2, T=2016/2015, metric-only; S=64,
-  T=2144, decode (CUDA events, chip_smoke's ``cuda_ms``);
-- the host ms per ``ViterbiStream.feed`` of one flagship block (4032 soft
-  symbols) over BLOCKS blocks, through K7 and through the plain version
-  (chip_smoke's ``time_feed``).
+- ``--turn viterbi`` (the default): K7 (``viterbi_sweep``, soft ±1/0
+  symbols, streaming) at chip_smoke's shapes: S=1, T=2144, decode; S=2,
+  T=2016/2015, metric-only; S=64, T=2144, decode (CUDA events,
+  chip_smoke's ``cuda_ms``); and the host ms per ``ViterbiStream.feed`` of
+  one flagship block (4032 soft symbols) over BLOCKS blocks, through K7
+  and through the plain version (chip_smoke's ``time_feed``);
+- ``--turn doppler``: K1 (``doppler_energy``) on the flagship blocks of
+  chip_smoke's ``kernel_inputs`` at B=1/16/64, CUDA events around the
+  wrapper and the device ms a call of its kernels (torch.profiler); the
+  flagship block graph at B=1, 16 and 64 (wall ms by CUDA events, the
+  least of 15 means of 20 calls, and the device busy ms a call); the
+  wideband chain (K9 and the channel-parallel step at C=64, vote off) per
+  hop; and the sha256 of K9's output at that shape (64 x 2^16, the fused
+  form), which the summary holds equal across the turns of both trees.
 
-The turns run parent, change, change, parent, so a drift of the card or
-the host shows as a difference between the two runs of one tree. Each
+The turns run parent, change, change, parent, R times (default 1), so a
+drift of the card or the host shows as a difference between the runs of
+one tree, and each tree runs first as often as the other. Each
 turn prints one JSON line; the card's name and power limit come first.
-Both trees' ``chip_smoke.py`` must have ``viterbi_inputs``, ``cuda_ms``
-and ``time_feed``. Needs a card: a turn fails without one.
+Both trees' ``chip_smoke.py`` must have what the turn calls
+(``viterbi_inputs``, ``cuda_ms``, ``time_feed``; ``configuration``,
+``kernel_inputs``, ``signal_blocks``, ``k9_inputs``). Needs a card: a
+turn fails without one.
 """
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -32,7 +45,8 @@ HERE = Path(__file__).resolve().parent
 BLOCKS = 200
 
 #: run with ``python -c`` from a tree's root, so that it imports that tree
-TURN = """
+TURNS = {}
+TURNS["viterbi"] = """
 import json, sys
 import torch
 assert torch.cuda.is_available(), "no card"
@@ -46,6 +60,60 @@ for S, lengths, decode in ((1, [2144], True), (2, [2016, 2015], False), (64, [21
 out["feed host ms"], out["feed plain host ms"] = c.time_feed(blocks=int(sys.argv[1]))
 print(json.dumps(out))
 """
+#: K1's kernels in either tree: the two CUDA-core passes, or the one tensor-core kernel
+TURNS["doppler"] = """
+import hashlib
+import json
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.configs import wideband_conf
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import build_process_batch
+from pycusdr_tpu_torch.ops import doppler_search as ds
+from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import channelizer as pch
+K1_NAMES = ("doppler_partial", "doppler_reduce", "doppler_energy_k")
+
+
+# device ms a call in the kernels whose names hold one of names (None: all, the busy time)
+def device_ms(fn, calls=20, names=K1_NAMES):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (names is None or any(n in e.key for n in names))) / 1e3 / calls
+
+
+spec = c.configuration("flagship")[2]
+consts = DeviceConsts.from_spec(spec, torch.device("cuda"))
+out = {}
+for B in (1, 16, 64):
+    P = c.kernel_inputs(spec, consts, B)["P"]
+    k1 = lambda: ds.doppler_energy(P, consts.Q, consts.shifts)
+    out[f"K1 B={B} ms"] = c.cuda_ms(k1)
+    out[f"K1 B={B} device ms"] = device_ms(k1)
+graph = build_process_batch(spec, device="cuda", packed=True)
+for B in (1, 16, 64):
+    x = c.signal_blocks(spec, B)
+    out[f"flagship graph B={B} ms"] = c.cuda_ms(lambda: graph(x), iters=10)
+    out[f"flagship graph B={B} least ms"] = min(
+        c.cuda_ms(lambda: graph(x), iters=20, reps=1) for _ in range(15))
+    out[f"flagship graph B={B} device busy ms"] = device_ms(lambda: graph(x), names=None)
+wb = wideband_conf()
+x, _ = c.k9_inputs(wb, spec.Nfft)
+ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
+step = build_sharded_demod_step(spec, make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"]),
+                                vote=False)
+out["wideband chain ms"] = c.cuda_ms(lambda: step(ch(x)[0]), iters=5, reps=5)
+out["K9 fused y sha256"] = hashlib.sha256(ch(x)[0].cpu().numpy().tobytes()).hexdigest()
+print(json.dumps(out))
+"""
 
 
 def card_line():
@@ -57,6 +125,10 @@ def card_line():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent", type=Path, help="root of the other checkout")
+    ap.add_argument("--turn", choices=sorted(TURNS), default="viterbi",
+                    help="what each turn times (default: viterbi)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times to run parent, change, change, parent (default: 1)")
     args = ap.parse_args()
     trees = {"parent": args.parent.resolve(), "change": HERE}
     for name, root in trees.items():
@@ -64,19 +136,25 @@ def main() -> int:
             raise SystemExit(f"{name}: no chip_smoke.py under {root}")
     print(card_line(), flush=True)
     runs = {name: [] for name in trees}
-    for name in ("parent", "change", "change", "parent"):
-        p = subprocess.run([sys.executable, "-c", TURN, str(BLOCKS)], cwd=trees[name],
+    for name in ("parent", "change", "change", "parent") * args.rounds:
+        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS)], cwd=trees[name],
                            capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
             sys.stderr.write(p.stdout + p.stderr)
             raise SystemExit(f"{name}: the turn failed with code {p.returncode}")
         runs[name].append(json.loads(p.stdout.strip().splitlines()[-1]))
         print(json.dumps({"tree": name, **runs[name][-1]}), flush=True)
-    for key in runs["parent"][0]:
-        old = [r[key] for r in runs["parent"]]
+    for key in runs["change"][0]:
         new = [r[key] for r in runs["change"]]
-        print(f"{key}: parent {old} change {new} parent/change "
-              f"{min(old) / max(new):.3f}-{max(old) / min(new):.3f}", flush=True)
+        if isinstance(new[0], str):  # a digest: the same in every turn of both trees?
+            both = new + [r[key] for r in runs["parent"] if key in r]
+            print(f"{key}: {'equal' if len(set(both)) == 1 else 'DIFFERENT'} in all "
+                  f"{len(both)} turns: {sorted(set(both))}", flush=True)
+        elif key in runs["parent"][0]:
+            old = [r[key] for r in runs["parent"]]
+            print(f"{key}: parent {old} change {new} parent/change "
+                  f"{min(old) / max(new):.3f}-{max(old) / min(new):.3f}, of the medians "
+                  f"{statistics.median(old) / statistics.median(new):.3f}", flush=True)
     return 0
 
 

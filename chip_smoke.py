@@ -16,7 +16,18 @@ and then no result line is printed):
    K1-K5 at the flagship shape (Nfft 2^16, D=64, M=8), and K6 with K2-K4
    (K4 with the clip window) at the STX shape (Nfft 2^17, M=8, W=3), K2
    and K3 also at B=64 (and each block alone equal to its row of the
-   batch); K7 (the Viterbi trellis): ptxas's registers, stack and spills
+   batch); K1 (3xTF32 on the tensor cores): ptxas's registers, stack and
+   spills of its eight instantiations (none may spill) and the TF32 HMMA instructions cuobjdump finds in its SASS,
+   then the kernel within 1e-4 of max|E| on the main paths' grids
+   (flagship, ccsds, bpsk M=16, the tracker's 16 bins recentred, a generic
+   shard's M=4, tiny) and on random, compact and mixed grids (M = 1, 5,
+   8, 16, 32; D = 1, 3, 100, 129; N from 512 to 2^18), each printed with
+   the window and global-read groups it ran, every block alone equal to
+   its row of the batch, two runs equal, and at the flagship grid at B=64; K9's
+   wide form (the FIR kernel, then cuFFT across the branches) at (M, K) =
+   (2048, 8), (64, 40) and (4096, 2) with a random carry, within 1e-5 of
+   max|y| and through two half hops; K7 (the Viterbi
+   trellis): ptxas's registers, stack and spills
    of its four instantiations (none may spill), then the kernel on
    hard, soft ±1/0 and soft random-float symbols, terminated and
    streaming, metric-only and decode, at the node-sync shape (S=2,
@@ -90,20 +101,22 @@ and then no result line is printed):
    K4s) shapes, on one shard and on the two halves of the mask bank;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
-   function) at B=1/16/64, and the whole block graph against the plain
+   function) at B=1/16/64, each kernel's device ms a call (torch.profiler,
+   its own __global__ functions), and the whole block graph against the plain
    path, for both configurations; K7 at S=1/2/64 and at the feed's S=3
    and S=1 metric-only, with ns per trellis step beside an estimate of
    its dependency chain at ``clocks.max.sm``, and ``clocks.sm`` after;
    K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3 against
    the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
-   K9 with its two-call yardstick (grouped conv1d + torch.fft.fft); the
+   K9 with its two-call yardstick (grouped conv1d + torch.fft.fft), and
+   its wide form at the three wide shapes; the
    wideband chain per hop against the signal a hop holds; the tracker's
    acquire and track graphs per block at B=1; K4l and K4s at B=1/16/64
    and the generic step at C=16 against the channel-parallel step on the
    same blocks; every time must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
-   calls of the block graph (torch.profiler): flagship at B=1 and 16,
+   calls of the block graph (torch.profiler): flagship at B=1, 16 and 64,
    STX at B=1; of the wideband chain (K9 + the step at C=64); and of the
    generic step at C=16.
 
@@ -135,6 +148,7 @@ from pycusdr_tpu_torch.configs import (
     ccsds_spec,
     flagship_conf,
     stx_conf,
+    tiny_spec,
     tracking_conf,
     wideband_conf,
 )
@@ -149,7 +163,7 @@ from pycusdr_tpu_torch.dsp.signal_gen import (
     modulate_gfsk2,
     packet_data,
 )
-from pycusdr_tpu_torch.dsp.spec import build_spec
+from pycusdr_tpu_torch.dsp.spec import build_spec, narrow_spec
 from pycusdr_tpu_torch.models import STX, TRACKING, UHF, DopplerTracker
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops import demod_kernels as dk
@@ -645,21 +659,29 @@ def check_viterbi_stream():
     return per_feed
 
 
-def viterbi_ptxas():
-    """ptxas's report (``-Xptxas -v``, in the build log) of K7's four
-    instantiations: [(soft, decode, registers, stack bytes, spill stores,
-    spill loads)]."""
+def ptxas_report(source, pattern, count):
+    """ptxas's report (``-Xptxas -v``, in the build log) of the ``count``
+    entry functions of ``source`` whose mangled names match ``pattern``:
+    [(pattern's groups..., registers, stack bytes, spill stores, spill loads)]."""
     log = Path(_lib.build_info["log"]).read_text()
-    section = log.split("== viterbi.cu", 1)[1].split("\n== ", 1)[0]
+    section = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
     out = []
     for part in section.split("Compiling entry function")[1:]:
-        name = re.search(r"viterbiILb([01])ELb([01])EE", part)
+        name = re.search(pattern, part.split("\n", 1)[0])
+        if name is None:
+            continue
         regs = re.search(r"Used (\d+) registers", part)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", part)
-        out.append((int(name[1]), int(name[2]), int(regs[1]), *map(int, frame.groups())))
-    assert len(out) == 4, f"ptxas reported {len(out)} K7 instantiations: {section}"
+        out.append((*map(int, name.groups()), int(regs[1]), *map(int, frame.groups())))
+    assert len(out) == count, f"ptxas reported {len(out)} entries of {source}: {section}"
     return out
+
+
+def viterbi_ptxas():
+    """K7's four instantiations: [(soft, decode, registers, stack bytes,
+    spill stores, spill loads)]."""
+    return ptxas_report("viterbi.cu", r"viterbiILb([01])ELb([01])EE", 4)
 
 
 def best_aligned_ber(rx, tx, max_lag=400):
@@ -1241,6 +1263,131 @@ def check_recentre(spec, consts, B):
     return e1, check_doppler_estimate(spec, consts, dict(inp, E=Ep), centre=centre)
 
 
+# ------------------------------------------------------------ K1 on the tensor cores
+
+#: K1's shapes beyond the specs' own grids: (label, N, D, M, grid), grid
+#: "random" (shifts anywhere on the circle: long arcs take the global-read
+#: path), "compact" (a run of shifts 3 bins apart) or "mixed" (64 shifts 7
+#: bins apart, then the rest spread over half the circle: a window group and
+#: global-read groups in one launch)
+K1_SHAPES = (
+    ("random", 512, 1, 16, "random"),
+    ("random", 999, 3, 1, "random"),
+    ("random", 4096, 129, 32, "random"),
+    ("compact", 2 ** 16, 129, 5, "compact"),
+    ("compact", 2 ** 17, 3, 32, "compact"),
+    ("mixed", 2 ** 17, 129, 8, "mixed"),
+    ("mixed", 2 ** 16, 100, 16, "mixed"),
+    ("random", 2 ** 18, 3, 5, "random"),
+    ("random", 2 ** 18, 129, 1, "random"),
+)
+K1_BATCH = 4  # blocks of each K1 grid check
+#: K1's bar against its plain version, relative to max|E|
+K1_REL = 1e-4
+
+
+def k1_grid(N, D, kind, rng):
+    """D shifts of a K1_SHAPES grid kind on the circle of N bins."""
+    if kind == "random":
+        return rng.randint(0, N, D)
+    if kind == "compact":
+        return (rng.randint(0, N) + 3 * np.arange(D)) % N
+    h = min(64, D // 2)  # a window group, then global-read groups
+    return np.r_[7 * np.arange(h), N // 8 + (N // 2 // (D - h)) * np.arange(D - h)]
+
+
+def k1_specs(fspec, fconsts, bconsts):
+    """The grids the main paths give K1: label -> (DeviceConsts, recentre
+    of K1_BATCH blocks or None): flagship, ccsds, bpsk (M=16), the tracker's
+    16-bin grid recentred, a generic shard's masks (M=4), tiny (wraps at N)."""
+    dev = torch.device("cuda")
+    tc = tracking_conf()
+    track = narrow_spec(fspec, tc["track_bins"], tc["track_span_bins"])
+    return {"flagship": (fconsts, recentres(fspec.Nfft, K1_BATCH)),
+            "ccsds": (DeviceConsts.from_spec(ccsds_spec(), dev), None),
+            "bpsk": (bconsts, None),
+            "tracking": (DeviceConsts.from_spec(track, dev), recentres(fspec.Nfft, K1_BATCH)),
+            "generic shard": (DeviceConsts.from_spec(fspec, dev, mask_range=(0, 4)), None),
+            "tiny": (DeviceConsts.from_spec(tiny_spec(), dev), recentres(512, K1_BATCH))}
+
+
+def check_k1(P, Q, sh, cs, tag):
+    """K1 against the plain version on P: within K1_REL * max|E|, two runs
+    equal, each block alone equal to its row of the batch. Returns max err
+    / max|E|."""
+    fn = ds.doppler_energy
+    Ep = ds.doppler_energy_plain(P, Q, sh, cs)
+    Ek = fn(P, Q, sh, cs)
+    again = fn(P, Q, sh, cs)
+    alone = [fn(P[b:b + 1], Q, sh, None if cs is None else cs[b:b + 1]) for b in range(len(P))]
+    torch.cuda.synchronize()
+    rel = float((Ek - Ep).abs().max()) / float(Ep.abs().max())
+    tag = f"K1 {tag}"
+    assert rel <= K1_REL, f"{tag}: err {rel} of max|E|"
+    assert torch.equal(Ek, again), f"{tag}: two runs differ"
+    bad = [b for b, a in enumerate(alone) if not torch.equal(a[0], Ek[b])]
+    assert not bad, f"{tag}: blocks {bad} alone != their rows of the batch"
+    return rel
+
+
+def check_doppler_energy_grids(specs):
+    """K1 against its plain version on the main paths' grids (``specs`` of
+    ``k1_specs``) and on K1_SHAPES, K1_BATCH seeded blocks of exponential
+    P (the |.|^2 of noise) each, without and with a recentre per block
+    (``check_k1``). Returns [(label, N, D, M, window groups, global-read
+    groups, max err / max|E|)]."""
+    rng = np.random.RandomState(SEED + 10)
+    cases = [(label, c.Q, c.shifts, centre) for label, (c, centre) in specs.items()]
+    for label, N, D, M, kind in K1_SHAPES:
+        Q = torch.from_numpy(rng.exponential(1.0, (M, N)).astype(np.float32)).cuda()
+        sh = torch.from_numpy(k1_grid(N, D, kind, rng).astype(np.int32)).cuda()
+        cases.append((label, Q, sh, recentres(N, K1_BATCH)))
+    out = []
+    for label, Q, sh, centre in cases:
+        M, N = Q.shape
+        P = torch.from_numpy(rng.exponential(1.0, (K1_BATCH, N)).astype(np.float32)).cuda()
+        worst = max(check_k1(P, Q, sh, cs, f"{label} N={N} D={sh.shape[0]} M={M} "
+                                           f"centre={cs is not None}")
+                    for cs in ((None,) if centre is None else (None, centre)))
+        plan = ds.doppler_energy_plan(sh.cpu().numpy(), N, M)
+        nwin = plan.window_groups(sh.cpu().numpy())
+        out.append((label, N, sh.shape[0], M, nwin, -(-plan.T // ds.K1_GROUP_TILES) - nwin,
+                    worst))
+    return out
+
+
+def check_doppler_energy_batch(consts, B=64):
+    """K1 at the flagship grid on B seeded blocks with a recentre each
+    (``check_k1``). Returns max err / max|E|."""
+    rng = np.random.RandomState(SEED + 11)
+    N = consts.Q.shape[1]
+    P = torch.from_numpy(rng.exponential(1.0, (B, N)).astype(np.float32)).cuda()
+    return check_k1(P, consts.Q, consts.shifts, recentres(N, B), f"B={B}")
+
+
+def doppler_energy_ptxas():
+    """K1's eight instantiations (mask tiles NT, shift tiles a CTA TG):
+    [(NT, TG, registers, stack bytes, spill stores, spill loads)]."""
+    return ptxas_report("doppler_energy.cu", r"doppler_energy_kILi(\d)ELi(\d)EE", 8)
+
+
+def k1_sass():
+    """{SASS mnemonic: count} of the tensor-core products (HMMA) in K1's
+    built object (``cuobjdump -sass``), or None where the toolkit has no
+    cuobjdump."""
+    lib = Path(_lib.build_info["path"])
+    obj = lib.parent / f"doppler_energy_{lib.stem.rsplit('_', 1)[1]}.o"
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(obj)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for op in re.findall(r"\b(HMMA\.[\w.]+)", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def k9_inputs(wb, T, seed=SEED + 9):
     """Seeded wideband samples (T M,) and a random carry (K-1, M), complex64."""
     M, K = wb["M"], wb["taps_per_branch"]
@@ -1270,6 +1417,44 @@ def check_channelize(wb, T):
     assert torch.allclose(halves, yk, rtol=1e-4, atol=1e-5), "K9 halves != one hop"
     assert torch.equal(ch.state, sk), "K9 carry after the halves differs"
     return err, err / scale, bool(torch.equal(halves, yk))
+
+
+#: K9's wide form (M > 1024 or K > 32): (M, K, T), each T M = 2^22 samples,
+#: the wideband hop's count
+K9_WIDE = ((2048, 8, 2048), (64, 40, 65536), (4096, 2, 1024))
+
+
+def k9_wide_inputs(M, K, T, seed=SEED + 19):
+    """(K9 conf, x, carry, Channelizer) of a K9_WIDE shape: Kaiser taps, seeded
+    samples and a random carry."""
+    wb = {"M": M, "taps_per_branch": K, "beta": 9.0}
+    x, st = k9_inputs(wb, T, seed)
+    return wb, x, st, pch.Channelizer(M, K, 9.0, device="cuda")
+
+
+def check_channelize_wide():
+    """K9's wide form against its plain version at K9_WIDE with a random
+    carry: y within K9_REL of max|y|, the carry equal; two half hops through
+    the carry within K9_REL of max|y| of one hop, the carry after them
+    equal. Returns [(M, K, T, relative err, halves' relative err)]."""
+    out = []
+    for M, K, T in K9_WIDE:
+        assert not pch.k9_fused(M, K), f"K9 ({M}, {K}) is no wide shape"
+        _, x, st, ch = k9_wide_inputs(M, K, T)
+        yk, sk = pch.channelize(x, ch.h2, st)
+        yp, sp = pch.channelize_plain(x, ch.h2, st)
+        half = x.numel() // 2
+        y1, s1 = pch.channelize(x[:half], ch.h2, st)
+        y2, s2 = pch.channelize(x[half:], ch.h2, s1)
+        torch.cuda.synchronize()
+        scale = float(yp.abs().max())
+        rel = float((yk - yp).abs().max()) / scale
+        rel_h = float((torch.cat([y1, y2], 1) - yp).abs().max()) / scale
+        tag = f"K9 wide M={M} K={K} T={T}"
+        assert rel <= K9_REL and rel_h <= K9_REL, f"{tag}: err {rel}, halves {rel_h}"
+        assert torch.equal(sk, sp) and torch.equal(s2, sp), f"{tag}: the carry differs"
+        out.append((M, K, T, rel, rel_h))
+    return out
 
 
 def wideband_signal(M, wb, spec, channels, dopplers, snrs, seed, bits=None, skip=0):
@@ -1687,7 +1872,7 @@ def k4s_bound(spec, B, nd, clip=False):
 
 def time_slice6(spec, consts):
     """K4l (the whole bank, the one-card generic path's shape) and K4s
-    (nd = 1) at B=1/16/64: name -> {B: (ms, plain_ms, (bound ms, by))}; the
+    (nd = 1) at B=1/16/64: name -> {B: (ms, plain_ms, (bound ms, by), device ms)}; the
     generic step against the channel-parallel step at C=GENERIC_C on the
     same blocks (ms per call)."""
     out = {"symbol_detect_local": {}, "shard_select": {}}
@@ -1698,14 +1883,16 @@ def time_slice6(spec, consts):
         a = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"])
         out["symbol_detect_local"][B] = (
             cuda_ms(lambda: dk.symbol_detect_local(*a, m0=0, **kw)),
-            cuda_ms(lambda: dk.symbol_detect_local_plain(*a, m0=0, **kw)), k4l_bound(spec, B))
+            cuda_ms(lambda: dk.symbol_detect_local_plain(*a, m0=0, **kw)), k4l_bound(spec, B),
+            device_ms(lambda: dk.symbol_detect_local(*a, m0=0, **kw), "symbol_detect_local"))
         v, k = dk.symbol_detect_local(*a, m0=0, **kw)
         s4 = (v[None], k[None], inp["spSym"], inp["codeOffset"], consts.bitLUT)
         row = torch.empty((B, L), device="cuda")
         k4s = dict(kw4, M=spec.num_masks, code_val=inp["code_val"], row=row)
         out["shard_select"][B] = (cuda_ms(lambda: dk.shard_select(*s4, **k4s)),
                                   cuda_ms(lambda: dk.shard_select_rows_plain(*s4, **k4s)),
-                                  k4s_bound(spec, B, 1))
+                                  k4s_bound(spec, B, 1),
+                                  device_ms(lambda: dk.shard_select(*s4, **k4s), "shard_select"))
     x = torch.from_numpy(generic_blocks(spec, GENERIC_C)[0]).cuda()
     mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
     gen = build_sharded_demod_step(spec, mesh, force_generic=True)
@@ -1736,7 +1923,8 @@ def time_slice5(wb, spec, tracker, xb):
     x, st = k9_inputs(wb, N)
     ch = pch.Channelizer(M, K, wb["beta"], device="cuda")
     k9 = (cuda_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw)),
-          cuda_ms(lambda: pch.channelize_plain(x, ch.h2, st), iters=5, reps=5))
+          cuda_ms(lambda: pch.channelize_plain(x, ch.h2, st), iters=5, reps=5),
+          device_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw), "channelize"))
     torch.backends.cudnn.allow_tf32 = False
     xin = torch.view_as_real(torch.cat([st, x.view(N, M)]).T.contiguous()).permute(2, 0, 1)
     xin = xin.contiguous()  # (2, M, N + K - 1) f32: re and im as two batches
@@ -1759,7 +1947,15 @@ def time_slice5(wb, spec, tracker, xb):
     centre = 3
     acq_ms = cuda_ms(lambda: tracker._acquire(xb[0]), iters=10)
     trk_ms = cuda_ms(lambda: tracker._track(xb[0], centre), iters=10)
-    return dict(k9=k9, k9_bound=k9_bound(wb, N), yardstick_ms=yard_ms, yardstick_err=e,
+    wide = {}
+    for Mw, Kw, Tw in K9_WIDE:
+        wbw, xw, stw, chw = k9_wide_inputs(Mw, Kw, Tw)
+        wide[Mw, Kw, Tw] = (cuda_ms(lambda: pch.channelize(xw, chw.h2, stw)),
+                            cuda_ms(lambda: pch.channelize_plain(xw, chw.h2, stw), iters=5, reps=5),
+                            k9_bound(wbw, Tw),
+                            device_ms(lambda: pch.channelize(xw, chw.h2, stw), "channelize_wide"))
+    return dict(k9=k9, k9_bound=k9_bound(wb, N), k9_wide=wide, yardstick_ms=yard_ms,
+                yardstick_err=e,
                 chain_ms=chain_ms, step_ms=step_ms, acquire_ms=acq_ms, track_ms=trk_ms)
 
 
@@ -1778,6 +1974,47 @@ def cuda_ms(fn, iters=20, reps=7):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+#: each hand-written kernel's __global__ functions (csrc/*.cu): the device
+#: time torch.profiler gives them is the kernel's device time
+KERNEL_FUNCS = {
+    "doppler_energy": ("doppler_energy_k",),
+    "mf_bank_colreduce": ("mf_pass1", "mf_pass2"),
+    "timing_band": ("band_partial", "band_argmax"),
+    "symbol_detect": ("symbol_detect",),
+    "doppler_estimate": ("doppler_estimate",),
+    "threshold_input": ("thr_pass1", "thr_pass2", "thr_pass3"),
+    "viterbi": ("viterbi",),
+    "nrzs_bits": ("nrzs_bits",),
+    "vote": ("vote",),
+    "channelize": ("channelize",),
+    "channelize_wide": ("channelize_fir",),
+    "symbol_detect_local": ("symbol_detect_local",),
+    "shard_select": ("shard_select",),
+}
+
+
+def device_ms(fn, kernel, calls=20):
+    """Mean device ms per call of ``fn`` spent in ``kernel``'s own __global__
+    functions: torch.profiler over ``calls`` calls after a warm one."""
+    names = re.compile(r"(^|[\s:])(%s)[<(]" % "|".join(KERNEL_FUNCS[kernel]))
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(3):  # a trace now and then comes back without device events
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in dev if names.search(e.key))
+        if us > 0:
+            return us / 1e3 / calls
+        seen = [e.key for e in dev]
+    raise AssertionError(f"{kernel}: three traces saw none of {KERNEL_FUNCS[kernel]}; device "
+                         f"events of the last: {seen}")
 
 
 def snr_band_bins(spec, consts, dopp_idx):
@@ -1850,7 +2087,7 @@ def check_bounds(t, bnd, B, label):
 def time_kernels(spec, consts, B):
     """name -> (ms, plain_ms, library_ms or None) at batch B for the
     kernels of the spec's path; the whole graph and the plain path; the
-    bins K5's SNR bands read."""
+    bins K5's SNR bands read; name -> the kernel's device ms a call."""
     inp = kernel_inputs(spec, consts, B)
     M, N = spec.num_masks, spec.Nfft
     off = spec.code_search_mask_offset
@@ -1859,43 +2096,49 @@ def time_kernels(spec, consts, B):
     kw = k4_kwargs(spec, consts)
     args4 = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], consts.bitLUT)
     hits = inp.get("hits")
-    t = {}
+    t, calls = {}, {}
     if spec.doppler_search:
         idx = (torch.arange(N, device="cuda")[None, :] + consts.shifts.long()[:, None]) % N
         Pg = inp["P"][:, idx]
         QT = consts.Q.T.contiguous()
+        calls["doppler_energy"] = lambda: ds.doppler_energy(inp["P"], consts.Q, consts.shifts)
         t["doppler_energy"] = (
-            cuda_ms(lambda: ds.doppler_energy(inp["P"], consts.Q, consts.shifts)),
+            cuda_ms(calls["doppler_energy"]),
             cuda_ms(lambda: ds.doppler_energy_plain(inp["P"], consts.Q, consts.shifts)),
             cuda_ms(lambda: torch.matmul(Pg, QT)))
         a5, kw5 = k5_args(spec, consts, inp["E"], inp["P"])
-        t["doppler_estimate"] = (cuda_ms(lambda: ds.doppler_estimate(*a5, **kw5)),
+        calls["doppler_estimate"] = lambda: ds.doppler_estimate(*a5, **kw5)
+        t["doppler_estimate"] = (cuda_ms(calls["doppler_estimate"]),
                                  cuda_ms(lambda: ds.doppler_estimate_plain(*a5, **kw5)), None)
         band_bins = snr_band_bins(spec, consts, inp["dopp_idx"])
     else:
         scale = consts.threshold_scale
-        t["threshold_input"] = (cuda_ms(lambda: dk.threshold_input(inp["x"], scale)),
+        calls["threshold_input"] = lambda: dk.threshold_input(inp["x"], scale)
+        t["threshold_input"] = (cuda_ms(calls["threshold_input"]),
                                 cuda_ms(lambda: dk.threshold_input_plain(inp["x"], scale)), None)
         band_bins = 0
+    calls["mf_bank_colreduce"] = lambda: dk.mf_bank_colreduce(
+        inp["S"], consts.masks_f, inp["shift"], off, M - off, tw=consts.tw)
     t["mf_bank_colreduce"] = (
-        cuda_ms(lambda: dk.mf_bank_colreduce(inp["S"], consts.masks_f, inp["shift"], off,
-                                             M - off, tw=consts.tw)),
+        cuda_ms(calls["mf_bank_colreduce"]),
         cuda_ms(lambda: dk.mf_bank_colreduce_plain(inp["S"], consts.masks_f, inp["shift"],
                                                    off, M - off)),
         cuda_ms(lambda: torch.fft.ifft(Y, norm="forward")))
+    calls["timing_band"] = lambda: dk.timing_band(inp["colsum"], lo, hi, tw=consts.tw)
     t["timing_band"] = (
-        cuda_ms(lambda: dk.timing_band(inp["colsum"], lo, hi, tw=consts.tw)),
+        cuda_ms(calls["timing_band"]),
         cuda_ms(lambda: dk.timing_band_plain(inp["colsum"], lo, hi)),
         cuda_ms(lambda: torch.fft.rfft(inp["colsum"])))
+    calls["symbol_detect"] = lambda: dk.symbol_detect(*args4, hits=hits, **kw)
     t["symbol_detect"] = (
-        cuda_ms(lambda: dk.symbol_detect(*args4, hits=hits, **kw)),
+        cuda_ms(calls["symbol_detect"]),
         cuda_ms(lambda: dk.symbol_detect_plain(*args4, clip_mask=k4_plain_clip(spec, inp), **kw)),
         None)
     graph = build_process_batch(spec, device="cuda", packed=True)
     plain = build_process_batch(spec, device="cuda", packed=True, plain=True)
     whole = (cuda_ms(lambda: graph(inp["x"]), iters=10),
              cuda_ms(lambda: plain(inp["x"]), iters=5, reps=5))
-    return t, whole, band_bins
+    return t, whole, band_bins, {k: device_ms(fn, k) for k, fn in calls.items()}
 
 
 def viterbi_bound(lengths, decode):
@@ -1926,7 +2169,7 @@ VIT_MORE = {"3 decode": (VIT_FEED, True), "1 metric": (VIT_DECODE, False)}
 
 def time_viterbi(shapes):
     """K7 at ``shapes`` (key -> (lengths, decode)): key -> (ms, plain_ms,
-    (bound ms, by), lengths)."""
+    (bound ms, by), lengths, device ms)."""
     out = {}
     for key, (lengths, decode) in shapes.items():
         x = viterbi_inputs("soft_pm1", lengths)
@@ -1934,15 +2177,17 @@ def time_viterbi(shapes):
         out[key] = (cuda_ms(lambda: vit.viterbi_sweep(x, lengths, **kw)),
                     cuda_ms(lambda: vit.viterbi_sweep_plain(x, lengths, **kw),
                             iters=1, reps=3),
-                    viterbi_bound(lengths, decode), lengths)
+                    viterbi_bound(lengths, decode), lengths,
+                    device_ms(lambda: vit.viterbi_sweep(x, lengths, **kw), "viterbi"))
     return out
 
 
 def viterbi_rows(times):
     """time_viterbi's times as the kernels line gives them: key -> T, ms,
-    plain_ms, bound_ms, bound_by and ns a step."""
+    plain_ms, bound_ms, bound_by, ns a step and device_ms."""
     return {key: {"T": max(v[3]), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                  "bound_by": v[2][1], "ns_per_step": 1e6 * v[0] / max(v[3])}
+                  "bound_by": v[2][1], "ns_per_step": 1e6 * v[0] / max(v[3]),
+                  "device_ms": v[4]}
             for key, v in times.items()}
 
 
@@ -1978,7 +2223,7 @@ def vote_bound(C, S):
 
 def time_slice4(bspec, bconsts, fspec):
     """K4n at B=1/16/64 on the bench_BPSK rows and K8 at C=3/16/64 on the
-    flagship rows: name -> {B or C: (ms, plain_ms, (bound ms, by))}; and the
+    flagship rows: name -> {B or C: (ms, plain_ms, (bound ms, by), device ms)}; and the
     group graph at C=3 against the block graph at B=3 on the same blocks
     (ms per call), which gives the vote's share."""
     out = {"nrzs_bits": {}, "vote": {}}
@@ -1987,14 +2232,15 @@ def time_slice4(bspec, bconsts, fspec):
         rows = nrzs_rows(bspec, bconsts, B)
         out["nrzs_bits"][B] = (cuda_ms(lambda: dk.nrzs_bits(rows, lut, S)),
                                cuda_ms(lambda: dk.nrzs_rows_plain(rows, lut, S)),
-                               nrzs_bound(bspec, B))
+                               nrzs_bound(bspec, B),
+                               device_ms(lambda: dk.nrzs_bits(rows, lut, S), "nrzs_bits"))
     L, S = packed_len(fspec), fspec.numSymMax
     for C in VOTE_CS:
         rows, _ = vote_input(C, S, L)
         o = torch.empty((2, S), device="cuda")
         out["vote"][C] = (cuda_ms(lambda: pv.vote_rows(rows, S, 1.2, o)),
                           cuda_ms(lambda: pv.vote_rows_plain(rows, S, 1.2, o)),
-                          vote_bound(C, S))
+                          vote_bound(C, S), device_ms(lambda: pv.vote_rows(rows, S, 1.2, o), "vote"))
     x = torch.from_numpy(group_blocks(fspec, GROUP_C)[0]).cuda()
     group = build_group_graph(fspec, GROUP_C, 1.2, device="cuda")
     batch = build_process_batch(fspec, device="cuda", packed=True)
@@ -2032,10 +2278,10 @@ def profile_calls(fn, calls=10, top=8):
     return wall_ms, busy_ms, len(dev), tops
 
 
-def kernel_entry(name, t, bnd):
+def kernel_entry(name, t, bnd, dev):
     ms, pms, lms = t[name]
     return {"ms": ms, "plain_ms": pms, "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
-            "library_ms": lms}
+            "library_ms": lms, "device_ms": dev[name]}
 
 
 def main() -> int:
@@ -2078,6 +2324,17 @@ def main() -> int:
         say("kernels", f"K7 viterbi<soft={soft}, decode={decode}> ptxas: {regs} registers, "
                        f"{stack} bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads")
         assert st == ld == 0, f"K7 viterbi<soft={soft}, decode={decode}> spills"
+    for nt, tg, regs, stack, st, ld in doppler_energy_ptxas():
+        name = f"doppler_energy_k<NT={nt}, TG={tg}>"
+        say("kernels", f"K1 {name} ptxas: {regs} registers, {stack} bytes stack frame, {st} "
+                       f"bytes spill stores, {ld} bytes spill loads")
+        assert st == ld == 0, f"K1 {name} spills"
+    hmma = k1_sass()
+    if hmma is None:
+        say("kernels", "K1 SASS: no cuobjdump in the toolkit, not read")
+    else:
+        say("kernels", f"K1 SASS (cuobjdump -sass): tensor-core products {json.dumps(hmma)}")
+        assert any(".TF32" in op for op in hmma), "K1: no TF32 HMMA in the SASS"
     errs["viterbi"], n_cases = check_viterbi()
     say("kernels", f"K7 viterbi vs plain OK on {n_cases} cases (bits equal), max abs metric "
                    f"err {errs['viterbi']}")
@@ -2108,12 +2365,25 @@ def main() -> int:
                    f"T={fspec.Nfft} with a random carry: max abs err {k9_abs:.3e}, "
                    f"{k9_rel:.3e} of max|y| (bar {K9_REL}); carry equal; two half hops == one "
                    f"hop (bit-equal: {halves_equal})")
+    for M, K, T, rel, rel_h in check_channelize_wide():
+        say("kernels", f"K9 wide form (FIR kernel + cuFFT) vs plain OK at M={M}, K={K}, T={T} "
+                       f"with a random carry: {rel:.3e} of max|y| (bar {K9_REL}); carry equal; "
+                       f"two half hops through the carry {rel_h:.3e} of max|y| of one hop")
     for B in (1, 16):
         e1, e5 = check_recentre(fspec, consts["flagship"], B)
         errs["doppler_energy"] = max(errs["doppler_energy"], e1)
         errs["doppler_estimate"] = max(errs["doppler_estimate"], e5)
         say("kernels", f"K1, K5 with centre_shift {recentres(fspec.Nfft, B).tolist()} vs plain "
                        f"OK at B={B}: K1 max abs err {e1:.4g}, K5 {e5:.4g}")
+    for label, N, D, M, nw, ng, rel in check_doppler_energy_grids(
+            k1_specs(fspec, consts["flagship"], bconsts)):
+        say("kernels", f"K1 {label} grid N={N} D={D} M={M}: {nw} window group(s), {ng} "
+                       f"global-read group(s); vs plain OK at B={K1_BATCH} (with and without a "
+                       f"recentre where the path has one), max err {rel:.3e} of max|E| (bar "
+                       f"{K1_REL}); each block alone == its row, two runs bit-equal")
+    rel = check_doppler_energy_batch(consts["flagship"])
+    say("kernels", f"K1 flagship B=64 recentred: each block alone == its row of the batch, two "
+                   f"runs bit-equal; max err {rel:.3e} of max|E|")
     for label, spec_, consts_ in (("flagship", fspec, consts["flagship"]),
                                   ("stx", cfg["stx"][2], consts["stx"]),
                                   ("bench_BPSK", bspec, bconsts)):
@@ -2175,14 +2445,16 @@ def main() -> int:
         spec = cfg[p][2]
         hop = spec.Nfft - spec.sigOverlap
         for B in BATCHES:
-            t, whole, band_bins = time_kernels(spec, consts[p], B)
+            t, whole, band_bins, dev = time_kernels(spec, consts[p], B)
             bnd = bounds(spec, B, band_bins)
             check_bounds(t, bnd, B, p)
-            times[p, B] = (t, bnd)
+            for k, dms in dev.items():
+                assert dms >= bnd[k][0], f"{p} B={B} {k}: device_ms {dms} is below bound_ms"
+            times[p, B] = (t, bnd, dev)
             for k, (ms, pms, lms) in t.items():
                 say("times", f"{card} | {p} B={B} {k}: ms={ms:.5f} plain_ms={pms:.5f} "
                              f"library_ms={'null' if lms is None else f'{lms:.5f}'} "
-                             f"bound_ms={bnd[k][0]:.4g} ({bnd[k][1]}) "
+                             f"bound_ms={bnd[k][0]:.4g} ({bnd[k][1]}) device_ms={dev[k]:.5f} "
                              f"launches_per_block={1 / B:.4f}")
             say("times", f"{card} | {p} B={B} whole block graph: {whole[0]:.4f} ms/call "
                          f"({1e3 * whole[0] / B:.2f} us/block, "
@@ -2192,10 +2464,10 @@ def main() -> int:
     max_mhz, _ = sm_clocks()
     vt, vt_more = time_viterbi(VIT_BY_S), time_viterbi(VIT_MORE)
     _, now_mhz = sm_clocks()
-    for key, (ms, pms, (bms, by), lengths) in {**vt, **vt_more}.items():
-        assert ms >= bms and pms >= bms, f"K7 S={key}: a time is below bound_ms {bms}"
+    for key, (ms, pms, (bms, by), lengths, dms) in {**vt, **vt_more}.items():
+        assert min(ms, pms, dms) >= bms, f"K7 S={key}: a time is below bound_ms {bms}"
         say("times", f"{card} | viterbi S={key} T={max(lengths)}: ms={ms:.5f} plain_ms={pms:.5f} "
-                     f"library_ms=null bound_ms={bms:.4g} ({by}) "
+                     f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f} "
                      f"ns_per_step={1e6 * ms / max(lengths):.1f} chain_estimate_ms="
                      f"{viterbi_chain_ms(lengths, max_mhz):.5f} (by chain: {VIT_CHAIN_OPS} "
                      f"dependent ALU ops x {VIT_CYCLES_PER_OP} cycles a step at clocks.max.sm "
@@ -2219,22 +2491,28 @@ def main() -> int:
 
     t4 = time_slice4(bspec, bconsts, fspec)
     for k, unit in (("nrzs_bits", "B"), ("vote", "C")):
-        for n, (ms, pms, (bms, by)) in t4[k].items():
-            assert ms >= bms and pms >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
+        for n, (ms, pms, (bms, by), dms) in t4[k].items():
+            assert min(ms, pms, dms) >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
             say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
-                         f"library_ms=null bound_ms={bms:.4g} ({by})")
+                         f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f}")
     say("times", f"{card} | group graph C={GROUP_C} {t4['group_ms']:.4f} ms/call against the "
                  f"block graph at B={GROUP_C} {t4['batch_ms']:.4f} ms/call on the same blocks: "
                  f"the vote adds {t4['group_ms'] - t4['batch_ms']:.4f} ms "
                  f"({100 * (t4['group_ms'] - t4['batch_ms']) / t4['group_ms']:.1f}%)")
     t5 = time_slice5(wb, fspec, tracker, track_blocks)
-    (k9_ms, k9_pms), (k9_bms, k9_by) = t5["k9"], t5["k9_bound"]
-    for v in (k9_ms, k9_pms, t5["yardstick_ms"]):
+    (k9_ms, k9_pms, k9_dms), (k9_bms, k9_by) = t5["k9"], t5["k9_bound"]
+    for v in (k9_ms, k9_pms, k9_dms, t5["yardstick_ms"]):
         assert v >= k9_bms, f"K9: a time {v} is below bound_ms {k9_bms}"
     say("times", f"{card} | channelize M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}: "
                  f"ms={k9_ms:.5f} plain_ms={k9_pms:.5f} library_ms=null "
-                 f"bound_ms={k9_bms:.4g} ({k9_by}); yardstick (grouped conv1d + torch.fft.fft, "
+                 f"bound_ms={k9_bms:.4g} ({k9_by}) device_ms={k9_dms:.5f}; yardstick (grouped conv1d + torch.fft.fft, "
                  f"TF32 off) {t5['yardstick_ms']:.5f} ms, rel err vs K9 {t5['yardstick_err']:.2e}")
+    for (Mw, Kw, Tw), (ms, pms, (bms, by), dms) in t5["k9_wide"].items():
+        assert min(ms, pms, dms) >= bms, f"K9 wide ({Mw}, {Kw}): a time is below bound_ms {bms}"
+        say("times", f"{card} | channelize wide form M={Mw} K={Kw} T={Tw}: ms={ms:.5f} "
+                     f"plain_ms={pms:.5f} library_ms=null bound_ms={bms:.4g} ({by}) "
+                     f"device_ms={dms:.5f} (the FIR kernel alone; ms includes cuFFT and the "
+                     f"transpose)")
     hop_ms = 1e3 * fspec.Nfft / fspec.sampleRate
     say("times", f"{card} | wideband chain (K9 + step C={wb['M']}, vote off) "
                  f"{t5['chain_ms']:.4f} ms per hop of {wb['M']} x {fspec.Nfft} samples "
@@ -2247,10 +2525,10 @@ def main() -> int:
                  f"{t5['acquire_ms'] / t5['track_ms']:.3f}")
     t6 = time_slice6(fspec, consts["flagship"])
     for k, unit in (("symbol_detect_local", "B"), ("shard_select", "B")):
-        for n, (ms, pms, (bms, by)) in t6[k].items():
-            assert ms >= bms and pms >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
+        for n, (ms, pms, (bms, by), dms) in t6[k].items():
+            assert min(ms, pms, dms) >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
             say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
-                         f"library_ms=null bound_ms={bms:.4g} ({by}) "
+                         f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f} "
                          f"launches_per_block={1 / n:.4f}")
     say("times", f"{card} | generic step C={GENERIC_C} {t6['generic_ms']:.4f} / "
                  f"{t6['generic_ms_again']:.4f} ms/call against the channel-parallel step "
@@ -2262,8 +2540,8 @@ def main() -> int:
         say("times", f"{card} | runtime {key} ({r['config']}): {host}first packet after "
                      f"{r['first_packet_s']:.2f} s of feed")
 
-    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("stx", 1), ("wideband", 64),
-                 ("generic", GENERIC_C)):
+    for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
+                 ("wideband", 64), ("generic", GENERIC_C)):
         if p == "generic":
             x = torch.from_numpy(generic_blocks(fspec, GENERIC_C)[0]).cuda()
             step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
@@ -2287,7 +2565,7 @@ def main() -> int:
     for k, (src, replaces) in KERNELS.items():
         by_path = {p: res[p]["launches"][k] for p in res}
         if k in t6:
-            ms, pms, (bms, by) = t6[k][LINE_BATCH]
+            ms, pms, (bms, by), _ = t6[k][LINE_BATCH]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2295,19 +2573,22 @@ def main() -> int:
                 "bound_by": by, "library_ms": None, "batch": LINE_BATCH,
                 "shape": "flagship" + (", nd=1" if k == "shard_select" else ""),
                 "by_B": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                             "bound_by": v[2][1]} for n, v in t6[k].items()}})
+                             "bound_by": v[2][1], "device_ms": v[3]} for n, v in t6[k].items()},
+                "device_ms": t6[k][LINE_BATCH][3]})
             continue
         if k in t4:
             unit = "B" if k == "nrzs_bits" else "C"
             at = LINE_BATCH if k == "nrzs_bits" else GROUP_C
-            ms, pms, (bms, by) = t4[k][at]
+            ms, pms, (bms, by), _ = t4[k][at]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None, unit.lower(): at,
                 f"by_{unit}": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                                   "bound_by": v[2][1]} for n, v in t4[k].items()}})
+                                   "bound_by": v[2][1], "device_ms": v[3]}
+                               for n, v in t4[k].items()},
+                "device_ms": t4[k][at][3]})
             continue
         if k == "channelize":
             kernels.append({
@@ -2315,26 +2596,31 @@ def main() -> int:
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": k9_ms, "plain_ms": k9_pms, "bound_ms": k9_bms,
                 "bound_by": k9_by, "library_ms": None, "yardstick_ms": t5["yardstick_ms"],
-                "shape": f"wideband M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}"})
+                "device_ms": k9_dms,
+                "shape": f"wideband M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}",
+                "wide_form": {f"M={Mw} K={Kw} T={Tw}": {
+                    "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1],
+                    "device_ms": v[3]} for (Mw, Kw, Tw), v in t5["k9_wide"].items()}})
             continue
         if k == "viterbi":
-            ms, pms, (bms, by), _ = vt[1]
+            ms, pms, (bms, by), _, _ = vt[1]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None, "batch": 1, "shape": "ccsds decode T=2144",
-                "by_S": viterbi_rows(vt),
+                "by_S": viterbi_rows(vt), "device_ms": vt[1][4],
                 "more_shapes": {f"S={key}": v for key, v in viterbi_rows(vt_more).items()}})
             continue
         home = "flagship" if k in PATH_KERNELS["flagship"] else "stx"
-        t, bnd = times[home, LINE_BATCH]
         entry = {"name": k, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
-                 "max_abs_err": errs[k], **kernel_entry(k, t, bnd), "batch": LINE_BATCH,
-                 "shape": home}
+                 "max_abs_err": errs[k], **kernel_entry(k, *times[home, LINE_BATCH]),
+                 "batch": LINE_BATCH, "shape": home,
+                 "by_B": {B: kernel_entry(k, *times[home, B]) for B in BATCHES}}
         if home == "flagship" and k in PATH_KERNELS["stx"]:
-            entry["stx"] = kernel_entry(k, *times["stx", LINE_BATCH])
+            entry["stx"] = {**kernel_entry(k, *times["stx", LINE_BATCH]),
+                            "by_B": {B: kernel_entry(k, *times["stx", B]) for B in BATCHES}}
         kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,6 +33,14 @@
 // once and the output written once, 2 T M 8 = 67.1 MB, 0.0200 ms at 3.35
 // TB/s; f32 work (4 K + 5 log2 M) T M = 260 MFLOP, 0.0039 ms at 67 TFLOP/s:
 // bytes bound it.
+//
+// The wide form (pycusdr_channelize_fir) takes the banks the fused tile
+// cannot hold, M > 1024 or K > 32: one thread per v[t, p], p fastest, the
+// same K-tap sum in the same order, the taps read through L1 (__ldg: a
+// warp reads 32 consecutive taps of one k), so K and M are unbounded. It
+// writes v (T, M); the M-point DFT across the branches is then a plain
+// transform with nothing fused into it, which the wrapper leaves to cuFFT
+// (torch.fft.fft over the rows, then the transpose to channel-major).
 #include "common.cuh"
 
 namespace {
@@ -115,6 +123,27 @@ channelize(const float2* __restrict__ x, const float2* __restrict__ state,
     }
 }
 
+__global__ void __launch_bounds__(kThreads)
+channelize_fir(const float2* __restrict__ x, const float2* __restrict__ state,
+               const float* __restrict__ h2, float2* __restrict__ v, int T, int M, int K) {
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (i >= (long long)T * M) return;
+    const int t = (int)(i / M), p = (int)(i - (long long)t * M);
+    float re = 0.f, im = 0.f;
+    for (int k = 0; k < K; ++k) {
+        const long long r = (long long)t + (K - 1 - k);  // row of xp
+        float2 xv;
+        if (r >= K - 1)
+            xv = x[(size_t)(r - (K - 1)) * M + p];
+        else
+            xv = state ? state[(size_t)r * M + p] : make_float2(0.f, 0.f);
+        const float h = __ldg(h2 + (size_t)k * M + p);
+        re = __fadd_rn(re, __fmul_rn(h, xv.x));
+        im = __fadd_rn(im, __fmul_rn(h, xv.y));
+    }
+    v[i] = make_float2(re, im);
+}
+
 int ilog2(int v) {
     int l = 0;
     while ((1 << l) < v) ++l;
@@ -141,5 +170,17 @@ PYCUSDR_API int pycusdr_channelize(const float2* x, const float2* state, const f
     const int grid = (T + TT - 1) / TT;
     channelize<<<grid, kThreads, smem, stream>>>(x, state, h2, tw, y, T, M, K, ilog2(M), TT,
                                                  ilog2(TT));
+    return (int)cudaGetLastError();
+}
+
+// The wide form's FIR: v (T, M) complex64 (see channelize_fir), any power-of-two
+// M and any K >= 1; the wrapper runs the DFT across the branches.
+PYCUSDR_API int pycusdr_channelize_fir(const float2* x, const float2* state, const float* h2,
+                                       float2* v, int T, int M, int K, cudaStream_t stream) {
+    if (T <= 0 || M <= 0 || (M & (M - 1)) || K <= 0) return (int)cudaErrorInvalidValue;
+    const long long n = (long long)T * M;
+    if ((n + kThreads - 1) / kThreads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    channelize_fir<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        x, state, h2, v, T, M, K);
     return (int)cudaGetLastError();
 }

@@ -34,8 +34,10 @@ _F = ctypes.c_float
 
 #: argtypes of every exported C entry point (all return a cudaError_t)
 SIGNATURES = {
-    # P, Q, shifts, centre|NULL, partial, E, B, N, D, M, chunk, scale, stream
-    "pycusdr_doppler_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # P, Q, centre|NULL, rows, part, count, E, B, N, D, M, L, T, wwin, tg, bt, vec, scale,
+    # stream
+    "pycusdr_doppler_energy": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
     # S, masks, shift, shift_stride, tw, Y, colsum, colmax, colargmax, B, N, M, n1, C, R,
     # Mg, sum_lo, sum_hi, stream
     "pycusdr_mf_bank_colreduce": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -63,6 +65,8 @@ SIGNATURES = {
     "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, state|NULL, h2, tw, y, T, M, K, stream
     "pycusdr_channelize": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, state|NULL, h2, v, T, M, K, stream
+    "pycusdr_channelize_fir": [_P, _P, _P, _P, _I, _I, _I, _P],
     # colmax, colargmax, spSym, codeOffset, val, key, B, N, W, spsymMin, S, M, m0, stream
     "pycusdr_symbol_detect_local": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # vals, keys, nd, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, row, L, B, N,
@@ -179,10 +183,12 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current stream; raise on error."""
+def launch(name: str, *args, stream: int = None) -> None:
+    """Call C entry point ``name`` on ``stream`` (a raw CUDA stream handle;
+    default the current stream); raise on error."""
     L = lib()
-    stream = torch.cuda.current_stream().cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
     err = getattr(L, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "

@@ -9,18 +9,184 @@ Doppler shift s_d is
 
 with P = |S|^2 and Q = |masks_f|^2 (``dsp/reference.py:67-76`` is the
 golden form). ``doppler_energy`` evaluates it directly: on a CUDA tensor
-with the hand-written kernel ``csrc/doppler_energy.cu``, on a CPU tensor
+with the hand-written kernel ``csrc/doppler_energy.cu`` (3xTF32 products
+on the tensor cores over staged P windows, laid out by
+``doppler_energy_plan`` and launched on ``k1_grid``), on a CPU tensor
 with ``doppler_energy_plain``.
 """
 
+import functools
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from pycusdr_tpu_torch.ops import _lib
+from pycusdr_tpu_torch.ops.demod_kernels import SM_COUNT
 from pycusdr_tpu_torch.ops.layout import E_AT, PACK_SCALARS, SCALAR
 
 ABS_SUM_SCALE = 262144.0  # 2^18, matches reference blockAbsSumAtomic scaling
-#: k samples per K1 block; partial sums of the chunks are added in order
-K1_CHUNK = 4096
+#: shifts per K1 tile: the 16 rows of mma.m16n8k8
+K1_ROWS = 16
+#: tiles per group of K1's deal (64 shifts)
+K1_GROUP_TILES = 4
+#: leaves of a K1 chunk: one a warp of a CTA, added pairwise
+K1_LEAVES = 8
+#: f32 of Q a K1 CTA stages: its chunk is K1_Q_FLOATS / MP samples (MP = 8
+#: ceil(M / 8) mask columns: 2048 at M <= 8, 1024 at 16, 512 at 32), at most
+#: N rounded up to 256
+K1_Q_FLOATS = 16384
+#: the dynamic shared memory of a K1 CTA (``csrc/doppler_energy.cu:kMaxDynSmem``,
+#: two CTAs an SM): Q's chunk at row pitch L + 4, then the window of wwin f32
+K1_SMEM = 112 * 1024
+#: window samples beyond arc + chunk: the 16-byte copies start up to 3
+#: samples early and end up to 3 late
+K1_WINDOW_SLACK = 8
+#: CTAs K1's launch aims at: two resident on each SM, less a tenth
+K1_CTA_TARGET = 2 * SM_COUNT * 9 // 10
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """K1's layout for one grid (``doppler_energy_plan``). ``rows``: the
+    shift index of each tile row, -1 for padding, (T * 16,): the grid round
+    the circle in groups of 64, dealt within a group by offset mod 8, the
+    group's first shift in its row 0. ``L``: samples per chunk (8 leaves of
+    L / 8); ``wwin``: the P window in f32 (a CTA whose arc plus L exceeds it
+    reads P from global memory)."""
+
+    N: int
+    M: int
+    MP: int  # mask columns, 8 per n-tile of the mma
+    L: int
+    nch: int
+    wwin: int
+    tg_max: int  # tiles a CTA may take: 4, or 2 where M > 16
+    rows: np.ndarray
+
+    @property
+    def T(self) -> int:
+        return len(self.rows) // K1_ROWS
+
+    def table(self, shifts) -> np.ndarray:
+        """The kernel's (T * 16, 2) int32 table: each row's shift index (-1
+        for padding) and its shift mod N (the group's first shift for
+        padding)."""
+        s = np.mod(np.asarray(shifts, np.int64).reshape(-1), self.N)
+        first = np.repeat(self.rows[::K1_GROUP_TILES * K1_ROWS], K1_GROUP_TILES * K1_ROWS)
+        sd = np.where(self.rows >= 0, s[np.maximum(self.rows, 0)], s[first[:len(self.rows)]])
+        return np.stack([self.rows, sd], axis=1).astype(np.int32)
+
+    def group_arcs(self, shifts) -> np.ndarray:
+        """The arc (largest offset from the first shift) of each 64-shift group."""
+        s = np.mod(np.asarray(shifts, np.int64).reshape(-1), self.N)
+        out = []
+        for g0 in range(0, len(self.rows), K1_GROUP_TILES * K1_ROWS):
+            r = self.rows[g0:g0 + K1_GROUP_TILES * K1_ROWS]
+            r = r[r >= 0]
+            out.append(int(np.mod(s[r] - s[r[0]], self.N).max()))
+        return np.asarray(out)
+
+    def window_groups(self, shifts) -> int:
+        """How many 64-shift groups read P through the window (the others
+        read it from global memory)."""
+        return int((self.group_arcs(shifts) + self.L + K1_WINDOW_SLACK <= self.wwin).sum())
+
+
+def doppler_energy_plan(shifts, N: int, M: int) -> K1Plan:
+    """K1's plan for the grid ``shifts`` (D ints, any range: read mod N).
+    It depends on the grid, N and M only, never on the batch, and it fixes
+    the order of every sum: a block gives the same bits alone and in any
+    batch.
+
+    The shifts are sorted round the circle of N bins, cut after the widest
+    gap, and taken 64 at a time as groups of up to four 16-row tiles. Within
+    a group they are dealt to the 8-row halves of its tiles in order of
+    their offset from the group's first shift mod 8 (which puts that shift
+    in row 0), so that the 8 rows one fragment load reads fall in distinct
+    banks where the grid allows it. The window holds the widest group's arc
+    plus a chunk, where that fits beside Q's chunk; a group that does not
+    fit reads P from global memory."""
+    s = np.mod(np.asarray(shifts, np.int64).reshape(-1), N)
+    D = len(s)
+    if D == 0 or M <= 0 or M > 32 or N <= 0:
+        raise ValueError(f"doppler_energy_plan: N={N}, D={D}, M={M} not supported")
+    MP = 8 * (1 if M <= 8 else 2 if M <= 16 else 4)
+    L = min(K1_Q_FLOATS // MP, -(-N // 256) * 256)
+    cap = (K1_SMEM // 4 - MP * (L + 4)) // 32 * 32
+    order = np.argsort(s, kind="stable")
+    gaps = np.mod(np.roll(s[order], -1) - s[order], N)
+    if D == 1:
+        gaps[:] = N
+    circ = np.roll(order, -(int(np.argmax(gaps)) + 1))  # shift indices round the circle
+    T = -(-D // K1_ROWS)
+    rows = np.full(T * K1_ROWS, -1, np.int32)
+    need = 0
+    for a in range(0, D, K1_GROUP_TILES * K1_ROWS):
+        members = circ[a:a + K1_GROUP_TILES * K1_ROWS]
+        off = np.mod(s[members] - s[members[0]], N)
+        if off.max() + L + K1_WINDOW_SLACK <= cap:
+            need = max(need, int(off.max()) + L + K1_WINDOW_SLACK)
+        nsets = 2 * -(-len(members) // K1_ROWS)
+        dealt = members[np.lexsort((np.arange(len(members)), off % 8))]
+        for i, d in enumerate(dealt):
+            k, slot = i % nsets, i // nsets
+            rows[a + (k // 2) * K1_ROWS + (k % 2) * 8 + slot] = d
+    tg_max = 4 if MP <= 16 else 2
+    wwin = max(need, K1_LEAVES // 2 * tg_max * K1_ROWS * MP)  # also the reduction's room
+    return K1Plan(N=N, M=M, MP=MP, L=L, nch=-(-N // L), wwin=-(-wwin // 32) * 32,
+                  tg_max=tg_max, rows=rows)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_grid(B: int, nch: int, T: int, tg_max: int):
+    """(tg, bt): the tiles and the blocks a K1 CTA takes at batch B: the most
+    tiles that still give ``K1_CTA_TARGET`` CTAs (nch x ceil(T / tg) x
+    ceil(B / bt)), with the blocks in the fewest runs that do, evened out;
+    where none does, one tile and one block a CTA. It changes no bit: the
+    sums are the plan's whatever the CTAs take."""
+    tg = tg_max
+    while tg >= 1:
+        q = -(-K1_CTA_TARGET // (nch * -(-T // tg)))  # block runs needed
+        if q <= B:
+            bt = B if q <= 1 else (B - 1) // (q - 1)  # the longest runs, at least q of them
+            return tg, -(-B // -(-B // bt))  # the same number of runs, evened out
+        tg //= 2
+    return 1, 1
+
+
+def _device_plan(shifts: torch.Tensor, N: int, M: int):
+    """``doppler_energy_plan`` of the grid tensor with its rows on the grid's
+    device, kept on the tensor: the grid is a constant of the spec, so it is
+    read back (one copy) only at the first call and after an in-place change
+    (``_version``). An inference tensor keeps no version, so its plan is
+    built anew at every call. Returns (plan, the kernel's table)."""
+    key = None if shifts.is_inference() else (N, M, shifts._version)
+    cached = getattr(shifts, "_k1_plan", None)
+    if key is None or cached is None or cached[0] != key:
+        grid = shifts.cpu().numpy()
+        plan = doppler_energy_plan(grid, N, M)
+        cached = (key, plan, torch.from_numpy(plan.table(grid)).to(shifts.device))
+        if key is not None:
+            shifts._k1_plan = cached
+    return cached[1:]
+
+
+#: K1's chunk partials and arrival counters, per (device, stream): one
+#: launch at a time uses them on a stream, and every launch leaves the
+#: counters at 0, so no call allocates or clears them after the first
+_k1_scratch = {}
+
+
+def _scratch(device, stream: int, n_part: int, n_count: int):
+    key = (device.index, stream)
+    part, count = _k1_scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(n_count, dtype=torch.int32, device=device)
+    _k1_scratch[key] = (part, count)
+    return part, count
 
 
 def doppler_energy_plain(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
@@ -42,13 +208,8 @@ def doppler_energy_plain(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
     return torch.matmul(Pg, Q.T) * (N / ABS_SUM_SCALE)
 
 
-def doppler_energy(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
-                   centre_shift: torch.Tensor = None) -> torch.Tensor:
-    """K1: E[b, d, m] of the block. See ``doppler_energy_plain`` for the
-    arguments. A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/doppler_energy.cu`` or raises."""
-    if P.device.type == "cpu":
-        return doppler_energy_plain(P, Q, shifts, centre_shift)
+def _launch_k1(P, Q, shifts, centre_shift) -> torch.Tensor:
+    """Check the operands and launch ``csrc/doppler_energy.cu`` on CUDA ``P``."""
     if P.device.type != "cuda":
         raise ValueError(f"doppler_energy: unsupported device {P.device}")
     B, N = P.shape
@@ -60,12 +221,28 @@ def doppler_energy(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
     _lib.check(shifts, "shifts", torch.int32, (D,), P.device)
     if centre_shift is not None:
         _lib.check(centre_shift, "centre_shift", torch.int32, (B,), P.device)
-    nch = -(-N // K1_CHUNK)
-    partial = torch.empty((B, D, nch, M), dtype=torch.float32, device=P.device)
+    plan, rows = _device_plan(shifts, N, M)
+    tg, bt = k1_grid(B, plan.nch, plan.T, plan.tg_max)
+    stream = torch.cuda.current_stream().cuda_stream
+    part, count = _scratch(P.device, stream, B * plan.nch * plan.T * K1_ROWS * plan.MP,
+                           B * -(-plan.T // tg))
     E = torch.empty((B, D, M), dtype=torch.float32, device=P.device)
-    _lib.launch("pycusdr_doppler_energy", _lib.ptr(P), _lib.ptr(Q), _lib.ptr(shifts),
-                _lib.ptr(centre_shift), _lib.ptr(partial), _lib.ptr(E),
-                B, N, D, M, K1_CHUNK, N / ABS_SUM_SCALE)
+    vec = N % 4 == 0 and P.data_ptr() % 16 == 0 and Q.data_ptr() % 16 == 0
+    _lib.launch("pycusdr_doppler_energy", _lib.ptr(P), _lib.ptr(Q),
+                _lib.ptr(centre_shift), _lib.ptr(rows), _lib.ptr(part), _lib.ptr(count),
+                _lib.ptr(E), B, N, D, M, plan.L, plan.T, plan.wwin, tg, bt, int(vec),
+                N / ABS_SUM_SCALE, stream=stream)
+    return E
+
+
+def doppler_energy(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
+                   centre_shift: torch.Tensor = None) -> torch.Tensor:
+    """K1: E[b, d, m] of the block. See ``doppler_energy_plain`` for the
+    arguments. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/doppler_energy.cu`` or raises."""
+    if P.device.type == "cpu":
+        return doppler_energy_plain(P, Q, shifts, centre_shift)
+    E = _launch_k1(P, Q, shifts, centre_shift)
     doppler_energy.launches += 1
     return E
 

@@ -23,11 +23,13 @@ import torch
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops.demod_kernels import twiddle_table
 
-#: K9 takes power-of-two M up to this many branches ...
-K9_MAX_M = 1024
-#: ... and up to this many taps per branch (the plain version takes any
-#: power-of-two M and any K >= 1, as JAX's channelizer does)
-K9_MAX_K = 32
+#: K9's fused form (one launch: the FIR and the DFT in a shared-memory tile)
+#: takes power-of-two M up to this many branches ...
+K9_FUSED_MAX_M = 1024
+#: ... and up to this many taps per branch; a wider bank takes the wide form
+#: (the FIR kernel, then cuFFT across the branches), so K9 as a whole takes
+#: any power-of-two M and any K >= 1, as JAX's channelizer does
+K9_FUSED_MAX_K = 32
 
 
 def design_prototype(M: int, taps_per_branch: int = 8, beta: float = 9.0) -> np.ndarray:
@@ -53,18 +55,17 @@ def channelize_numpy(x: np.ndarray, M: int, taps_per_branch: int = 8,
     return np.fft.fft(v, axis=1).T  # (M, T)
 
 
-def _check_shape(M: int, K: int) -> None:
+def k9_check_shape(M: int, K: int) -> None:
+    """What K9 refuses, as JAX's channelizer does: an M that is not a power
+    of two, or K < 1."""
     if M < 1 or M & (M - 1) or K < 1:
         raise ValueError(f"channelizer: M must be a power of two and K >= 1, got M={M}, K={K}")
 
 
-def k9_check_shape(M: int, K: int) -> None:
-    """K9's own limits (its shared-memory tile): a power-of-two M <= 1024
-    and 1 <= K <= 32. Beyond them the wrapper raises on a CUDA tensor."""
-    _check_shape(M, K)
-    if M > K9_MAX_M or K > K9_MAX_K:
-        raise ValueError(f"channelize: K9 takes M <= {K9_MAX_M} and K <= {K9_MAX_K} (a power "
-                         f"of two M), got M={M}, K={K}")
+def k9_fused(M: int, K: int) -> bool:
+    """Whether K9 takes its fused form (M <= 1024 and K <= 32) or its wide
+    form: a choice by shape alone."""
+    return M <= K9_FUSED_MAX_M and K <= K9_FUSED_MAX_K
 
 
 def _rows(x: torch.Tensor, M: int) -> int:
@@ -101,12 +102,14 @@ def channelize_plain(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = No
 
 def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
                tw: torch.Tensor = None):
-    """K9: the channelizer in one launch (arguments and outputs as
-    ``channelize_plain``; ``tw``: the (M, 2) ``twiddle_table(M)``, built
-    when None). A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/channelizer.cu`` or raises (``k9_check_shape``): it
-    never gives way to the plain version. ``new_state`` is a copy of the
-    last K-1 input rows."""
+    """K9: the channelizer (arguments and outputs as ``channelize_plain``;
+    ``tw``: the (M, 2) ``twiddle_table(M)``, built when None). A CPU tensor
+    takes the plain version; a CUDA tensor launches ``csrc/channelizer.cu``
+    or raises (``k9_check_shape``): it never gives way to the plain version.
+    Up to M = 1024 and K = 32 the FIR and the DFT run fused in one launch;
+    a wider bank takes the wide form, the FIR kernel writing v (T, M) and
+    ``torch.fft.fft`` across the branches (``k9_fused``). Either form counts
+    one launch. ``new_state`` is a copy of the last K-1 input rows."""
     if x.device.type == "cpu":
         return channelize_plain(x, h2, state)
     if x.device.type != "cuda":
@@ -118,12 +121,18 @@ def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
     _lib.check(h2, "h2", torch.float32, (K, M), x.device)
     if state is not None:
         _lib.check(state, "state", torch.complex64, (K - 1, M), x.device)
-    if tw is None:
-        tw = twiddle_table(M, x.device)
-    _lib.check(tw, "tw", torch.float32, (M, 2), x.device)
-    y = torch.empty((M, T), dtype=torch.complex64, device=x.device)
-    _lib.launch("pycusdr_channelize", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
-                _lib.ptr(tw), _lib.ptr(y), T, M, K)
+    if k9_fused(M, K):
+        if tw is None:
+            tw = twiddle_table(M, x.device)
+        _lib.check(tw, "tw", torch.float32, (M, 2), x.device)
+        y = torch.empty((M, T), dtype=torch.complex64, device=x.device)
+        _lib.launch("pycusdr_channelize", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
+                    _lib.ptr(tw), _lib.ptr(y), T, M, K)
+    else:
+        v = torch.empty((T, M), dtype=torch.complex64, device=x.device)
+        _lib.launch("pycusdr_channelize_fir", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
+                    _lib.ptr(v), T, M, K)
+        y = torch.fft.fft(v, dim=1).T.contiguous()
     channelize.launches += 1
     return y, _new_state(x, state, T, K, M)
 
@@ -140,7 +149,7 @@ class Channelizer:
     ``ch.state`` from call to call."""
 
     def __init__(self, M: int, taps_per_branch: int = 8, beta: float = 9.0, device=None):
-        _check_shape(M, taps_per_branch)
+        k9_check_shape(M, taps_per_branch)
         self.M = M
         self.K = taps_per_branch
         self.device = _lib.resolve_device(device)

@@ -29,6 +29,7 @@ from pycusdr_tpu_torch.parallel.channelizer import (
     channelize_plain,
     design_prototype,
     k9_check_shape,
+    k9_fused,
 )
 
 from conftest import make_fsk_signal
@@ -112,15 +113,64 @@ def test_taps_equal_jax(M, K, beta):
 def test_unsupported_shapes_raise(M, K):
     """The channelizer takes any power-of-two M and any K >= 1, as JAX's
     does: M=3 and K=0 are refused on every device (JAX fails on them too).
-    K9 takes M <= 1024 and K <= 32 on top: its shape check, which its
-    wrapper runs on a CUDA tensor, refuses the rest without a card."""
+    K9's shape check, which its wrapper runs on a CUDA tensor, refuses the
+    same and nothing more: (2048, 8) and (64, 33) take its wide form."""
     if M & (M - 1) or K < 1:
         with pytest.raises(ValueError, match="power of two"):
             Channelizer(M, K, device="cpu")
+        with pytest.raises(ValueError, match="power of two"):
+            k9_check_shape(M, K)
     else:
         Channelizer(M, K, device="cpu")
-    with pytest.raises(ValueError, match="power of two|K9 takes"):
         k9_check_shape(M, K)
+        assert not k9_fused(M, K)
+
+
+def k9_wide_model(x, h2, state):
+    """A numpy model of K9's wide form (``csrc/channelizer.cu``,
+    ``channelize_fir``): thread i takes v[t, p] with t = i // M and p = i % M;
+    its k-th tap reads row r = t + K-1-k of [state; x], from ``state`` below
+    K-1 and from x at r - (K-1) above, with the tap h2[k, p] from a flat
+    (K M,) array, and adds in k order in f32; then the DFT across the
+    branches (cuFFT's in the wrapper, numpy's here) and the transpose."""
+    K, M = h2.shape
+    T = len(x) // M
+    i = np.arange(T * M)
+    t, p = i // M, i % M
+    re = np.zeros(T * M, np.float32)
+    im = np.zeros(T * M, np.float32)
+    taps = h2.reshape(-1)
+    for k in range(K):
+        r = t + (K - 1 - k)
+        head = r < K - 1
+        xv = np.where(head, state.reshape(-1)[np.where(head, r, 0) * M + p],
+                      x[np.where(head, 0, r - (K - 1)) * M + p])
+        h = taps[k * M + p]
+        re = (re + (h * xv.real.astype(np.float32))).astype(np.float32)
+        im = (im + (h * xv.imag.astype(np.float32))).astype(np.float32)
+    v = (re + 1j * im).reshape(T, M)
+    return np.fft.fft(v, axis=1).T, np.concatenate([state, x.reshape(T, M)])[T:]
+
+
+@pytest.mark.parametrize("M,K,T", [(2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
+def test_wide_form_index_map(M, K, T):
+    """K9's wide form, modelled in numpy, on a stream cut in halves (the
+    second half reads the carried head rows): each half within 1e-5 of max|y|
+    of the numpy golden's and JAX's one-shot run, the carry equal to JAX's."""
+    x = _noise(M * T, M + K + 1)
+    h2 = design_prototype(M, K).reshape(K, M).astype(np.float32)
+    golden = channelize_numpy(x, M, K)
+    jy, _ = JaxChannelizer(M, K, jit=False)(c2ri(x))
+    jy = ri2c(np.asarray(jy))
+    st = np.zeros((K - 1, M), np.complex64)
+    h = T // 2
+    y1, st = k9_wide_model(x[:h * M], h2, st)
+    y2, st = k9_wide_model(x[h * M:], h2, st)
+    y = np.concatenate([y1, y2], axis=1)
+    assert _rel(y, golden) < REL
+    assert _rel(y, jy) < REL
+    _, jst = JaxChannelizer(M, K, jit=False)(c2ri(x))
+    np.testing.assert_array_equal(st, _state(jst))
 
 
 @pytest.mark.parametrize("M,K,T", [(2048, 8, 16), (64, 40, 64), (4096, 2, 8)])

@@ -109,18 +109,50 @@ def test_block_graph_decisions_match_plain(case):
     assert torch.equal(out["bits"][:, :n], ref["bits"][:, :n])
 
 
-@pytest.mark.parametrize("N,M,D", [(512, 16, 20), (1024, 32, 7), (8192, 4, 3)])
-def test_doppler_energy_mask_counts(cuda, N, M, D):
-    """The 16- and 32-mask kernel variants (deep banks, xcorrMaskSize 4-5)
-    and grids whose D is not a multiple of the shift tile."""
-    rng = np.random.RandomState(N + M)
-    P = torch.from_numpy(rng.rand(2, N).astype(np.float32)).to(cuda)
+#: (N, M, D, grid, B, the paths it must take: "window", "global" or "both")
+K1_GRIDS = [(512, 16, 20, "random", 2, "window"), (1024, 32, 7, "random", 2, "window"),
+            (8192, 4, 3, "random", 2, "window"), (512, 16, 1, "random", 64, "window"),
+            (999, 1, 3, "random", 2, "window"), (1000, 5, 3, "random", 64, "window"),
+            (4096, 32, 129, "random", 2, "window"), (2 ** 16, 5, 129, "compact", 2, "window"),
+            (2 ** 17, 32, 3, "compact", 2, "window"), (2 ** 17, 8, 129, "mixed", 2, "both"),
+            (2 ** 16, 8, 64, "compact", 64, "window"), (2 ** 18, 5, 3, "random", 2, "global"),
+            (2 ** 18, 1, 129, "random", 2, "both")]
+
+
+def _k1_grid(N, D, grid, rng):
+    """D shifts of kind ``grid``: anywhere on the circle, 3 bins apart, or 64
+    shifts 7 bins apart and the rest spread over half the circle."""
+    if grid == "random":
+        return rng.randint(0, N, D)
+    if grid == "compact":
+        return (rng.randint(0, N) + 3 * np.arange(D)) % N
+    h = min(64, D // 2)
+    return np.r_[7 * np.arange(h), N // 8 + (N // 2 // (D - h)) * np.arange(D - h)]
+
+
+@pytest.mark.parametrize("N,M,D,grid,B,path", K1_GRIDS)
+def test_doppler_energy_mask_counts(cuda, N, M, D, grid, B, path):
+    """The 8-, 16- and 32-mask kernel variants (deep banks, xcorrMaskSize
+    4-5), grids whose D is not a multiple of the shift tile, N from 512 to
+    2^18, grids whose arc takes the window, the global-read path or both,
+    B = 2 and 64, recentred off the circle and not: within 1e-4 of max|E|,
+    two runs equal, each block alone equal to its row of the batch."""
+    rng = np.random.RandomState(N + M + D)
+    P = torch.from_numpy(rng.rand(B, N).astype(np.float32)).to(cuda)
     Q = torch.from_numpy(rng.rand(M, N).astype(np.float32)).to(cuda)
-    shifts = torch.from_numpy(rng.randint(0, N, D).astype(np.int32)).to(cuda)
-    centre = torch.tensor([3, 5 - N], dtype=torch.int32, device=cuda)
-    Ek = ds.doppler_energy(P, Q, shifts, centre)
-    Ep = ds.doppler_energy_plain(P, Q, shifts, centre)
-    assert float((Ek - Ep).abs().max()) <= 1e-4 * float(Ep.abs().max())
+    shifts = torch.from_numpy(_k1_grid(N, D, grid, rng).astype(np.int32)).to(cuda)
+    centre = torch.tensor(([3, 5 - N] * B)[:B], dtype=torch.int32, device=cuda)
+    for cs in (centre, None):
+        Ek = ds.doppler_energy(P, Q, shifts, cs)
+        Ep = ds.doppler_energy_plain(P, Q, shifts, cs)
+        assert float((Ek - Ep).abs().max()) <= 1e-4 * float(Ep.abs().max())
+        assert torch.equal(Ek, ds.doppler_energy(P, Q, shifts, cs))
+        for b in range(B):
+            one = ds.doppler_energy(P[b:b + 1], Q, shifts, None if cs is None else cs[b:b + 1])
+            assert torch.equal(one[0], Ek[b])
+    plan = ds.doppler_energy_plan(shifts.cpu().numpy(), N, M)
+    nw, ng = plan.window_groups(shifts.cpu().numpy()), len(plan.group_arcs(shifts.cpu().numpy()))
+    assert {"window": nw == ng, "global": nw == 0, "both": 0 < nw < ng}[path], (nw, ng)
 
 
 @pytest.mark.parametrize("N,M", [(4, 3), (16, 4), (2048, 5), (2 ** 17, 2), (2 ** 18, 1)])
@@ -612,12 +644,15 @@ def test_group_graph_matches_plain(case, cuda):
 # ---- slice 5: K9 channelize, K5 and K1 with centre_shift, K8 with master_idx
 
 
-@pytest.mark.parametrize("M,K,T", [(64, 8, 4096), (8, 4, 1001), (1024, 32, 40), (1, 3, 7)])
+@pytest.mark.parametrize("M,K,T", [(64, 8, 4096), (8, 4, 1001), (1024, 32, 40), (1, 3, 7),
+                                   (2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
 @pytest.mark.parametrize("with_state", [True, False])
 def test_channelize(cuda, M, K, T, with_state):
     """K9 against its plain version: y within 1e-5 of max|y| (a radix-2 DFT
-    against cuFFT), the carry equal; a ragged last tile, the largest M and
-    K, and M = 1 (no DFT) included."""
+    against cuFFT), the carry equal; a ragged last tile, the largest fused M
+    and K, M = 1 (no DFT), and the wide form at (2048, 8), (64, 40) and
+    (4096, 2), also with the carry split in halves (two calls through the
+    carried state equal to one call)."""
     rng = np.random.RandomState(M + K + T)
     x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
     h2 = torch.from_numpy(rng.randn(K, M).astype(np.float32)).to(cuda)
@@ -628,6 +663,13 @@ def test_channelize(cuda, M, K, T, with_state):
     torch.cuda.synchronize()
     assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
     assert torch.equal(sk, sp)
+    if not pch.k9_fused(M, K):
+        h = T // 2 * M
+        y1, s1 = pch.channelize(x[:h], h2, st)
+        y2, s2 = pch.channelize(x[h:], h2, s1)
+        torch.cuda.synchronize()
+        assert float((torch.cat([y1, y2], 1) - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+        assert torch.equal(s2, sp)
 
 
 def test_channelize_halves_equal_one_shot(cuda):
