@@ -1,7 +1,7 @@
-"""K7 and ``ViterbiStream.feed``, or K1 and the graphs around it, of two
-checkouts, timed in turns on one card.
+"""K7 and ``ViterbiStream.feed``, K1, or K5 and K4, and the graphs around
+them, of two checkouts, timed in turns on one card.
 
-    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler] [--rounds R]
+    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler|detect] [--rounds R]
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
 the parent commit unpacked under ``build/``); the other tree is the one
@@ -21,7 +21,16 @@ root, which builds that tree's kernels and times, on card 0:
   least of 15 means of 20 calls, and the device busy ms a call); the
   wideband chain (K9 and the channel-parallel step at C=64, vote off) per
   hop; and the sha256 of K9's output at that shape (64 x 2^16, the fused
-  form), which the summary holds equal across the turns of both trees.
+  form), which the summary holds equal across the turns of both trees;
+- ``--turn detect``: K5 (``doppler_estimate``) at the flagship shape and K4
+  (``symbol_detect``, typed outputs; with K6's clip bitmask at STX) at the
+  flagship and STX shapes, on chip_smoke's ``kernel_inputs`` at B=1/16/64:
+  the device ms a call of the kernel (torch.profiler; a trace that lost
+  any of the launches is taken again), the wrapper's ms by CUDA events
+  (``cuda_ms``), and the
+  wrapper's host us a call (the enqueue: ``perf_counter`` over HOST_CALLS
+  calls before one synchronize); then the flagship and STX block graphs at
+  B=1/16/64, wall ms by CUDA events and device busy ms a call.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
@@ -29,8 +38,8 @@ one tree, and each tree runs first as often as the other. Each
 turn prints one JSON line; the card's name and power limit come first.
 Both trees' ``chip_smoke.py`` must have what the turn calls
 (``viterbi_inputs``, ``cuda_ms``, ``time_feed``; ``configuration``,
-``kernel_inputs``, ``signal_blocks``, ``k9_inputs``). Needs a card: a
-turn fails without one.
+``kernel_inputs``, ``signal_blocks``, ``k9_inputs``; ``k4_kwargs``,
+``k5_args``). Needs a card: a turn fails without one.
 """
 
 import argparse
@@ -43,6 +52,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 #: flagship blocks fed per feed timing (the first is not timed)
 BLOCKS = 200
+#: wrapper calls a host-time reading of the detect turn enqueues
+HOST_CALLS = 2000
 
 #: run with ``python -c`` from a tree's root, so that it imports that tree
 TURNS = {}
@@ -115,6 +126,94 @@ out["K9 fused y sha256"] = hashlib.sha256(ch(x)[0].cpu().numpy().tobytes()).hexd
 print(json.dumps(out))
 """
 
+TURNS["detect"] = """
+import json, re, sys, time
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import build_process_batch
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+from pycusdr_tpu_torch.ops import doppler_search as ds
+
+
+# host us a call: the enqueue of n calls, before one synchronize
+def host_us(fn, n=int(sys.argv[2])):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+# the device events of a trace of calls calls: [(key, count, device us)]
+def trace(fn, calls):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# device ms a call in the __global__ function name, launched once a call; a
+# trace that lost any of the launches is taken again, five times at most
+def kernel_ms(fn, name, calls=20):
+    pat = re.compile(r"(^|[\\s:])%s[<(]" % name)
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        ev = [e for e in trace(fn, calls) if pat.search(e[0])]
+        seen.append(sum(e[1] for e in ev))
+        if seen[-1] == calls:
+            return sum(e[2] for e in ev) / 1e3 / calls
+    raise AssertionError(f"{name}: five traces held {seen} launches, not {calls}")
+
+
+# device busy ms a call: every device event of the trace, once two traces
+# in a row hold the same number of events (a trace may lose some)
+def busy_ms(fn, calls=20):
+    fn()
+    torch.cuda.synchronize()
+    seen = [trace(fn, calls)]
+    for _ in range(5):
+        seen.append(trace(fn, calls))
+        n = [sum(e[1] for e in t) for t in seen[-2:]]
+        if n[0] == n[1]:
+            return sum(e[2] for e in seen[-1]) / 1e3 / calls
+    raise AssertionError(f"busy: traces held {[sum(e[1] for e in t) for t in seen]} events")
+
+
+out = {}
+for p in ("flagship", "stx"):
+    spec = c.configuration(p)[2]
+    consts = DeviceConsts.from_spec(spec, torch.device("cuda"))
+    for B in (1, 16, 64):
+        inp = c.kernel_inputs(spec, consts, B)
+        a4 = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], consts.bitLUT)
+        kw4 = c.k4_kwargs(spec, consts)
+        hits = inp.get("hits")
+        calls = {"K4": (lambda: dk.symbol_detect(*a4, hits=hits, **kw4), "symbol_detect")}
+        if spec.doppler_search:
+            a5, kw5 = c.k5_args(spec, consts, inp["E"], inp["P"])
+            calls["K5"] = (lambda: ds.doppler_estimate(*a5, **kw5), "doppler_estimate")
+        for k, (fn, name) in calls.items():
+            out[f"{k} {p} B={B} device ms"] = kernel_ms(fn, name)
+            out[f"{k} {p} B={B} ms"] = c.cuda_ms(fn)
+            out[f"{k} {p} B={B} host us"] = host_us(fn)
+    graph = build_process_batch(spec, device="cuda", packed=True)
+    for B in (1, 16, 64):
+        x = c.signal_blocks(spec, B)
+        out[f"{p} graph B={B} ms"] = c.cuda_ms(lambda: graph(x), iters=10)
+        out[f"{p} graph B={B} device busy ms"] = busy_ms(lambda: graph(x))
+print(json.dumps(out))
+"""
+
 
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -137,7 +236,8 @@ def main() -> int:
     print(card_line(), flush=True)
     runs = {name: [] for name in trees}
     for name in ("parent", "change", "change", "parent") * args.rounds:
-        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS)], cwd=trees[name],
+        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS), str(HOST_CALLS)],
+                           cwd=trees[name],
                            capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
             sys.stderr.write(p.stdout + p.stderr)

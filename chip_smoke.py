@@ -34,7 +34,16 @@ and then no result line is printed):
    T=2016/2015), the decode shape (S=1, T=2144), a feed's one launch
    (S=3), ragged lengths about the 32-step chunk edges (0 to 2144), S=64
    and S=129, and T=2^15; ``ViterbiStream`` through K7 equal to
-   ``plain=True`` after every feed, one K7 launch a feed;
+   ``plain=True`` after every feed, one K7 launch a feed; K1 at the
+   flagship grid with 64 and 128 masks (one launch per group of at most
+   32); K5 on K5_GRIDS in both mask forms (ties within a thread, a lane,
+   across lanes and warps; nd 1, 31, 33, 64 of D=2048 at offset 0 and 1;
+   D=3000; M=1, 64, 128 with and without a recentre) to the contract of
+   ``k5_contract``, and again with noise alone in the SNR bands, its band
+   ratio within f32 rounding of float64's; K4 at B=64 on K4_CASES (the flagship and STX shapes,
+   W=1, W above the symbol, sparse windows, hw at its clamp: tied
+   magnitudes, A clamped at both ends, clip hits on word edges), every
+   output equal and each block alone equal to its row;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after it:
    a. flagship: the UHF demodulator (``models.uhf.Demodulator``) on a
@@ -42,6 +51,10 @@ and then no result line is printed):
       and ``processCapture``; the bits must agree with each other and
       with the plain path on the card, recover the transmitted bits (BER < 1e-3)
       and the Doppler offset; K1-K5 must launch, K6 not;
+   a'. deep: the flagship demodulator at xcorrMaskSize 6 (64 masks: K1
+      in two launches a call) through ``processMany(16)``: bits and trust
+      equal to the plain path's, BER < 1e-3, the Doppler offset; K1-K5
+      must launch, K1 twice for each K5 launch;
    b. STX: the STX demodulator (``models.stx.Demodulator``) on a GFSK
       signal at the fixed IF offset with an interference burst in one
       hop, the same four ways; BER < 1e-3 on the bits not tagged trust
@@ -248,6 +261,8 @@ K9_REL = 1e-5
 TRACK_BLOCKS, TRACK_SNR_DB = 48, 10.0
 #: K8's master channels in the phase-3 check (the last one is C - 1)
 VOTE_MASTERS = (0, 1, -1)
+#: the flagship at this xcorrMaskSize (64 masks, phase 4) takes K1 in groups
+DEEP_MASK_SIZE = 6
 #: the generic channel x dopp step: C channels in one process (phase 4i), and
 #: the four ranks of {"channel": 2, "dopp": 2} on the one card over gloo with
 #: C channels in all (phase 4j), each rank given this long to report
@@ -292,6 +307,8 @@ PATH_KERNELS = {
                  "timing_band", "symbol_detect", "vote"),
     "tracking": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                  "symbol_detect"),
+    "deep": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+             "symbol_detect"),
     "generic": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                 "symbol_detect_local", "shard_select", "vote"),
 }
@@ -402,12 +419,33 @@ def k4_plain_clip(spec, inp):
     return dk.dilate_mask_plain(inp["hit2"], dk.clip_halfwidth(inp["spSym"], spec.spsymMin))
 
 
+def k5_contract(got, want, label="K5"):
+    """K5 against its plain version: shift exact, dopp_idx within 1e-5
+    relative, Hz within 1e-2, quality and SNR within 1e-3 dB (equal where
+    not finite). Returns the max abs error over dopp_idx, quality_db and
+    snr_db."""
+    assert torch.equal(got[5], want[5]), f"{label} shift {got[5].tolist()} != {want[5].tolist()}"
+    e_idx = float((got[0] - want[0]).abs().max())
+    assert e_idx <= 1e-5 * max(1.0, float(want[0].abs().max())), f"{label} dopp_idx err {e_idx}"
+    e_hz = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
+    assert e_hz < 1e-2, f"{label} Hz err {e_hz}"
+    err = e_idx
+    for i in (1, 4):
+        fin = torch.isfinite(want[i])
+        assert torch.equal(fin, torch.isfinite(got[i])), f"{label} output {i} finiteness differs"
+        assert torch.equal(got[i][~fin].nan_to_num(), want[i][~fin].nan_to_num())
+        if bool(fin.any()):
+            e = float((got[i] - want[i])[fin].abs().max())
+            assert e < 1e-3, f"{label} output {i} err {e} dB"
+            err = max(err, e)
+    return err
+
+
 def check_doppler_estimate(spec, consts, inp, centre=None):
-    """K5 against its plain version, with an all-zero block appended:
-    shift exact, dopp_idx within 1e-5 relative, Hz within 1e-2, quality
-    and SNR within 1e-3 dB (equal where not finite). ``centre``: the (B,)
-    int32 runtime recentre (the appended block gets 0). Returns the max
-    abs error over dopp_idx, quality_db and snr_db."""
+    """K5 against its plain version (``k5_contract``), with an all-zero block
+    appended. ``centre``: the (B,) int32 runtime recentre (the appended
+    block gets 0). Returns the max abs error over dopp_idx, quality_db and
+    snr_db."""
     E = torch.cat([inp["E"], torch.zeros_like(inp["E"][:1])])
     P = torch.cat([inp["P"], torch.zeros_like(inp["P"][:1])])
     args, kw = k5_args(spec, consts, E, P)
@@ -417,20 +455,7 @@ def check_doppler_estimate(spec, consts, inp, centre=None):
     got = ds.doppler_estimate(*args, **kw)
     want = ds.doppler_estimate_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got[5], want[5]), f"K5 shift {got[5].tolist()} != {want[5].tolist()}"
-    e_idx = float((got[0] - want[0]).abs().max())
-    assert e_idx <= 1e-5 * max(1.0, float(want[0].abs().max())), f"K5 dopp_idx err {e_idx}"
-    e_hz = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
-    assert e_hz < 1e-2, f"K5 Hz err {e_hz}"
-    err = e_idx
-    for i in (1, 4):
-        fin = torch.isfinite(want[i])
-        assert torch.equal(fin, torch.isfinite(got[i])), f"K5 output {i} finiteness differs"
-        assert torch.equal(got[i][~fin].nan_to_num(), want[i][~fin].nan_to_num())
-        if bool(fin.any()):
-            e = float((got[i] - want[i])[fin].abs().max())
-            assert e < 1e-3, f"K5 output {i} err {e} dB"
-            err = max(err, e)
+    err = k5_contract(got, want)
     assert float(got[0][-1]) == 0.0 and float(got[4][-1]) == float("-inf"), "K5 idle block"
     return err
 
@@ -770,6 +795,47 @@ def main_path_flagship(conf, protocol, spec, make):
     return dict(ber=ber, lag=lag, bits=len(rx), launches=launches,
                 doppler=[round(a["doppler"], 3) for a in seqA[:3]],
                 snr=[round(a["SNR"], 2) for a in seqA[:3]])
+
+
+def main_path_deep():
+    """The flagship demodulator at xcorrMaskSize 6 (64 masks: K1 in two
+    launches of 32 a call, K5 over 64 masks) on the flagship signal through
+    ``processMany(N_HOPS)``, with the counts set to 0 just before it and
+    read just after; bits and trust equal to the plain path's, BER below
+    1e-3 and the Doppler within half a baud of the injected one, as on the
+    flagship path; K1-K5 must launch, K1 once per mask group a call."""
+    conf = flagship_conf(mask_size=DEEP_MASK_SIZE)
+    protocol = loadProtocol("bench_GFSK")(conf=conf)
+    spec = build_spec(conf, protocol, RADIO)
+    N, ov = spec.Nfft, spec.sigOverlap
+    stream, tx_bits = signal_stream(spec, ov + N_HOPS * (N - ov))
+    hops = stream[ov:].reshape(N_HOPS, N - ov)
+    d = UHF.Demodulator(conf, protocol, RADIO)
+    dp = plain_demodulator(UHF.Demodulator, conf, protocol)
+    for x in (d, dp):
+        x.get_signalBufferHostPointer()[:ov] = stream[:ov]
+    ops.reset_launches()
+    seq = d.processMany(hops)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("deep", launches)
+    groups = len(ds.k1_mask_groups(spec.num_masks))
+    assert launches["doppler_energy"] == groups * launches["doppler_estimate"], \
+        f"M={spec.num_masks}: K1 launched {launches['doppler_energy']} times, " \
+        f"{groups} groups x {launches['doppler_estimate']} K5 launches expected"
+    ref = dp.processMany(hops)
+    for i, (a, b) in enumerate(zip(seq, ref)):
+        for k in ("bits", "trust"):
+            assert np.array_equal(a[k], b[k]), \
+                f"M={spec.num_masks}: kernels != plain at block {i} ({k})"
+        assert abs(a["doppler"] - DOPPLER_HZ) < spec.baudRate / 2, \
+            f"M={spec.num_masks} block {i}: Doppler {a['doppler']} Hz, injected {DOPPLER_HZ}"
+        assert math.isfinite(a["SNR"]) and a["SNR"] > 10, f"block {i}: SNR {a['SNR']}"
+    rx = np.concatenate([a["bits"] for a in seq]).astype(np.int64)
+    ber, lag = best_aligned_ber(rx, tx_bits)
+    assert ber < 1e-3, f"M={spec.num_masks}: BER {ber} at lag {lag}"
+    return dict(masks=spec.num_masks, ber=ber, lag=lag, bits=len(rx), launches=launches,
+                doppler=[round(a["doppler"], 3) for a in seq[:3]])
 
 
 def main_path_stx(conf, protocol, spec, make):
@@ -1261,6 +1327,234 @@ def check_recentre(spec, consts, B):
     e1 = float((Ek - Ep).abs().max())
     assert e1 <= 1e-4 * float(Ep.abs().max()), f"K1 B={B} recentred err {e1}"
     return e1, check_doppler_estimate(spec, consts, dict(inp, E=Ep), centre=centre)
+
+
+# ------------------------------ K5 and K4 redesigned, K1 and K5 at any M and D
+
+#: planted equal grid entries of K5's tie cases: within one thread's entries
+#: of the sum-all form (256 apart), one lane's of the per-mask form (32
+#: apart), across lanes, across warps; then the second pair
+K5_TIES = {"thread": (5, 261, 7, 263), "lane": (5, 37, 1000, 1032), "lanes": (5, 6, 40, 41),
+           "warps": (300, 5, 900, 1200)}
+#: K5's grid cases: (label, D, M, nd, array_offset, ties or None, recentred)
+K5_GRIDS = ([(f"ties in {w}", 2048, 8, 2048, 0, t, False) for w, t in K5_TIES.items()]
+            + [(f"nd={nd}", 2048, 8, nd, off, None, False) for nd in (1, 31, 33, 64)
+               for off in (0, 1)]
+            + [("D=3000", 3000, 8, 2999, 1, None, False)]
+            + [(f"M={M}", 64, M, 64, 0, None, c) for M in (1, 64, 128) for c in (False, True)])
+#: K4's cases at B=64: (label, N, S, W, spsymMin, spsym): the flagship, STX,
+#: one-sample windows, windows wider than the symbol (W > 9: read sample by
+#: sample, not in 16-byte chunks), sparse windows, and spSym far above spsym
+#: (hw at its clamp: the clip words read in global memory after j)
+K4_CASES = (("flagship", 2 ** 16, 4608, 7, 8, 16.0), ("stx", 2 ** 17, 9216, 3, 8, 16.0),
+            ("W=1", 2 ** 13, 600, 1, 8, 16.0), ("W > spc", 2 ** 13, 1100, 24, 4, 8.0),
+            ("sparse", 2 ** 16, 1024, 7, 8, 64.0), ("hw clamp", 2 ** 13, 128, 7, 8, 1500.0))
+#: K1's banks deeper than one launch takes (xcorrMaskSize 6 and 7)
+K1_DEEP_M = (64, 128)
+
+
+def k5_grid_inputs(rng, B, D, M, N=4096, ties=None, signal=True):
+    """Seeded E (B, D, M) and P (B, N) on the card, a random grid in [N/8,
+    3N/8) with its tables, the last block all zero. ``signal``: P four times
+    stronger over [0, N/2) than over the mirrored half, so the SNR's band
+    ratio is near 4 and its dB well conditioned; without it both bands hold
+    noise alone, the ratio is near 1 and the dB of ratio - 1 magnifies the
+    f32 rounding of the band sums (``check_doppler_estimate_noise``).
+    ``ties``: the first two entries set equal above the rest, the next two
+    equal below them."""
+    E = rng.exponential(1.0, (B, D, M)).astype(np.float32)
+    if ties:
+        top = E.max() + 2.0
+        E[:, list(ties[:2])] = top
+        E[:, list(ties[2:])] = top - 1.0
+    E[-1] = 0.0
+    P = rng.exponential(1.0, (B, N)).astype(np.float32)
+    if signal:
+        P[:, :N // 2] *= 4.0  # the signal band: its mirror (the noise band) has a quarter the power
+    P[-1] = 0.0
+    shifts = np.sort(rng.randint(N // 8, 3 * N // 8, D)).astype(np.int32)
+    signed = (np.mod(shifts + N // 2, N) - N // 2).astype(np.int32)
+    hz = np.sort(rng.uniform(-1e4, 1e4, D)).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (E, P, shifts, signed, hz))
+
+
+def k5_grid_kwargs(nd, off, sum_all, centred, N=4096):
+    kw = dict(num_dopplers=nd, array_offset=off, sum_all_masks=sum_all, snr_window=5,
+              centre_freq_offset=1.5e3)
+    if centred:
+        kw.update(centre_shift=torch.tensor([7, -300, N + 5, 0], dtype=torch.int32,
+                                            device="cuda"), bin_hz=9.375)
+    return kw
+
+
+def check_doppler_estimate_grids():
+    """K5 against its plain version (``k5_contract``) on K5_GRIDS, in both
+    mask forms, with an all-zero block; a tie's lower index wins. Returns
+    (max abs err, number of cases)."""
+    rng = np.random.RandomState(SEED + 12)
+    err, n = 0.0, 0
+    for label, D, M, nd, off, ties, centred in K5_GRIDS:
+        args = k5_grid_inputs(rng, 4, D, M, 4096, ties)
+        for sum_all in (True, False):
+            kw = k5_grid_kwargs(nd, off, sum_all, centred)
+            got = ds.doppler_estimate(*args, **kw)
+            want = ds.doppler_estimate_plain(*args, **kw)
+            torch.cuda.synchronize()
+            tag = f"K5 {label} D={D} M={M} nd={nd} offset={off} sum_all={sum_all}"
+            err = max(err, k5_contract(got, want, tag))
+            if ties:
+                a, b = sorted(ties[:2])
+                assert abs(float(got[0][0]) - (a + b) / 2) <= 1e-6 * (a + b), tag
+            n += 1
+    return err, n
+
+
+#: f32's unit roundoff
+F32_U = 2.0 ** -24
+
+
+def band_ratio(snr_db):
+    """K5's band ratio sig / noise from its SNR, 1 + 10^(dB / 20), in
+    float64 (1 where the dB is -inf: ratio - 1 <= 0)."""
+    return 1.0 + torch.pow(10.0, snr_db.double() / 20.0)
+
+
+def snr_f64(P, shifts, dopp_idx, w, centre=None):
+    """K5's SNR in float64 on the bands that ``dopp_idx`` fixes, and the bins
+    a band holds: (B,) each."""
+    D, N = shifts.shape[0], P.shape[1]
+    lo = shifts[torch.clamp(torch.floor(dopp_idx).long(), 0, D - 1)].long()
+    hi = shifts[torch.clamp(torch.ceil(dopp_idx).long(), 0, D - 1)].long()
+    if centre is not None:
+        lo, hi = lo + centre.long(), hi + centre.long()
+    n = torch.remainder(hi - lo + 2 * w, N).double()
+    return ds.compute_snr(torch.sqrt(P.double()), lo, hi, w, N), n
+
+
+def check_doppler_estimate_noise():
+    """K5 on K5_GRIDS with noise alone in both SNR bands, in both mask
+    forms: every output but the SNR under ``k5_contract``; the SNR through
+    its band ratio q = sig / noise, the kernel's and the plain version's
+    each within f32 rounding of q in float64 on the bands its own dopp_idx
+    fixes (at a planted tie the two dopp_idx may fall either side of an
+    integer, one f32 rounding apart, and then take bands a bin apart). The
+    bound, for n bins a band: a band mean of n square roots is within
+    (n + 1) u of its value, the quotient within (2n + 3) u, and ratio - 1,
+    its log10 and the f32 dB that q is rebuilt from add u (1 + |dB| / 2) of
+    ratio - 1, u = 2^-24. Returns the max over cases of |dB kernel - dB
+    f64|, |dB plain - dB f64| (finite f64 SNR), |dB kernel - dB plain| (both
+    finite, the same bands), |q kernel - q f64| / bound, |q plain - q f64| /
+    bound, and the count of blocks whose two bands differ."""
+    rng = np.random.RandomState(SEED + 14)
+    worst, moved = [0.0] * 5, 0
+    for label, D, M, nd, off, ties, centred in K5_GRIDS:
+        args = k5_grid_inputs(rng, 4, D, M, 4096, ties, signal=False)
+        P, shifts = args[1:3]
+        for sum_all in (True, False):
+            kw = k5_grid_kwargs(nd, off, sum_all, centred)
+            got = ds.doppler_estimate(*args, **kw)
+            want = ds.doppler_estimate_plain(*args, **kw)
+            torch.cuda.synchronize()
+            tag = f"K5 noise only {label} D={D} M={M} nd={nd} offset={off} sum_all={sum_all}"
+            k5_contract(tuple(got[:4]) + (want[4],) + tuple(got[5:]), want, tag)
+            for i, x in enumerate((got, want)):
+                db64, n = snr_f64(P, shifts, x[0], kw["snr_window"], kw.get("centre_shift"))
+                q64 = band_ratio(db64)
+                r64 = q64 - 1.0
+                tail = torch.where(r64 > 0, r64 * (1.0 + db64.abs() / 2), torch.zeros_like(r64))
+                gap = (band_ratio(x[4]) - q64).abs() / (F32_U * (q64 * (2 * n + 3) + tail))
+                assert float(gap.max()) <= 1.0, \
+                    f"{tag}: {('kernel', 'plain')[i]} band ratio {gap.max():.3g} x its f32 " \
+                    f"bound from float64"
+                worst[3 + i] = max(worst[3 + i], float(gap.max()))
+                fin = torch.isfinite(db64)
+                if bool(fin.any()):
+                    worst[i] = max(worst[i], float((x[4].double() - db64)[fin].abs().max()))
+            same = ((torch.floor(got[0]) == torch.floor(want[0]))
+                    & (torch.ceil(got[0]) == torch.ceil(want[0])))
+            moved += int((~same).sum())
+            both = same & torch.isfinite(got[4]) & torch.isfinite(want[4])
+            if bool(both.any()):
+                worst[2] = max(worst[2], float((got[4] - want[4])[both].abs().max()))
+    return (*worst, moved)
+
+
+def check_k4_case(case, B=64):
+    """K4 against its plain version on one K4_CASES case at batch B, every
+    output equal: tied magnitudes (the earliest sample wins), A clamped at 0
+    and at N - W, clip hits on the bitmask's word edges and at samples 0 and
+    N - 1; the form without the clip mask; the row form equal, and each
+    block alone equal to its row of the batch. Returns (label, threads a
+    CTA, slots a thread, colargmax read with the windows, slots set to
+    trust -2)."""
+    label, N, S, W, spsymMin, spsym = case
+    rng = np.random.RandomState(N + S + W)
+    lut = torch.tensor([0, 1, 1, 0, 1, 0, 0, 1], dtype=torch.int8, device="cuda")
+    colmax = torch.from_numpy(rng.randint(0, 6, (B, N)).astype(np.float32)).cuda()
+    colarg = torch.from_numpy(rng.randint(0, 8, (B, N)).astype(np.int32)).cuda()
+    sp = spsym * (1 + 0.003 * rng.randn(B))
+    co = rng.uniform(-spsym, spsym, B)
+    co[1::8] = -3 * spsym  # A clamps at 0
+    co[2::8] = N - 2 * spsym  # A clamps at N - W
+    sp = torch.from_numpy(sp.astype(np.float32)).cuda()
+    co = torch.from_numpy(co.astype(np.float32)).cuda()
+    hit = np.zeros((B, N), bool)
+    for b in range(B):
+        edges = 32 * rng.randint(1, N // 32, 4)
+        hit[b, np.r_[edges - 1, edges, rng.randint(0, N, 2)] % N] = True
+    hit[0, 0] = hit[min(1, B - 1), N - 1] = True
+    hit = torch.from_numpy(hit).cuda()
+    hits = dk.pack_bits(hit)
+    kw = dict(Nfft=N, windowWidth=W, spsymMin=spsymMin, numSymMax=S, trust_normal=2)
+    clip = dk.dilate_mask_plain(hit, dk.clip_halfwidth(sp, spsymMin))
+    want = dk.symbol_detect_plain(colmax, colarg, sp, co, lut, clip_mask=clip, **kw)
+    got = dk.symbol_detect(colmax, colarg, sp, co, lut, hits=hits, **kw)
+    unclipped = (dk.symbol_detect(colmax, colarg, sp, co, lut, **kw),
+                 dk.symbol_detect_plain(colmax, colarg, sp, co, lut, **kw))
+    L = 5 * S + 12
+    row = torch.full((B, L), float("nan"), device="cuda")
+    cv = torch.arange(B, dtype=torch.float32, device="cuda")
+    anyc = hit.any(dim=-1).to(torch.int32)
+    dk.symbol_detect(colmax, colarg, sp, co, lut, hits=hits, row=row, code_val=cv,
+                     clipped_any=anyc, **kw)
+    alone = torch.full((B, L), float("nan"), device="cuda")
+    for b in range(B):
+        dk.symbol_detect(colmax[b:b + 1], colarg[b:b + 1], sp[b:b + 1], co[b:b + 1], lut,
+                         hits=hits[b:b + 1], row=alone[b:b + 1], code_val=cv[b:b + 1],
+                         clipped_any=anyc[b:b + 1], **kw)
+    torch.cuda.synchronize()
+    tag = f"K4 {label} N={N} S={S} W={W} spsym={spsym}"
+    for name, u, v in zip(("symbols", "centres", "mags", "bits", "trust", "nSym", "at_win"),
+                          got, want):
+        assert torch.equal(u, v), f"{tag}: {name} differs"
+    assert all(torch.equal(u, v) for u, v in zip(*unclipped)), f"{tag}: without the clip mask"
+    for i, t in enumerate((want[3], want[4], want[0], want[1], want[2])):
+        assert torch.equal(row[:, i * S:(i + 1) * S], t.float()), f"{tag}: row array {i}"
+    assert torch.equal(alone[:, :5 * S + 5], row[:, :5 * S + 5]), \
+        f"{tag}: a block alone != its row of the batch"
+    assert bool(want[6].any()), f"{tag}: no slot met the clip window"
+    assert bool((want[5] < S).any()), f"{tag}: every block filled all {S} slots"
+    return (label, *dk.k4_plan(B, S), int(want[6].sum()))
+
+
+def check_doppler_energy_deep(consts):
+    """K1 at the flagship grid with K1_DEEP_M random masks (one launch per
+    group of at most 32, ``check_k1``), without and with a recentre; a
+    wrapper call counts one launch per group. Returns [(M, groups, max err / max|E|)]."""
+    rng = np.random.RandomState(SEED + 13)
+    N = consts.Q.shape[1]
+    P = torch.from_numpy(rng.exponential(1.0, (K1_BATCH, N)).astype(np.float32)).cuda()
+    out = []
+    for M in K1_DEEP_M:
+        Q = torch.from_numpy(rng.exponential(1.0, (M, N)).astype(np.float32)).cuda()
+        before = ds.doppler_energy.launches
+        E = ds.doppler_energy(P, Q, consts.shifts)
+        groups = len(ds.k1_mask_groups(M))
+        assert ds.doppler_energy.launches == before + groups and E.shape[2] == M
+        rel = max(check_k1(P, Q, consts.shifts, cs, f"M={M} recentred={cs is not None}")
+                  for cs in (None, recentres(N, K1_BATCH)))
+        out.append((M, groups, rel))
+    return out
 
 
 # ------------------------------------------------------------ K1 on the tensor cores
@@ -1995,26 +2289,37 @@ KERNEL_FUNCS = {
 }
 
 
+#: the wrapper that launches a KERNEL_FUNCS entry, where its name differs
+KERNEL_WRAPPER = {"channelize_wide": "channelize"}
+
+
 def device_ms(fn, kernel, calls=20):
     """Mean device ms per call of ``fn`` spent in ``kernel``'s own __global__
-    functions: torch.profiler over ``calls`` calls after a warm one."""
+    functions: torch.profiler over ``calls`` calls after a warm one. The
+    trace must hold every launch: ``calls`` x the wrapper's launches in the
+    warm call x the kernel's functions (each runs once a launch). A trace
+    that lost any is taken again, five times at most."""
     names = re.compile(r"(^|[\s:])(%s)[<(]" % "|".join(KERNEL_FUNCS[kernel]))
+    wrapper = ops.kernel_wrappers()[KERNEL_WRAPPER.get(kernel, kernel)]
+    before = wrapper.launches
     fn()
     torch.cuda.synchronize()
+    want = calls * (wrapper.launches - before) * len(KERNEL_FUNCS[kernel])
+    assert want > 0, f"{kernel}: the timed call launched no kernel"
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    seen = []
-    for _ in range(3):  # a trace now and then comes back without device events
+    got = []
+    for _ in range(5):  # a trace now and then comes back with events missing
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in dev if names.search(e.key))
-        if us > 0:
-            return us / 1e3 / calls
-        seen = [e.key for e in dev]
-    raise AssertionError(f"{kernel}: three traces saw none of {KERNEL_FUNCS[kernel]}; device "
-                         f"events of the last: {seen}")
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and names.search(e.key)]
+        got.append(sum(e.count for e in ev))
+        if got[-1] == want:
+            return sum(e.self_device_time_total for e in ev) / 1e3 / calls
+    raise AssertionError(f"{kernel}: five traces held {got} launches of "
+                         f"{KERNEL_FUNCS[kernel]}, not {want}")
 
 
 def snr_band_bins(spec, consts, dopp_idx):
@@ -2384,6 +2689,28 @@ def main() -> int:
     rel = check_doppler_energy_batch(consts["flagship"])
     say("kernels", f"K1 flagship B=64 recentred: each block alone == its row of the batch, two "
                    f"runs bit-equal; max err {rel:.3e} of max|E|")
+    for M, groups, rel in check_doppler_energy_deep(consts["flagship"]):
+        say("kernels", f"K1 M={M} (xcorrMaskSize {M.bit_length() - 1}) at the flagship grid: "
+                       f"{groups} launches of at most {ds.K1_MAX_MASKS} masks a call; vs plain "
+                       f"OK at B={K1_BATCH} with and without a recentre, max err {rel:.3e} of "
+                       f"max|E| (bar {K1_REL}); each block alone == its row, two runs bit-equal")
+    e5, n5 = check_doppler_estimate_grids()
+    errs["doppler_estimate"] = max(errs["doppler_estimate"], e5)
+    say("kernels", f"K5 vs plain OK on {n5} cases (both mask forms of {len(K5_GRIDS)} grids: "
+                   f"ties within a thread, a lane, across lanes and warps; nd 1, 31, 33, 64 of "
+                   f"D=2048 at offset 0 and 1; D=3000; M=1, 64, 128 with and without a "
+                   f"recentre), max abs err {e5:.4g}")
+    dk64, dp64, dkp, qk, qp, moved = check_doppler_estimate_noise()
+    say("kernels", f"K5 with noise alone in both SNR bands ({2 * len(K5_GRIDS)} cases, the band "
+                   f"ratio near 1): every output but the SNR vs plain OK; the band ratio within "
+                   f"f32 rounding of float64's, kernel {qk:.3g} and plain {qp:.3g} of the bound; "
+                   f"SNR from float64: kernel {dk64:.4g} dB, plain {dp64:.4g} dB; kernel from "
+                   f"plain {dkp:.4g} dB on the same bands; blocks on bands a bin apart: {moved}")
+    for label, threads, spt, argwin, clipped in map(check_k4_case, K4_CASES):
+        say("kernels", f"K4 {label} B=64 vs plain OK (every output equal, the row form, each "
+                       f"block alone == its row, which runs the B=1 plan; {threads} threads x "
+                       f"{spt} slots a CTA, colargmax with the windows: {argwin}; {clipped} "
+                       f"slots trust -2)")
     for label, spec_, consts_ in (("flagship", fspec, consts["flagship"]),
                                   ("stx", cfg["stx"][2], consts["stx"]),
                                   ("bench_BPSK", bspec, bconsts)):
@@ -2402,6 +2729,9 @@ def main() -> int:
     for p in res:
         say("main", f"{p} process x16 == processMany(16) == processCapture == plain path; "
                     + json.dumps(res[p]))
+    res["deep"] = main_path_deep()
+    say("main", f"deep flagship xcorrMaskSize {DEEP_MASK_SIZE} ({res['deep']['masks']} masks) "
+                f"processMany({N_HOPS}) == plain path; " + json.dumps(res["deep"]))
     res["ccsds"] = main_path_ccsds()
     say("main", f"ccsds {CCSDS_FRAMES} frames bit-exact at {list(SNRS_DB)} dB via process and "
                 f"processMany(16); plain path's packets equal at {SNRS_DB[-1]} dB; "

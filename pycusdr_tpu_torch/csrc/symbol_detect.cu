@@ -18,21 +18,44 @@
 // dilate_mask_dynamic (:622-648) and the trust fill of
 // dsp/block.py:296-331. Every TPU route (window trees, van Herk scans,
 // one-hot MXU row selects, f32-packed payloads, the prefix-count
-// dilation of the whole clip mask) existed to avoid a gather; here one
-// thread per slot reads its W samples directly, and tests the dilated
-// clip window only where it is sampled: the OR of the <= 2*hw_max/32 + 2
-// bitmask words around its winning sample.
+// dilation of the whole clip mask) existed to avoid a gather; here a
+// thread reads its slot's window directly, and tests the dilated clip
+// window only where it is sampled: the OR of the bitmask words around its
+// winning sample.
 //
 // Output: typed arrays, or (row != NULL) f32 straight into the packed row
 // (b * L): bits, trust, symbols, centres, mags at 0, S, .., 4S, and the
 // scalars nSym, nBits, spSym, codeOffset, code_val, clipped_any at 5S + 0,
 // 1, 2, 3, 4 and 11 (PACK_SCALARS order).
 //
-// Bound: ~7 x 4608 scattered 4-byte reads and 18 bytes written per slot
-// (~0.2 MB per flagship block): far below a microsecond, so the launch
-// bounds it. The slot arithmetic must round exactly as JAX's separate
-// f32 multiply and add do: nvcc would contract a*b+c into one FMA and
-// move a truncation boundary, so it is spelled with __f*_rn.
+// Bound: ~7 x 4608 4-byte reads of colmax and one of colargmax per slot,
+// 14 bytes written per slot (~0.3 MB per flagship block): at B=1 the chain
+// of dependent reads bounds it, at B=64 the bytes and the CTAs launched.
+// A thread takes SPT slots, x = CTA start + s * blockDim + thread (stores
+// coalesced), and reads each window as the (at most 3) 16-byte chunks that
+// cover it (a window wider than kMaxChunkW samples, or a row that is not
+// 16-byte aligned, sample by sample, one slot a thread).
+// ops/demod_kernels.py:k4_plan picks by B x S (the plan changes no bit):
+// - few slots (B=1): 64 threads a CTA, one slot each (72 CTAs for the
+//   flagship block, the parent's 36), and the colargmax chunks read with
+//   colmax's, so the symbol needs no read after the winning sample is
+//   known: one round trip after spSym and codeOffset;
+// - many slots (B=16, 64): 128 threads, one or two slots each (fewer CTAs
+//   to launch), and colargmax read at the winning sample only: the
+//   windows' other colargmax sectors cost more bytes than the round trip
+//   saves there. Each thread issues all its slots' reads before any store.
+// With a clip mask the words covering [A - hw, A + W - 1 + hw] depend on A
+// alone: up to kRegWords of them are read with the window and tested in
+// registers against [j - hw, j + hw]; a wider range (hw near its clamp)
+// is tested in global memory after j.
+// A form that staged each CTA's span of colmax and colargmax in shared
+// memory with 16-byte cp.async and scanned it there measured slower at
+// every B (a stride of spc samples between threads' windows conflicts in
+// the banks, the staging room capped the CTAs an SM holds, and it reads
+// every sector of colargmax); it is not kept.
+// The slot arithmetic must round exactly as JAX's separate f32 multiply and
+// add do: nvcc would contract a*b+c into one FMA and move a truncation
+// boundary, so it is spelled with __f*_rn.
 //
 // K4n, for protocols without a centre-bit LUT (NRZ-S, bench_BPSK): bit i
 // is the (symbol[i], symbol[i+1 mod S]) transition looked up in the (M, 2,
@@ -51,7 +74,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;  // threads of a K4 CTA: 64 or 128
+constexpr int kMaxChunkW = 9;     // windows up to this wide take 3 chunks at most
+constexpr int kRegWords = 4;      // clip words a slot holds in registers
 constexpr int kNrzsThreads = 256;
 constexpr int8_t kTrustClipped = -2;
 
@@ -59,7 +84,7 @@ constexpr int8_t kTrustClipped = -2;
 __device__ bool any_hit(const unsigned* __restrict__ w, int lo, int hi) {
     const int w0 = lo >> 5, w1 = hi >> 5;
     for (int i = w0; i <= w1; ++i) {
-        unsigned m = w[i];
+        unsigned m = __ldg(w + i);
         if (i == w0) m &= 0xffffffffu << (lo & 31);
         if (i == w1) m &= 0xffffffffu >> (31 - (hi & 31));
         if (m) return true;
@@ -67,7 +92,16 @@ __device__ bool any_hit(const unsigned* __restrict__ w, int lo, int hi) {
     return false;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Slot x's x * spc - W / 2 (JAX's separate f32 multiply and add, each
+// rounded), and its unclamped window start A0 = trunc(that + codeOffset).
+__device__ __forceinline__ float slot_xs(int x, float spc, int W) {
+    return __fsub_rn(__fmul_rn((float)x, spc), (float)(W / 2));
+}
+
+// grid (ceil(S / (blockDim.x * SPT)), B); kVec: windows of at most kMaxChunkW
+// samples in 16-byte aligned rows, read as chunks (else sample by sample)
+template <int SPT, bool kArgWin, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
 symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
               const float* __restrict__ spSym, const float* __restrict__ codeOffset,
               const int8_t* __restrict__ bitLUT, const unsigned* __restrict__ hits,
@@ -76,12 +110,16 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
               int8_t* __restrict__ bits, int8_t* __restrict__ trust, int* __restrict__ nSym,
               float* __restrict__ row, int L, int N, int W, int spsymMin, int S,
               int trust_normal, int hw_max) {
-    const int b = blockIdx.y;
-    const int x = blockIdx.x * kThreads + threadIdx.x;
+    const int b = blockIdx.y, T = blockDim.x, tid = threadIdx.x;
+    const int x0 = blockIdx.x * T * SPT;
     const float spc = fmaxf(spSym[b], (float)spsymMin);
     const float co = codeOffset[b];
+    const float* cm = colmax + (size_t)b * N;
+    const int* ca = colarg + (size_t)b * N;
+    const unsigned* hrow = hits ? hits + (size_t)b * (N / 32) : nullptr;
+    const int hw = hits ? min(max(2 * (int)ceilf(spc), 0), hw_max) : 0;
     float* r = row ? row + (size_t)b * L : nullptr;
-    if (x == 0) {
+    if (x0 + tid == 0) {
         const int ns = (int)__fdiv_rn((float)N, spc);
         if (r) {
             float* sc = r + 5 * (size_t)S;
@@ -95,45 +133,109 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
             nSym[b] = ns;
         }
     }
-    if (x >= S) return;
 
-    const float xs = __fsub_rn(__fmul_rn((float)x, spc), (float)(W / 2));
-    const int A0 = (int)truncf(__fadd_rn(xs, co));
-    const int comp = (int)truncf(co) - min(A0, 0);
-    const int A = min(max(A0, 0), max(N - W, 0));
-
-    const float* v = colmax + (size_t)b * N + A;
-    float best = v[0];
-    int k = 0;
-    for (int i = 1; i < W; ++i) {
-        const float vi = v[i];
-        if (vi > best) {  // strict: the earliest sample wins ties
-            best = vi;
-            k = i;
+    // every slot's window (and its clip words) first: the reads of all slots
+    // are in flight together
+    float best[SPT], xs[SPT];
+    int sym[SPT], k[SPT], A[SPT], A0[SPT], wlo[SPT];
+    unsigned wd[SPT][kRegWords];
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) {
+        const int x = min(x0 + s * T + tid, S - 1);  // a slot past S reads in range, stores nothing
+        xs[s] = slot_xs(x, spc, W);
+        A0[s] = (int)truncf(__fadd_rn(xs[s], co));
+        const int a = A[s] = min(max(A0[s], 0), max(N - W, 0));
+        float bst = -INFINITY;
+        int sy = 0, kk = -1;
+        if (kVec) {  // the (at most 3) 16-byte chunks that cover [a, a + W)
+            const int q0 = a >> 2, q1 = (a + W - 1) >> 2;
+            const float4* v4 = reinterpret_cast<const float4*>(cm);
+            const int4* g4 = reinterpret_cast<const int4*>(ca);
+#pragma unroll
+            for (int qq = 0; qq < 3; ++qq) {
+                const int q = q0 + qq;
+                if (q > q1) break;
+                const float4 f = __ldg(v4 + q);
+                int4 g = make_int4(0, 0, 0, 0);
+                if (kArgWin) g = __ldg(g4 + q);
+                const float fv[4] = {f.x, f.y, f.z, f.w};
+                const int gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {  // strict: the earliest sample wins ties
+                    const int i = 4 * q + e - a;
+                    const bool up = i >= 0 && i < W && (kk < 0 || fv[e] > bst);
+                    bst = up ? fv[e] : bst;
+                    sy = up ? gv[e] : sy;
+                    kk = up ? i : kk;
+                }
+            }
+        } else {
+#pragma unroll 4
+            for (int i = 0; i < W; ++i) {
+                const float vi = __ldg(cm + a + i);
+                const int gi = kArgWin ? __ldg(ca + a + i) : 0;
+                const bool up = i == 0 || vi > bst;
+                bst = up ? vi : bst;
+                sy = up ? gi : sy;
+                kk = up ? i : kk;
+            }
+        }
+        best[s] = bst;
+        sym[s] = sy;
+        k[s] = kk;
+        if (hrow) {
+            wlo[s] = max(a - hw, 0) >> 5;
+            const int nw = (min(a + W - 1 + hw, N - 1) >> 5) - wlo[s] + 1;
+#pragma unroll
+            for (int u = 0; u < kRegWords; ++u)
+                wd[s][u] = u < nw && nw <= kRegWords ? __ldg(hrow + wlo[s] + u) : 0u;
+            if (nw > kRegWords) wlo[s] = -1;  // tested in global memory
         }
     }
-    const int j = A + k;
-    const int sym = colarg[(size_t)b * N + j];
-    const int centre = (int)truncf(__fadd_rn(xs, (float)k)) + comp;
-    int8_t tr = (int8_t)trust_normal;
-    if (hits) {
-        const int hw = min(max(2 * (int)ceilf(spc), 0), hw_max);
-        if (any_hit(hits + (size_t)b * (N / 32), max(j - hw, 0), min(j + hw, N - 1)))
-            tr = kTrustClipped;
+    if (!kArgWin) {  // the symbol at each winning sample, all slots' reads together
+#pragma unroll
+        for (int s = 0; s < SPT; ++s) sym[s] = __ldg(ca + A[s] + k[s]);
     }
-    if (r) {
-        r[x] = bitLUT ? (float)bitLUT[sym] : 0.f;
-        r[S + x] = (float)tr;
-        r[2 * (size_t)S + x] = (float)sym;
-        r[3 * (size_t)S + x] = (float)centre;
-        r[4 * (size_t)S + x] = best;
-    } else {
-        const size_t o = (size_t)b * S + x;
-        symbols[o] = sym;
-        mags[o] = best;
-        centres[o] = centre;
-        bits[o] = bitLUT ? bitLUT[sym] : (int8_t)0;
-        trust[o] = tr;
+
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) {
+        const int x = x0 + s * T + tid;
+        if (x >= S) break;
+        const int j = A[s] + k[s];
+        const int comp = (int)truncf(co) - min(A0[s], 0);
+        const int centre = (int)truncf(__fadd_rn(xs[s], (float)k[s])) + comp;
+        int8_t tr = (int8_t)trust_normal;
+        if (hrow) {
+            const int lo = max(j - hw, 0), hi = min(j + hw, N - 1);
+            bool hit = false;
+            if (wlo[s] < 0) {
+                hit = any_hit(hrow, lo, hi);
+            } else {
+#pragma unroll
+                for (int u = 0; u < kRegWords; ++u) {
+                    const int wi = wlo[s] + u;
+                    unsigned m = wi < (lo >> 5) || wi > (hi >> 5) ? 0u : wd[s][u];
+                    if (wi == (lo >> 5)) m &= 0xffffffffu << (lo & 31);
+                    if (wi == (hi >> 5)) m &= 0xffffffffu >> (31 - (hi & 31));
+                    hit |= m != 0;
+                }
+            }
+            if (hit) tr = kTrustClipped;
+        }
+        if (r) {
+            r[x] = bitLUT ? (float)bitLUT[sym[s]] : 0.f;
+            r[S + x] = (float)tr;
+            r[2 * (size_t)S + x] = (float)sym[s];
+            r[3 * (size_t)S + x] = (float)centre;
+            r[4 * (size_t)S + x] = best[s];
+        } else {
+            const size_t o = (size_t)b * S + x;
+            symbols[o] = sym[s];
+            mags[o] = best[s];
+            centres[o] = centre;
+            bits[o] = bitLUT ? bitLUT[sym[s]] : (int8_t)0;
+            trust[o] = tr;
+        }
     }
 }
 
@@ -171,6 +273,11 @@ nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, in
 // clipped_any: (B,) i32 or NULL (0). Either the typed outputs symbols,
 // centres: (B, S) i32; mags: (B, S) f32; bits, trust: (B, S) int8; nSym:
 // (B,) i32 -- or row: (B, L) f32, L >= 5 S + 12, with the typed pointers NULL.
+// threads: 64 or 128 a CTA; spt: slots a thread, 1 or 2; argwin: read the
+// colargmax chunks with colmax's (1) or colargmax at the winning sample (0).
+// All three from ops/demod_kernels.py:k4_plan. Windows wider than
+// kMaxChunkW or rows not 16-byte aligned take one slot a thread, sample by
+// sample, colargmax at the winning sample.
 PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
                                       const float* spSym, const float* codeOffset,
                                       const int8_t* bitLUT, const unsigned* hits,
@@ -178,15 +285,31 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
                                       int* symbols, int* centres, float* mags, int8_t* bits,
                                       int8_t* trust, int* nSym, float* row, int L, int B,
                                       int N, int W, int spsymMin, int S, int trust_normal,
-                                      int hw_max, cudaStream_t stream) {
-    if (B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 || (hits && N % 32))
+                                      int hw_max, int threads, int spt, int argwin,
+                                      cudaStream_t stream) {
+    if (B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 || (hits && N % 32) ||
+        !(threads == 64 || threads == kMaxThreads) || !(spt == 1 || spt == 2) ||
+        (argwin && spt != 1))
         return (int)cudaErrorInvalidValue;
     if (row ? (L < 5 * S + 12 || !code_val)
             : (!symbols || !centres || !mags || !bits || !trust || !nSym))
         return (int)cudaErrorInvalidValue;
-    symbol_detect<<<dim3((S + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
-        colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, symbols,
-        centres, mags, bits, trust, nSym, row, L, N, W, spsymMin, S, trust_normal, hw_max);
+    const dim3 grid((S + threads * spt - 1) / (threads * spt), B);
+    const bool vec = W <= kMaxChunkW && N % 4 == 0 && ((uintptr_t)colmax & 15) == 0 &&
+                     ((uintptr_t)colargmax & 15) == 0;
+#define K4_ARGS                                                                              \
+    colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, symbols,     \
+        centres, mags, bits, trust, nSym, row, L, N, W, spsymMin, S, trust_normal, hw_max
+    const dim3 grid1((S + threads - 1) / threads, B);  // one slot a thread
+    if (!vec)
+        symbol_detect<1, false, false><<<grid1, threads, 0, stream>>>(K4_ARGS);
+    else if (argwin)
+        symbol_detect<1, true, true><<<grid, threads, 0, stream>>>(K4_ARGS);
+    else if (spt == 1)
+        symbol_detect<1, false, true><<<grid, threads, 0, stream>>>(K4_ARGS);
+    else
+        symbol_detect<2, false, true><<<grid, threads, 0, stream>>>(K4_ARGS);
+#undef K4_ARGS
     return (int)cudaGetLastError();
 }
 

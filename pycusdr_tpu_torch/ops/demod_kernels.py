@@ -312,6 +312,26 @@ timing_band.launches = 0
 
 # ---------------------------------------------------------------- K4
 
+#: up to this many slots a launch (B x numSymMax), K4 reads colargmax with
+#: colmax's windows and gives each of 64 threads a CTA one slot: B=1 is
+#: latency-bound
+K4_LATENCY_SLOTS = 16384
+#: from this many slots a launch, a K4 thread takes two slots: fewer CTAs
+K4_TWO_SLOTS = 2 ** 18
+#: the 16-byte chunks of a K4 window: at most 3 for windows up to 9 samples
+#: (``csrc/symbol_detect.cu:kMaxChunkW``); clip words held in registers
+K4_MAX_CHUNK_W, K4_REG_WORDS = 9, 4
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(B: int, S: int):
+    """K4's launch for B blocks of S slots: (threads a CTA, slots a thread,
+    whether colargmax is read with colmax's windows). It changes no bit,
+    only the order and the grouping of the reads."""
+    if B * S <= K4_LATENCY_SLOTS:
+        return 64, 1, True
+    return 128, 2 if B * S >= K4_TWO_SLOTS else 1, False
+
 
 def _slot_geometry(spSym, codeOffset, W: int, N: int, S: int, spsymMin: int):
     """K4's slot arithmetic, one rounded f32 op at a time: (spc, x*spc -
@@ -441,7 +461,7 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
                 _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(hits), _lib.ptr(code_val),
                 _lib.ptr(clipped_any), *map(_lib.ptr, typed), _lib.ptr(row),
                 0 if row is None else row.shape[1], B, N, windowWidth, spsymMin, S,
-                trust_normal, CLIP_HW_MAX)
+                trust_normal, CLIP_HW_MAX, *k4_plan(B, S))
     symbol_detect.launches += 1
     if row is not None:
         return row

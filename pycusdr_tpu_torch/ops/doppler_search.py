@@ -11,7 +11,8 @@ with P = |S|^2 and Q = |masks_f|^2 (``dsp/reference.py:67-76`` is the
 golden form). ``doppler_energy`` evaluates it directly: on a CUDA tensor
 with the hand-written kernel ``csrc/doppler_energy.cu`` (3xTF32 products
 on the tensor cores over staged P windows, laid out by
-``doppler_energy_plan`` and launched on ``k1_grid``), on a CPU tensor
+``doppler_energy_plan`` and launched on ``k1_grid``; a bank of more than
+32 masks runs one launch per ``k1_mask_groups`` group), on a CPU tensor
 with ``doppler_energy_plain``.
 """
 
@@ -44,6 +45,8 @@ K1_SMEM = 112 * 1024
 K1_WINDOW_SLACK = 8
 #: CTAs K1's launch aims at: two resident on each SM, less a tenth
 K1_CTA_TARGET = 2 * SM_COUNT * 9 // 10
+#: masks of one K1 launch: its mma tiles take at most 32 columns
+K1_MAX_MASKS = 32
 
 
 @dataclass(frozen=True)
@@ -109,7 +112,7 @@ def doppler_energy_plan(shifts, N: int, M: int) -> K1Plan:
     fit reads P from global memory."""
     s = np.mod(np.asarray(shifts, np.int64).reshape(-1), N)
     D = len(s)
-    if D == 0 or M <= 0 or M > 32 or N <= 0:
+    if D == 0 or M <= 0 or M > K1_MAX_MASKS or N <= 0:
         raise ValueError(f"doppler_energy_plan: N={N}, D={D}, M={M} not supported")
     MP = 8 * (1 if M <= 8 else 2 if M <= 16 else 4)
     L = min(K1_Q_FLOATS // MP, -(-N // 256) * 256)
@@ -155,20 +158,32 @@ def k1_grid(B: int, nch: int, T: int, tg_max: int):
     return 1, 1
 
 
+def k1_mask_groups(M: int):
+    """K1's launches for a bank of M masks: [(m0, m1)], contiguous groups of
+    at most ``K1_MAX_MASKS`` rows of Q in mask order, the last one holding
+    the rest. Each group's rows of the (M, N) Q are a view, and each sums in
+    the order its own plan (N and m1 - m0) fixes."""
+    return [(m0, min(m0 + K1_MAX_MASKS, M)) for m0 in range(0, M, K1_MAX_MASKS)]
+
+
 def _device_plan(shifts: torch.Tensor, N: int, M: int):
     """``doppler_energy_plan`` of the grid tensor with its rows on the grid's
-    device, kept on the tensor: the grid is a constant of the spec, so it is
-    read back (one copy) only at the first call and after an in-place change
-    (``_version``). An inference tensor keeps no version, so its plan is
-    built anew at every call. Returns (plan, the kernel's table)."""
-    key = None if shifts.is_inference() else (N, M, shifts._version)
-    cached = getattr(shifts, "_k1_plan", None)
-    if key is None or cached is None or cached[0] != key:
+    device, kept on the tensor per (N, M): the grid is a constant of the
+    spec, so it is read back (one copy) only at the first call and after an
+    in-place change (``_version``). An inference tensor keeps no version, so
+    its plan is built anew at every call. Returns (plan, the kernel's
+    table)."""
+    version = None if shifts.is_inference() else shifts._version
+    plans = getattr(shifts, "_k1_plans", None)
+    cached = None if plans is None else plans.get((N, M))
+    if version is None or cached is None or cached[0] != version:
         grid = shifts.cpu().numpy()
         plan = doppler_energy_plan(grid, N, M)
-        cached = (key, plan, torch.from_numpy(plan.table(grid)).to(shifts.device))
-        if key is not None:
-            shifts._k1_plan = cached
+        cached = (version, plan, torch.from_numpy(plan.table(grid)).to(shifts.device))
+        if version is not None:
+            if plans is None:
+                plans = shifts._k1_plans = {}
+            plans[(N, M)] = cached
     return cached[1:]
 
 
@@ -209,18 +224,29 @@ def doppler_energy_plain(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
 
 
 def _launch_k1(P, Q, shifts, centre_shift) -> torch.Tensor:
-    """Check the operands and launch ``csrc/doppler_energy.cu`` on CUDA ``P``."""
+    """Check the operands and launch ``csrc/doppler_energy.cu`` on CUDA ``P``,
+    once per ``k1_mask_groups`` group; E's columns are put together in mask
+    order."""
     if P.device.type != "cuda":
         raise ValueError(f"doppler_energy: unsupported device {P.device}")
     B, N = P.shape
     M, D = Q.shape[0], shifts.shape[0]
-    if M > 32:
-        raise ValueError(f"doppler_energy: at most 32 masks, got {M}")
     _lib.check(P, "P", torch.float32, (B, N))
     _lib.check(Q, "Q", torch.float32, (M, N), P.device)
     _lib.check(shifts, "shifts", torch.int32, (D,), P.device)
     if centre_shift is not None:
         _lib.check(centre_shift, "centre_shift", torch.int32, (B,), P.device)
+    if M <= K1_MAX_MASKS:
+        return _launch_k1_group(P, Q, shifts, centre_shift)
+    return torch.cat([_launch_k1_group(P, Q[m0:m1], shifts, centre_shift)
+                      for m0, m1 in k1_mask_groups(M)], dim=2)
+
+
+def _launch_k1_group(P, Q, shifts, centre_shift) -> torch.Tensor:
+    """One K1 launch over the (Mg <= 32, N) rows ``Q`` (checked operands);
+    each launch adds one to ``doppler_energy.launches``."""
+    B, N = P.shape
+    M, D = Q.shape[0], shifts.shape[0]
     plan, rows = _device_plan(shifts, N, M)
     tg, bt = k1_grid(B, plan.nch, plan.T, plan.tg_max)
     stream = torch.cuda.current_stream().cuda_stream
@@ -232,6 +258,7 @@ def _launch_k1(P, Q, shifts, centre_shift) -> torch.Tensor:
                 _lib.ptr(centre_shift), _lib.ptr(rows), _lib.ptr(part), _lib.ptr(count),
                 _lib.ptr(E), B, N, D, M, plan.L, plan.T, plan.wwin, tg, bt, int(vec),
                 N / ABS_SUM_SCALE, stream=stream)
+    doppler_energy.launches += 1
     return E
 
 
@@ -242,9 +269,7 @@ def doppler_energy(P: torch.Tensor, Q: torch.Tensor, shifts: torch.Tensor,
     ``csrc/doppler_energy.cu`` or raises."""
     if P.device.type == "cpu":
         return doppler_energy_plain(P, Q, shifts, centre_shift)
-    E = _launch_k1(P, Q, shifts, centre_shift)
-    doppler_energy.launches += 1
-    return E
+    return _launch_k1(P, Q, shifts, centre_shift)
 
 
 doppler_energy.launches = 0
@@ -321,8 +346,6 @@ def compute_snr(absS: torch.Tensor, fft_lo: torch.Tensor, fft_hi: torch.Tensor,
 
 #: K5's outputs: consecutive scalars of the packed row, written in this order
 K5_OUTPUTS = PACK_SCALARS[SCALAR["dopp_idx"]:SCALAR["shift"] + 1]
-#: at most this many grid entries (K5 keeps the mask sums in shared memory)
-K5_MAX_D = 1024
 
 
 def doppler_estimate_plain(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
@@ -392,7 +415,7 @@ def doppler_estimate(E, P, shifts, shifts_signed, hz_lut, *, num_dopplers: int,
     B, D, M = E.shape
     N = P.shape[1]
     dev = E.device
-    if D > K5_MAX_D or not 0 < num_dopplers <= D - array_offset or array_offset < 0:
+    if not 0 < num_dopplers <= D - array_offset or array_offset < 0:
         raise ValueError(f"doppler_estimate: grid D={D}, num_dopplers={num_dopplers}, "
                          f"offset={array_offset} not supported")
     _lib.check(E, "E", torch.float32, (B, D, M))

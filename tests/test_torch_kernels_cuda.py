@@ -6,7 +6,10 @@ random rows and in the group graph; K9 at four shapes; K1 and K5 with
 ``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
 and K4s on one and two shards, K4s with the clip window, K8 without its
 pad mask, and the generic step; K2 at M=16 and 32, B=1 and 64, and K3 at
-every N from 2^2 to 2^18 at the band edges, with zero and NaN rows).
+every N from 2^2 to 2^18 at the band edges, with zero and NaN rows; K1 at
+33, 64 and 128 masks; K5 with planted ties, grids of 2048 and 3000 entries,
+1 to 128 masks and noise alone in its SNR bands; K4 at B=64 on six window
+shapes, each block alone).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 from pycusdr_tpu_torch import configs
 from pycusdr_tpu_torch.convert import DeviceConsts
 from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
@@ -848,3 +852,113 @@ def test_generic_step_matches_channel_parallel(case, cuda):
         assert torch.equal(fast[k], gen[k]), k
     for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift", "bits_voted"):
         assert torch.equal(gen[k], plain[k]), k
+
+
+# ---- slice 12: K5 and K4 redesigned, K1 and K5 for any mask count and grid
+
+
+def _k5_pair(args, kw):
+    got = ds.doppler_estimate(*args, **kw)
+    want = ds.doppler_estimate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_k5_close(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("sum_all", [True, False])
+@pytest.mark.parametrize("where", list(smoke.K5_TIES))
+def test_doppler_estimate_ties(cuda, where, sum_all):
+    """K5 with planted equal grid entries at D = 2048: within one thread's
+    entries, one lane's, across lanes and across warps. The lower index wins,
+    as the plain version's argmax does."""
+    D, M = 2048, 8
+    rng = np.random.RandomState(len(where))
+    args = smoke.k5_grid_inputs(rng, 3, D, M, ties=smoke.K5_TIES[where])
+    kw = dict(num_dopplers=D, array_offset=0, sum_all_masks=sum_all, snr_window=5,
+              centre_freq_offset=0.0)
+    got, want = _k5_pair(args, kw)
+    a, b = sorted(smoke.K5_TIES[where][:2])
+    assert float(want[0][0]) == pytest.approx((a + b) / 2, rel=1e-6)
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("nd", [1, 31, 33, 64, 2047])
+@pytest.mark.parametrize("D", [2048, 3000])
+def test_doppler_estimate_grid_sizes(cuda, D, nd, off):
+    """K5 over nd of D grid entries from array_offset, both forms, at D =
+    2048 and 3000 (more grid entries than K5 has threads)."""
+    nd = min(nd, D - off)
+    rng = np.random.RandomState(D + nd + off)
+    args = smoke.k5_grid_inputs(rng, 4, D, 8)
+    for sum_all in (True, False):
+        _k5_pair(args, dict(num_dopplers=nd, array_offset=off, sum_all_masks=sum_all,
+                            snr_window=5, centre_freq_offset=1.5e3))
+
+
+@pytest.mark.parametrize("centred", [False, True])
+@pytest.mark.parametrize("sum_all", [True, False])
+@pytest.mark.parametrize("M", [1, 5, 64, 128])
+def test_doppler_estimate_mask_counts(cuda, M, sum_all, centred):
+    """K5 at M = 1 to 128 masks (xcorrMaskSize up to 7; the per-mask form's
+    means run in rounds of 32 masks), with and without a recentre, E also
+    into the packed row."""
+    D, N, B = 64, 4096, 4
+    rng = np.random.RandomState(M)
+    args = smoke.k5_grid_inputs(rng, B, D, M, N=N)
+    kw = dict(num_dopplers=D, array_offset=0, sum_all_masks=sum_all, snr_window=5,
+              centre_freq_offset=0.0)
+    if centred:
+        kw.update(centre_shift=torch.tensor([7, -300, N + 5, 0], dtype=torch.int32,
+                                            device=cuda), bin_hz=9.375)
+    got, _ = _k5_pair(args, kw)
+    row = torch.full((B, 3 + 12 + D * M), float("nan"), device=cuda)  # a row misaligned by 12 B
+    tail = row[:, 3:]
+    ds.doppler_estimate(*args, **kw, tail=tail)
+    torch.cuda.synchronize()
+    assert torch.equal(tail[:, 5:11], torch.stack([v.float() for v in got], dim=-1))
+    assert torch.equal(tail[:, 12:], args[0].reshape(B, -1))
+
+
+@pytest.mark.parametrize("case4", smoke.K4_CASES, ids=[k[0] for k in smoke.K4_CASES])
+def test_symbol_detect_windows(cuda, case4):
+    """K4 at B = 64 against its plain version on chip_smoke's K4_CASES, every
+    output equal: tied magnitudes (the earliest sample wins), A clamped at 0
+    and at N - W, clip hits on the bitmask's word edges, the form without
+    the clip mask, the row form, and each block alone equal to its row of
+    the batch (``chip_smoke.check_k4_case``)."""
+    smoke.check_k4_case(case4)
+
+
+def test_doppler_estimate_noise_bands(cuda):
+    """K5 with noise alone in both SNR bands (the band ratio near 1, where
+    the dB of ratio - 1 magnifies f32 rounding): every output but the SNR
+    under the contract, and the kernel's band ratio and the plain
+    version's each within f32 rounding of float64's
+    (``chip_smoke.check_doppler_estimate_noise``)."""
+    worst = smoke.check_doppler_estimate_noise()
+    assert max(worst[3:5]) <= 1.0
+
+
+@pytest.mark.parametrize("M", [33, 64, 128])
+def test_doppler_energy_deep_banks(cuda, M):
+    """K1 at more than 32 masks (xcorrMaskSize 6 and 7): one launch per
+    group of at most 32 masks, E's columns in mask order, within 1e-4 of
+    max|E| of the plain version, with and without a recentre; a block
+    alone equals its row of the batch; a wrapper call counts one launch
+    per group."""
+    N, D, B = 2 ** 13, 64, 4
+    rng = np.random.RandomState(M)
+    P = torch.from_numpy(rng.exponential(1.0, (B, N)).astype(np.float32)).to(cuda)
+    Q = torch.from_numpy(rng.exponential(1.0, (M, N)).astype(np.float32)).to(cuda)
+    shifts = torch.from_numpy((rng.randint(0, N) + 3 * np.arange(D)).astype(np.int32) % N
+                              ).to(cuda)
+    centre = torch.tensor([0, 5, -9, N + 1], dtype=torch.int32, device=cuda)
+    for cs in (None, centre):
+        before = ds.doppler_energy.launches
+        Ek = ds.doppler_energy(P, Q, shifts, cs)
+        assert ds.doppler_energy.launches == before + len(ds.k1_mask_groups(M))
+        Ep = ds.doppler_energy_plain(P, Q, shifts, cs)
+        assert Ek.shape == (B, D, M)
+        assert float((Ek - Ep).abs().max()) <= 1e-4 * float(Ep.abs().max())
+        one = ds.doppler_energy(P[2:3], Q, shifts, None if cs is None else cs[2:3])
+        assert torch.equal(one[0], Ek[2])
