@@ -1,7 +1,8 @@
-"""K7 and ``ViterbiStream.feed``, K1, or K5 and K4, and the graphs around
-them, of two checkouts, timed in turns on one card.
+"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, or K6, and the graphs
+around them, of two checkouts, timed in turns on one card.
 
-    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler|detect] [--rounds R]
+    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler|detect|threshold]
+                               [--rounds R]
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
 the parent commit unpacked under ``build/``); the other tree is the one
@@ -30,7 +31,14 @@ root, which builds that tree's kernels and times, on card 0:
   (``cuda_ms``), and the
   wrapper's host us a call (the enqueue: ``perf_counter`` over HOST_CALLS
   calls before one synchronize); then the flagship and STX block graphs at
-  B=1/16/64, wall ms by CUDA events and device busy ms a call.
+  B=1/16/64, wall ms by CUDA events and device busy ms a call;
+- ``--turn threshold``: K6 (``threshold_input``) on chip_smoke's STX blocks
+  (``signal_blocks``: a burst in every other block) at B=1/16/64: the
+  device ms a call of its kernels (torch.profiler, a trace that lost any
+  launch taken again), the wrapper's ms (``cuda_ms``) and host us a call;
+  the sha256 of y, the hit words and clipped_any, and of the STX block
+  graph's packed rows, which the summary holds equal across the turns of
+  both trees; the STX graph's wall ms and device busy ms a call.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
@@ -126,16 +134,8 @@ out["K9 fused y sha256"] = hashlib.sha256(ch(x)[0].cpu().numpy().tobytes()).hexd
 print(json.dumps(out))
 """
 
-TURNS["detect"] = """
-import json, re, sys, time
-import torch
-assert torch.cuda.is_available(), "no card"
-import chip_smoke as c
-from pycusdr_tpu_torch.convert import DeviceConsts
-from pycusdr_tpu_torch.dsp.block import build_process_batch
-from pycusdr_tpu_torch.ops import demod_kernels as dk
-from pycusdr_tpu_torch.ops import doppler_search as ds
-
+#: the detect and threshold turns' timing helpers
+PROFILING = """
 
 # host us a call: the enqueue of n calls, before one synchronize
 def host_us(fn, n=int(sys.argv[2])):
@@ -187,7 +187,19 @@ def busy_ms(fn, calls=20):
         if n[0] == n[1]:
             return sum(e[2] for e in seen[-1]) / 1e3 / calls
     raise AssertionError(f"busy: traces held {[sum(e[1] for e in t) for t in seen]} events")
+"""
 
+TURNS["detect"] = """
+import json, re, sys, time
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import build_process_batch
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+from pycusdr_tpu_torch.ops import doppler_search as ds
+
+""" + PROFILING + """
 
 out = {}
 for p in ("flagship", "stx"):
@@ -211,6 +223,61 @@ for p in ("flagship", "stx"):
         x = c.signal_blocks(spec, B)
         out[f"{p} graph B={B} ms"] = c.cuda_ms(lambda: graph(x), iters=10)
         out[f"{p} graph B={B} device busy ms"] = busy_ms(lambda: graph(x))
+print(json.dumps(out))
+"""
+
+#: K6 at the STX shape in either tree: the three passes (thr_pass1-3) or one
+#: cluster launch (thr_cluster, where the tree has ``k6_plan``)
+TURNS["threshold"] = """
+import hashlib, json, re, sys, time
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import build_process_batch
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+""" + PROFILING + """
+
+PER_CALL = 1 if hasattr(dk, "k6_plan") else 3  # K6's __global__ launches a call at STX
+
+
+# device ms a call in K6's __global__ functions; a trace that lost any of
+# the launches is taken again, five times at most
+def k6_ms(fn, calls=20):
+    pat = re.compile(r"(^|[\\s:])(thr_cluster|thr_pass[123])[<(]")
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        ev = [e for e in trace(fn, calls) if pat.search(e[0])]
+        seen.append(sum(e[1] for e in ev))
+        if seen[-1] == calls * PER_CALL:
+            return sum(e[2] for e in ev) / 1e3 / calls
+    raise AssertionError(f"K6: five traces held {seen} launches, not {calls * PER_CALL}")
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+out = {}
+spec = c.configuration("stx")[2]
+consts = DeviceConsts.from_spec(spec, torch.device("cuda"))
+graph = build_process_batch(spec, device="cuda", packed=True)
+for B in (1, 16, 64):
+    x = c.signal_blocks(spec, B)
+    fn = lambda: dk.threshold_input(x, consts.threshold_scale)
+    out[f"K6 B={B} device ms"] = k6_ms(fn)
+    out[f"K6 B={B} ms"] = c.cuda_ms(fn)
+    out[f"K6 B={B} host us"] = host_us(fn)
+    y, hits, anyk = fn()
+    out[f"K6 B={B} y, hits, clipped_any sha256"] = digest(y, hits, anyk)
+    out[f"STX graph B={B} ms"] = c.cuda_ms(lambda: graph(x), iters=10)
+    out[f"STX graph B={B} device busy ms"] = busy_ms(lambda: graph(x))
+    out[f"STX graph B={B} rows sha256"] = digest(graph(x))
 print(json.dumps(out))
 """
 

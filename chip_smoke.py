@@ -40,10 +40,19 @@ and then no result line is printed):
    across lanes and warps; nd 1, 31, 33, 64 of D=2048 at offset 0 and 1;
    D=3000; M=1, 64, 128 with and without a recentre) to the contract of
    ``k5_contract``, and again with noise alone in the SNR bands, its band
-   ratio within f32 rounding of float64's; K4 at B=64 on K4_CASES (the flagship and STX shapes,
-   W=1, W above the symbol, sparse windows, hw at its clamp: tied
-   magnitudes, A clamped at both ends, clip hits on word edges), every
-   output equal and each block alone equal to its row;
+   ratio within f32 rounding of float64's; K4 at B=64 on K4_CASES (the
+   flagship and STX shapes, W=1, W above the symbol, sparse windows, hw at
+   its clamp, N = 4097: tied magnitudes, A clamped at both ends, clip hits
+   on word edges and in a partial last word), every output equal and each
+   block alone equal to its row; K6 at K6_SIZES (every form of
+   ``k6_plan``: one cluster launch at N not a multiple of 32, 33 chunks
+   and 2^18; the long form's three passes above 2^18) against its plain
+   version, each block alone equal to its row, its launch and the
+   clusters the card holds printed; K6's bitmask at N = 4097 into K4 and
+   K4s against their plain versions; K4n with 64 and 256 KB LUTs (shared
+   memory opted in, read through L1) at B=1 and 16; K2 (its middle
+   passes) and K3 at 2^19 and 2^20, B=4, each block alone equal to its
+   row;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after it:
    a. flagship: the UHF demodulator (``models.uhf.Demodulator``) on a
@@ -55,6 +64,10 @@ and then no result line is printed):
       in two launches a call) through ``processMany(16)``: bits and trust
       equal to the plain path's, BER < 1e-3, the Doppler offset; K1-K5
       must launch, K1 twice for each K5 launch;
+   a''. big: the flagship demodulator at blockSize 19 (Nfft 2^19: K2's
+      middle pass, K3's band partials in device memory) through
+      ``processMany(4)``: bits and trust equal to the plain path's, BER
+      < 1e-3, the Doppler offset; K1-K5 must launch;
    b. STX: the STX demodulator (``models.stx.Demodulator``) on a GFSK
       signal at the fixed IF offset with an interference burst in one
       hop, the same four ways; BER < 1e-3 on the bits not tagged trust
@@ -127,10 +140,12 @@ and then no result line is printed):
    wideband chain per hop against the signal a hop holds; the tracker's
    acquire and track graphs per block at B=1; K4l and K4s at B=1/16/64
    and the generic step at C=16 against the channel-parallel step on the
-   same blocks; every time must clear its bound;
+   same blocks; K2 and K3 at the big path's Nfft 2^19 (B=1 and 4), K6's
+   long form at 2^19 (B=1 and 16) and the big graph at B=4; every time
+   must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1, 16 and 64,
-   STX at B=1; of the wideband chain (K9 + the step at C=64); and of the
+   STX at B=1 and 64; of the wideband chain (K9 + the step at C=64); and of the
    generic step at C=16.
 
 It then prints the card line, one JSON line with every kernel's numbers,
@@ -263,6 +278,19 @@ TRACK_BLOCKS, TRACK_SNR_DB = 48, 10.0
 VOTE_MASTERS = (0, 1, -1)
 #: the flagship at this xcorrMaskSize (64 masks, phase 4) takes K1 in groups
 DEEP_MASK_SIZE = 6
+#: K6 beyond the STX shape: N not a multiple of 32 (one and two chunks, a
+#: partial last clip word), 33 chunks (three a CTA), 2^18 (four a CTA: 1024
+#: threads, 128 KB), and the long form above 2^18; three blocks each, two
+#: with spikes
+K6_SIZES = (1000, 4097, 33 * 4096 + 7, 2 ** 18, 2 ** 19, 2 ** 19 + 3)
+#: K4n's LUTs above 48 KB (M, K): in shared memory opted in (64 KB) and
+#: read through L1 (256 KB), on S = 4608 slots at B=1 and 16
+K4N_BIG_LUTS = ((2048, 4), (8192, 4))
+#: K2 and K3 above 2^18 (K2's middle passes), alone and in a batch of BIG_B
+BIG_NS, BIG_B = (2 ** 19, 2 ** 20), 4
+#: the "big" path (phase 4k): the flagship spec at blockSize 19 (Nfft 2^19)
+#: through processMany(BIG_HOPS)
+BIG_BLOCK_SIZE, BIG_HOPS = 19, 4
 #: the generic channel x dopp step: C channels in one process (phase 4i), and
 #: the four ranks of {"channel": 2, "dopp": 2} on the one card over gloo with
 #: C channels in all (phase 4j), each rank given this long to report
@@ -311,6 +339,8 @@ PATH_KERNELS = {
              "symbol_detect"),
     "generic": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                 "symbol_detect_local", "shard_select", "vote"),
+    "big": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+            "symbol_detect"),
 }
 
 
@@ -460,15 +490,16 @@ def check_doppler_estimate(spec, consts, inp, centre=None):
     return err
 
 
-def check_threshold(spec, consts, inp):
+def check_threshold(x, scale, tag):
     """K6 against its plain version: pass-2 masks equal except where |a -
     thr| <= 1e-5 thr (the two sum in different orders), signals within
-    rtol 1e-5 where the masks agree, and a block alone gives the bits it
-    gives in the batch. Returns the max abs signal error."""
-    x, scale = inp["x"], consts.threshold_scale
+    rtol 1e-5 where the masks agree, the bits past N zero, and a block
+    alone gives the bits it gives in the batch. Returns the max abs signal
+    error."""
+    N = x.shape[1]
     y, hits, anyk = dk.threshold_input(x, scale)
     yp, hp = dk.threshold_input_plain(x, scale)
-    hk = dk.unpack_bits(hits, spec.Nfft)
+    hk = dk.unpack_bits(hits, N)
     xd = x.to(torch.complex128)
     a = xd.abs()
     thr1 = scale * a.mean(dim=-1, keepdim=True)
@@ -476,17 +507,162 @@ def check_threshold(spec, consts, inp):
     thr2 = scale * a1.mean(dim=-1, keepdim=True)
     clear = ((a - thr1).abs() > 1e-5 * thr1) & ((a1 - thr2).abs() > 1e-5 * thr2)
     bad = int(((hk != hp) & clear).sum())
-    assert bad == 0, f"K6 hit mask differs at {bad} clear samples"
-    assert bool(hp.any()), "K6 check: no sample was clipped"
+    assert bad == 0, f"{tag}: hit mask differs at {bad} clear samples"
+    assert bool(hp.any()), f"{tag} check: no sample was clipped"
+    assert torch.equal(dk.pack_bits(hk), hits), f"{tag}: bits past N set"
     agree = (hk == hp)[..., None].expand(-1, -1, 2)
     yr, ypr = torch.view_as_real(y)[agree], torch.view_as_real(yp)[agree]
     err = float((yr - ypr).abs().max())
-    assert bool(((yr - ypr).abs() <= 1e-6 + 1e-5 * ypr.abs()).all()), f"K6 signal err {err}"
-    assert torch.equal(anyk, hp.any(dim=-1).to(torch.int32)), "K6 clipped_any"
+    assert bool(((yr - ypr).abs() <= 1e-6 + 1e-5 * ypr.abs()).all()), f"{tag}: signal err {err}"
+    assert torch.equal(anyk, hp.any(dim=-1).to(torch.int32)), f"{tag}: clipped_any"
     y0, h0, _ = dk.threshold_input(x[:1].contiguous(), scale)
     torch.cuda.synchronize()
-    assert torch.equal(y0[0], y[0]) and torch.equal(h0[0], hits[0]), "K6 batch != alone"
+    assert torch.equal(y0[0], y[0]) and torch.equal(h0[0], hits[0]), f"{tag}: batch != alone"
     return err
+
+
+def spiky_blocks(B, N, seed):
+    """B blocks of unit complex noise on the card, a spike of 60 in all but
+    the last (one sample below N = 64, else three bursts of 8, 1 and 16)."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(B, N) + 1j * rng.randn(B, N)) / np.sqrt(2)
+    spikes = ((8, N // 3), (1, 5), (16, N - 16)) if N >= 64 else ((1, N // 2),)
+    for b in range(B - 1):
+        for w, at in spikes:
+            x[b, at:at + w] += 60.0 * np.exp(2j * np.pi * rng.rand(w))
+    return torch.from_numpy(x.astype(np.complex64)).cuda()
+
+
+def check_threshold_sizes():
+    """K6 (``check_threshold``) at K6_SIZES, B=3: every form of ``k6_plan``.
+    Returns [(N, plan, max abs err)]."""
+    out = []
+    for N in K6_SIZES:
+        err = check_threshold(spiky_blocks(3, N, SEED + N % 1009), 4.5, f"K6 N={N}")
+        out.append((N, dk.k6_plan(N), err))
+    return out
+
+
+def check_odd_clip(N=4097, B=16, S=2100):
+    """K6's bitmask at N not a multiple of 32 (a partial last word) into K4
+    and into K4s (nd = 1, after K4l), against their plain versions on the
+    dilated mask of the same words: every output equal, some slot near the
+    last word tagged. Returns the slots set to trust -2."""
+    rng = np.random.RandomState(SEED + N)
+    x = spiky_blocks(B, N, SEED + 3)
+    x[:, N - 2] += 60.0  # a hit in the last word
+    _, hits, _ = dk.threshold_input(x, 4.5)
+    hit = dk.unpack_bits(hits, N)
+    colmax = torch.from_numpy(rng.rand(B, N).astype(np.float32)).cuda()
+    colarg = torch.from_numpy(rng.randint(0, 8, (B, N)).astype(np.int32)).cuda()
+    sp = torch.from_numpy((2.0 + 0.01 * rng.rand(B)).astype(np.float32)).cuda()
+    co = torch.from_numpy(rng.uniform(0, 2, B).astype(np.float32)).cuda()
+    lut = torch.tensor([0, 1, 1, 0, 1, 0, 0, 1], dtype=torch.int8, device="cuda")
+    kw = dict(Nfft=N, windowWidth=3, spsymMin=2, numSymMax=S, trust_normal=2)
+    got = dk.symbol_detect(colmax, colarg, sp, co, lut, hits=hits, **kw)
+    clip = dk.dilate_mask_plain(hit, dk.clip_halfwidth(sp, 2))
+    want = dk.symbol_detect_plain(colmax, colarg, sp, co, lut, clip_mask=clip, **kw)
+    kl = {k: v for k, v in kw.items() if k != "trust_normal"}
+    val, key = dk.symbol_detect_local(colmax, colarg, sp, co, m0=0, M=8, **kl)
+    rows = [torch.zeros((B, 5 * S + 12), device="cuda") for _ in range(2)]
+    k4s = dict(kw, M=8, code_val=torch.zeros(B, device="cuda"), hits=hits)
+    dk.shard_select(val[None], key[None], sp, co, lut, row=rows[0], **k4s)
+    dk.shard_select_rows_plain(val[None], key[None], sp, co, lut, row=rows[1], **k4s)
+    torch.cuda.synchronize()
+    for name, u, v in zip(("symbols", "centres", "mags", "bits", "trust", "nSym", "at_win"),
+                          got, want):
+        assert torch.equal(u, v), f"K4 N={N} with K6's bitmask: {name} differs"
+    assert torch.equal(rows[0], rows[1]), f"K4s N={N} with K6's bitmask: rows differ"
+    ns = int(want[5].min())
+    assert bool(want[6][:, ns - 3:ns].any()), f"K4 N={N}: no slot near the last word tagged"
+    return int(want[6].sum())
+
+
+def check_nrzs_big():
+    """K4n with LUTs above 48 KB (K4N_BIG_LUTS: each form of ``k4n_form``)
+    at S = 4608, B=1 and 16, against its plain version: rows equal.
+    Returns [(M, K, form, slots set to trust -1)]."""
+    out = []
+    S = 4608
+    for M, K in K4N_BIG_LUTS:
+        rng = np.random.RandomState(SEED + M)
+        lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
+        rows = torch.zeros((16, 5 * S + 12))
+        rows[:, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, M + 1, (16, S)).astype(np.float32))
+        for b in range(16):
+            sym = rows[b, 2 * S:3 * S].long().numpy()
+            for i in range(0, S, 3):  # a third of the transitions hit a table
+                if 0 <= sym[i] < M:
+                    lut[sym[i], i % 2, i % K] = sym[(i + 1) % S]
+        rows[:, S:2 * S] = 2.0
+        rows[:, S:2 * S:7] = -2.0
+        rows[:, 5 * S] = 4000.0
+        rows, lt = rows.cuda(), torch.from_numpy(lut).cuda()
+        for B in (1, 16):
+            got = dk.nrzs_bits(rows[:B].clone(), lt, S)
+            want = dk.nrzs_rows_plain(rows[:B].clone(), lt, S)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"K4n LUT ({M}, 2, {K}) B={B}: rows differ"
+        errs = int((got[:, S:2 * S] == -1).sum())
+        assert errs > 0 and bool((got[:, S:2 * S:7] == -2).all())
+        out.append((M, K, dk.k4n_form(M, K), errs))
+    return out
+
+
+def big_bank_inputs(N, B, M=8, seed=SEED):
+    """K2's inputs above 2^18 (random spectra and masks, shifts) and K3's
+    (a tone at a band bin under noise, per block), with K3's band."""
+    rng = np.random.RandomState(seed + N % 997)
+    S = torch.from_numpy((rng.randn(B, N) + 1j * rng.randn(B, N)).astype(np.complex64)).cuda()
+    masks = torch.from_numpy((rng.randn(M, N) + 1j * rng.randn(M, N))
+                             .astype(np.complex64)).cuda()
+    shift = torch.from_numpy(rng.randint(0, N, B).astype(np.int32)).cuda()
+    lo, hi = N // 16, N // 16 + N // 80  # the flagship band's place and width, scaled
+    kt = lo + 1 + rng.randint(0, hi - lo - 2, B)
+    n = np.arange(N)
+    x = np.stack([0.3 * rng.randn(N) + np.cos(2 * np.pi * k * n / N + 0.7) for k in kt])
+    return S, masks, shift, torch.from_numpy(x.astype(np.float32)).cuda(), lo, hi
+
+
+def check_bank_band_big():
+    """K2 (its middle passes) and K3 above 2^18 (BIG_NS) against their
+    plain versions at B=BIG_B: K2 within 1e-4 of its maxima with colargmax
+    equal at clear margins, K3's spSym exact and codeOffset within 1e-3;
+    each block alone (the first and the last) equal to its row. Returns
+    [(N, factors, K2 err, K3 err)]."""
+    out = []
+    for N in BIG_NS:
+        S, masks, shift, x, lo, hi = big_bank_inputs(N, BIG_B)
+        M = masks.shape[0]
+        ks, km, ka = dk.mf_bank_colreduce(S, masks, shift, 1, M - 1)
+        ps, pm, pa = dk.mf_bank_colreduce_plain(S, masks, shift, 1, M - 1)
+        torch.cuda.synchronize()
+        es = float((ks - ps).abs().max())
+        em = float((km - pm).abs().max())
+        assert es <= 1e-4 * float(ps.abs().max()), f"K2 N={N} colsum err {es}"
+        assert em <= 1e-4 * float(pm.abs().max()), f"K2 N={N} colmax err {em}"
+        top2 = torch.topk(dk.mf_bank_power_plain(S, masks, shift), 2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0]
+        bad = int(((ka != pa) & clear).sum())
+        assert bad == 0, f"K2 N={N}: colargmax differs at {bad} clear-margin samples"
+        del top2
+        sp, co, cv = dk.timing_band(x, lo, hi)
+        psp, pco, _ = dk.timing_band_plain(x, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(sp, psp), f"K3 N={N} spSym {sp.tolist()} != {psp.tolist()}"
+        e3 = float((co - pco).abs().max())
+        assert e3 <= 1e-3, f"K3 N={N} codeOffset err {e3}"
+        for b in (0, BIG_B - 1):
+            one = dk.mf_bank_colreduce(S[b:b + 1].contiguous(), masks, shift[b:b + 1].contiguous(),
+                                       1, M - 1)
+            alone = dk.timing_band(x[b:b + 1].contiguous(), lo, hi)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u[0], v[b]) for u, v in zip(one, (ks, km, ka))), \
+                f"K2 N={N}: block {b} alone != its row"
+            assert all(torch.equal(u[0], v[b]) for u, v in zip(alone, (sp, co, cv))), \
+                f"K3 N={N}: block {b} alone != its row"
+        out.append((N, dk.fft_factors(N), max(es, em), e3))
+    return out
 
 
 def k3_margin(colsum, lo, hi, b):
@@ -552,12 +728,29 @@ def plan_lines(spec):
              f"dynamic shared {p3['smem']} B"]
     for B in BATCHES:
         p2 = dk.mf_bank_plan(N, M, B)
-        lines.append(f"K2 mf_bank_colreduce N={N} M={M} B={B}: N1 x N2 = {p2['n1']} x "
-                     f"{p2['n2']}, mf_pass1 grid {p2['grid1']} ({p2['C']} columns), mf_pass2 "
+        mid = (f", mf_mid factors {p2['mid']} grids {p2['grid_mid']} ({p2['Cm']} columns)"
+               if "mid" in p2 else "")
+        lines.append(f"K2 mf_bank_colreduce N={N} M={M} B={B}: factors {dk.fft_factors(N)}, "
+                     f"mf_pass1 grid {p2['grid1']} ({p2['C']} columns){mid}, mf_pass2 "
                      f"grid {p2['grid2']} ({p2['R']} rows, {p2['Mg']} masks a group) x "
                      f"{dk.FFT_THREADS} threads; cluster {p2['cluster']}, dynamic shared "
                      f"{p2['smem']} B; Y {8 * B * M * N} B")
+    if not spec.disable_peak_thresholding:
+        lines.append(k6_plan_line(N))
     return lines
+
+
+def k6_plan_line(N):
+    """K6's launch at N (``k6_plan``) and, for the cluster form, how many of
+    its clusters the card holds at once."""
+    p = dk.k6_plan(N)
+    if p["form"] == "long":
+        return (f"K6 threshold_input N={N}: long form, thr_pass1-3 grid ({p['nch']}, B) x 256 "
+                f"threads, chunk sums through a (2, B, {p['nch']}) scratch")
+    return (f"K6 threshold_input N={N}: cluster form, thr_cluster grid ({p['cluster']}, B) in "
+            f"clusters of {p['cluster']}, {p['threads']} threads ({p['chunks']} chunks of "
+            f"{dk.K6_CHUNK}) and {p['smem']} B of dynamic shared memory a CTA; the card holds "
+            f"{dk.k6_clusters(N)} such clusters at once")
 
 
 def check_kernels(spec, consts, B):
@@ -581,7 +774,8 @@ def check_kernels(spec, consts, B):
         errs["doppler_energy"] = e1
         errs["doppler_estimate"] = check_doppler_estimate(spec, consts, inp)
     else:
-        errs["threshold_input"] = check_threshold(spec, consts, inp)
+        errs["threshold_input"] = check_threshold(inp["x"], consts.threshold_scale,
+                                                 f"K6 N={spec.Nfft}")
 
     errs.update(check_bank_band(spec, consts, inp))
 
@@ -836,6 +1030,49 @@ def main_path_deep():
     assert ber < 1e-3, f"M={spec.num_masks}: BER {ber} at lag {lag}"
     return dict(masks=spec.num_masks, ber=ber, lag=lag, bits=len(rx), launches=launches,
                 doppler=[round(a["doppler"], 3) for a in seq[:3]])
+
+
+def big_configuration():
+    """(conf, protocol, spec) of the flagship spec at blockSize BIG_BLOCK_SIZE."""
+    conf = flagship_conf()
+    conf["GPU"]["UHF"]["blockSize"] = BIG_BLOCK_SIZE
+    protocol = loadProtocol("bench_GFSK")(conf=conf)
+    return conf, protocol, build_spec(conf, protocol, RADIO)
+
+
+def main_path_big():
+    """The flagship spec at Nfft 2^BIG_BLOCK_SIZE (K2's middle passes, K3's
+    band partials in device memory) on the flagship signal through
+    ``processMany(BIG_HOPS)``, with the counts set to 0 just before it and
+    read just after; bits and trust equal to the plain path's, BER below
+    1e-3 and the Doppler within half a baud of the injected one; K1-K5
+    must launch."""
+    conf, protocol, spec = big_configuration()
+    N, ov = spec.Nfft, spec.sigOverlap
+    stream, tx_bits = signal_stream(spec, ov + BIG_HOPS * (N - ov))
+    hops = stream[ov:].reshape(BIG_HOPS, N - ov)
+    d = UHF.Demodulator(conf, protocol, RADIO)
+    dp = plain_demodulator(UHF.Demodulator, conf, protocol)
+    for x in (d, dp):
+        x.get_signalBufferHostPointer()[:ov] = stream[:ov]
+    ops.reset_launches()
+    seq = d.processMany(hops)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("big", launches)
+    ref = dp.processMany(hops)
+    for i, (a, b) in enumerate(zip(seq, ref)):
+        for k in ("bits", "trust"):
+            assert np.array_equal(a[k], b[k]), f"Nfft {N}: kernels != plain at block {i} ({k})"
+        assert abs(a["doppler"] - DOPPLER_HZ) < spec.baudRate / 2, \
+            f"Nfft {N} block {i}: Doppler {a['doppler']} Hz, injected {DOPPLER_HZ}"
+        assert math.isfinite(a["SNR"]) and a["SNR"] > 10, f"Nfft {N} block {i}: SNR {a['SNR']}"
+    rx = np.concatenate([a["bits"] for a in seq]).astype(np.int64)
+    ber, lag = best_aligned_ber(rx, tx_bits)
+    assert ber < 1e-3, f"Nfft {N}: BER {ber} at lag {lag}"
+    return dict(Nfft=N, factors=list(dk.fft_factors(N)), ber=ber, lag=lag, bits=len(rx),
+                launches=launches, doppler=[round(a["doppler"], 3) for a in seq],
+                snr=[round(a["SNR"], 2) for a in seq])
 
 
 def main_path_stx(conf, protocol, spec, make):
@@ -1348,7 +1585,8 @@ K5_GRIDS = ([(f"ties in {w}", 2048, 8, 2048, 0, t, False) for w, t in K5_TIES.it
 #: (hw at its clamp: the clip words read in global memory after j)
 K4_CASES = (("flagship", 2 ** 16, 4608, 7, 8, 16.0), ("stx", 2 ** 17, 9216, 3, 8, 16.0),
             ("W=1", 2 ** 13, 600, 1, 8, 16.0), ("W > spc", 2 ** 13, 1100, 24, 4, 8.0),
-            ("sparse", 2 ** 16, 1024, 7, 8, 64.0), ("hw clamp", 2 ** 13, 128, 7, 8, 1500.0))
+            ("sparse", 2 ** 16, 1024, 7, 8, 64.0), ("hw clamp", 2 ** 13, 128, 7, 8, 1500.0),
+            ("partial word", 4097, 2100, 3, 2, 2.0))
 #: K1's banks deeper than one launch takes (xcorrMaskSize 6 and 7)
 K1_DEEP_M = (64, 128)
 
@@ -2278,7 +2516,9 @@ KERNEL_FUNCS = {
     "timing_band": ("band_partial", "band_argmax"),
     "symbol_detect": ("symbol_detect",),
     "doppler_estimate": ("doppler_estimate",),
-    "threshold_input": ("thr_pass1", "thr_pass2", "thr_pass3"),
+    "threshold_input": ("thr_cluster",),
+    "threshold_long": ("thr_pass1", "thr_pass2", "thr_pass3"),
+    "mf_bank_multipass": ("mf_pass1", "mf_mid", "mf_pass2"),
     "viterbi": ("viterbi",),
     "nrzs_bits": ("nrzs_bits",),
     "vote": ("vote",),
@@ -2290,7 +2530,8 @@ KERNEL_FUNCS = {
 
 
 #: the wrapper that launches a KERNEL_FUNCS entry, where its name differs
-KERNEL_WRAPPER = {"channelize_wide": "channelize"}
+KERNEL_WRAPPER = {"channelize_wide": "channelize", "threshold_long": "threshold_input",
+                  "mf_bank_multipass": "mf_bank_colreduce"}
 
 
 def device_ms(fn, kernel, calls=20):
@@ -2338,6 +2579,13 @@ def bound_of(nbytes, flops):
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def k6_work(N, B):
+    """K6's compulsory work: x in; the clipped signal, the hit bitmask and
+    clipped_any out | |x| (3 flops and a sqrt), two compares, two sums,
+    four multiplies a sample. (bytes, f32 operations)."""
+    return 16 * B * N + 4 * B * -(-N // 32) + 4 * B, 12 * B * N
+
+
 def bounds(spec, B, band_bins=0):
     """Least time on the card for the work each kernel's function needs at
     batch B, whatever algorithm computes it: the larger of compulsory bytes
@@ -2361,9 +2609,7 @@ def bounds(spec, B, band_bins=0):
         # two top-2 scans, a sqrt and an add per band bin, the scalar tail
         "doppler_estimate": (4 * (2 * B * D * M + 3 * D + band_bins + 7 * B),
                              B * (D * M + 2 * D) + 2 * band_bins + 40 * B),
-        # x in; the clipped signal, the hit bitmask and clipped_any out |
-        # |x| (3 flops and a sqrt), two compares, two sums, four multiplies
-        "threshold_input": (16 * B * N + B * N // 8 + 4 * B, 12 * B * N),
+        "threshold_input": k6_work(N, B),
         # S, masks, shift in; 3 N-vectors out | M complex inverse FFTs,
         # the mask product and the power
         "mf_bank_colreduce": (8 * B * N + 8 * M * N + 4 * B + 12 * B * N,
@@ -2444,6 +2690,47 @@ def time_kernels(spec, consts, B):
     whole = (cuda_ms(lambda: graph(inp["x"]), iters=10),
              cuda_ms(lambda: plain(inp["x"]), iters=5, reps=5))
     return t, whole, band_bins, {k: device_ms(fn, k) for k, fn in calls.items()}
+
+
+def time_big(spec, consts):
+    """K2 (with its middle pass) and K3 at the big path's shape (Nfft
+    2^BIG_BLOCK_SIZE), B=1 and BIG_B, on ``kernel_inputs``; K6's long form
+    at N = 2^19, B=1 and 16, on ``spiky_blocks``: name -> {B: (ms, plain_ms,
+    library_ms, (bound ms, by), device ms)}; and the big block graph's ms a
+    call at BIG_B (CUDA events)."""
+    out = {"mf_bank_colreduce": {}, "timing_band": {}, "threshold_input": {}}
+    M, off = spec.num_masks, spec.code_search_mask_offset
+    lo, hi = spec.code_idx_lo, spec.code_idx_hi
+    for B in (1, BIG_B):
+        inp = kernel_inputs(spec, consts, B)
+        bnd = bounds(spec, B)
+        Y = dk._rolled(inp["S"], inp["shift"])[:, None, :] * consts.masks_f[None]
+        k2 = lambda: dk.mf_bank_colreduce(inp["S"], consts.masks_f, inp["shift"], off, M - off,
+                                          tw=consts.tw)
+        out["mf_bank_colreduce"][B] = (
+            cuda_ms(k2, iters=5),
+            cuda_ms(lambda: dk.mf_bank_colreduce_plain(inp["S"], consts.masks_f, inp["shift"],
+                                                       off, M - off), iters=5, reps=5),
+            cuda_ms(lambda: torch.fft.ifft(Y, norm="forward"), iters=5),
+            bnd["mf_bank_colreduce"], device_ms(k2, "mf_bank_multipass", calls=5))
+        del Y
+        k3 = lambda: dk.timing_band(inp["colsum"], lo, hi, tw=consts.tw)
+        out["timing_band"][B] = (
+            cuda_ms(k3, iters=5),
+            cuda_ms(lambda: dk.timing_band_plain(inp["colsum"], lo, hi), iters=5, reps=5),
+            cuda_ms(lambda: torch.fft.rfft(inp["colsum"]), iters=5),
+            bnd["timing_band"], device_ms(k3, "timing_band", calls=5))
+    N6 = 2 ** 19
+    for B in (1, 16):
+        x = spiky_blocks(B, N6, SEED + B)
+        k6 = lambda: dk.threshold_input(x, 4.5)
+        out["threshold_input"][B] = (
+            cuda_ms(k6), cuda_ms(lambda: dk.threshold_input_plain(x, 4.5), iters=5, reps=5), None,
+            bound_of(*k6_work(N6, B)), device_ms(k6, "threshold_long"))
+    graph = build_process_batch(spec, device="cuda", packed=True)
+    xb = signal_blocks(spec, BIG_B)
+    out["graph_ms"] = cuda_ms(lambda: graph(xb), iters=3, reps=5)
+    return out
 
 
 def viterbi_bound(lengths, decode):
@@ -2723,6 +3010,23 @@ def main() -> int:
                            f"equal{' with K4n after K4s' if consts_.bitLUT is None else ''}; slots "
                            f"the upper half won {split}; trust -2 slots {clipped}")
     errs["symbol_detect_local"] = errs["shard_select"] = 0.0
+    for N, plan, err in check_threshold_sizes():
+        errs["threshold_input"] = max(errs["threshold_input"], err)
+        say("kernels", f"K6 N={N} vs plain OK at B=3 (masks equal at clear samples, signal "
+                       f"within rtol 1e-5, bits past N zero, a block alone == its row), max "
+                       f"abs err {err:.4g}; " + k6_plan_line(N))
+    say("kernels", f"K6's bitmask at N=4097 (a partial last word) into K4 and K4s (nd=1): "
+                   f"every output and row equal to the plain versions'; "
+                   f"{check_odd_clip()} slots trust -2")
+    for M, K, form, n1 in check_nrzs_big():
+        say("kernels", f"K4n with a ({M}, 2, {K}) LUT ({8 * M * K // 1024} KB, {form} form) vs "
+                       f"plain OK at S=4608, B=1 and 16: rows equal; {n1} slots trust -1")
+    for N, f, e2, e3 in check_bank_band_big():
+        errs["mf_bank_colreduce"] = max(errs["mf_bank_colreduce"], e2)
+        errs["timing_band"] = max(errs["timing_band"], e3)
+        say("kernels", f"K2 N={N} (factors {f}) and K3 vs plain OK at B={BIG_B}, the first and "
+                       f"last block alone == their rows: K2 max abs err {e2:.4g}, K3 codeOffset "
+                       f"{e3:.4g}")
 
     res = {"flagship": main_path_flagship(*cfg["flagship"]),
            "stx": main_path_stx(*cfg["stx"])}
@@ -2732,6 +3036,9 @@ def main() -> int:
     res["deep"] = main_path_deep()
     say("main", f"deep flagship xcorrMaskSize {DEEP_MASK_SIZE} ({res['deep']['masks']} masks) "
                 f"processMany({N_HOPS}) == plain path; " + json.dumps(res["deep"]))
+    res["big"] = main_path_big()
+    say("main", f"big flagship at Nfft 2^{BIG_BLOCK_SIZE} processMany({BIG_HOPS}) == plain path; "
+                + json.dumps(res["big"]))
     res["ccsds"] = main_path_ccsds()
     say("main", f"ccsds {CCSDS_FRAMES} frames bit-exact at {list(SNRS_DB)} dB via process and "
                 f"processMany(16); plain path's packets equal at {SNRS_DB[-1]} dB; "
@@ -2790,6 +3097,20 @@ def main() -> int:
                          f"({1e3 * whole[0] / B:.2f} us/block, "
                          f"{B * hop / whole[0] / 1e3:.1f} Msamples/s of new samples); "
                          f"plain path {whole[1]:.4f} ms/call")
+
+    bcfg_big = big_configuration()
+    big_spec = bcfg_big[2]
+    t_big = time_big(big_spec, DeviceConsts.from_spec(big_spec, torch.device("cuda")))
+    for k in ("mf_bank_colreduce", "timing_band", "threshold_input"):
+        for B, (ms, pms, lms, (bms, by), dms) in t_big[k].items():
+            assert min(v for v in (ms, pms, lms, dms) if v is not None) >= bms, \
+                f"big {k} B={B}: a time is below bound_ms {bms}"
+            shape = "N=2^19, long form" if k == "threshold_input" else f"Nfft {big_spec.Nfft}"
+            say("times", f"{card} | {k} {shape} B={B}: ms={ms:.5f} plain_ms={pms:.5f} "
+                         f"library_ms={'null' if lms is None else f'{lms:.5f}'} "
+                         f"bound_ms={bms:.4g} ({by}) device_ms={dms:.5f}")
+    say("times", f"{card} | big block graph Nfft {big_spec.Nfft} B={BIG_B}: "
+                 f"{t_big['graph_ms']:.4f} ms/call")
 
     max_mhz, _ = sm_clocks()
     vt, vt_more = time_viterbi(VIT_BY_S), time_viterbi(VIT_MORE)
@@ -2871,7 +3192,7 @@ def main() -> int:
                      f"{r['first_packet_s']:.2f} s of feed")
 
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
-                 ("wideband", 64), ("generic", GENERIC_C)):
+                 ("stx", 64), ("wideband", 64), ("generic", GENERIC_C)):
         if p == "generic":
             x = torch.from_numpy(generic_blocks(fspec, GENERIC_C)[0]).cuda()
             step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
@@ -2951,6 +3272,12 @@ def main() -> int:
         if home == "flagship" and k in PATH_KERNELS["stx"]:
             entry["stx"] = {**kernel_entry(k, *times["stx", LINE_BATCH]),
                             "by_B": {B: kernel_entry(k, *times["stx", B]) for B in BATCHES}}
+        if k in t_big:
+            entry["long_form" if k == "threshold_input" else "big"] = {
+                "shape": ("N=2^19" if k == "threshold_input" else f"Nfft {big_spec.Nfft}"),
+                "by_B": {B: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
+                             "bound_ms": v[3][0], "bound_by": v[3][1], "device_ms": v[4]}
+                         for B, v in t_big[k].items()}}
         kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

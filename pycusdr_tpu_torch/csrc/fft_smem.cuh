@@ -16,7 +16,9 @@
 // from `twL`, L entries exp(+2πi j / L) staged in shared memory from the
 // float64-built table (conjugated for the forward sign). The four-step
 // twiddles exp(±2πi m / N) (m < N) are the product of two staged tables
-// of at most 512 entries each, indexed by the high and low bits of m.
+// of at most 512 entries each, indexed by the high and low bits of m;
+// where N passes 2^18 (a table would pass 512 entries) they are read from
+// the float64-built table in global memory instead, one rounding fewer.
 // All of it lives in dynamic shared memory (FftSmem), kFftSmemBytes a
 // block.
 #pragma once
@@ -32,7 +34,8 @@ constexpr int kFftMaxL = 512;
 constexpr int kFftEPT = kFftElems / kFftThreads;  // tile elements per thread
 // float2s of a tile buffer: kFftElems padded, plus each row pitch's slack
 constexpr int kFftBuf = kFftElems + kFftElems / 16 + 16 * kFftMaxRows;
-constexpr int kFftSplitMax = 512;  // entries of each four-step twiddle table
+constexpr int kFftSplitLog = 9;  // log2 of the entries of each four-step twiddle table
+constexpr int kFftSplitMax = 1 << kFftSplitLog;
 constexpr int kFftSmemBytes = 8 * (kFftBuf + kFftMaxL + 2 * kFftSplitMax);
 
 // The carve-up of a block's dynamic shared memory.
@@ -42,11 +45,14 @@ struct FftSmem {
     float2* lo;   // exp(+2πi j / N), j < 2^split
     float2* hi;   // exp(+2πi j 2^split / N)
     int split;
+    const float2* gtw;  // N > 2^18: the N-entry table in global memory (lo, hi unused)
 };
 
-__device__ __forceinline__ FftSmem fft_smem(float2* base, int logN) {
+// tw: the N-entry table exp(+2πi j / N) in global memory
+__device__ __forceinline__ FftSmem fft_smem(float2* base, int logN, const float2* tw) {
     return {base, base + kFftBuf, base + kFftBuf + kFftMaxL,
-            base + kFftBuf + kFftMaxL + kFftSplitMax, (logN + 1) / 2};
+            base + kFftBuf + kFftMaxL + kFftSplitMax, (logN + 1) / 2,
+            logN > 2 * kFftSplitLog ? tw : nullptr};
 }
 
 __device__ __forceinline__ int fft_pad(int i) { return i + (i >> 4); }
@@ -159,16 +165,18 @@ __device__ __forceinline__ void fft_stage_twiddles(const FftSmem& sm,
                                                    const float2* __restrict__ tw, int logL,
                                                    int logN) {
     for (int j = threadIdx.x; j < (1 << logL); j += kFftThreads) sm.twL[j] = tw[j << (logN - logL)];
+    if (sm.gtw) return;
     for (int j = threadIdx.x; j < (1 << sm.split); j += kFftThreads) sm.lo[j] = tw[j];
     for (int j = threadIdx.x; j < (1 << (logN - sm.split)); j += kFftThreads)
         sm.hi[j] = tw[j << sm.split];
 }
 
 // exp(S 2πi m / N), 0 <= m < N, from the two staged tables (one rounding
-// more than the float64-built table itself)
+// more than the float64-built table itself), or (N > 2^18) from that table
 template <int S>
 __device__ __forceinline__ float2 fft_twiddle(const FftSmem& sm, int m) {
-    const float2 w = cmul(sm.hi[m >> sm.split], sm.lo[m & ((1 << sm.split) - 1)]);
+    const float2 w = sm.gtw ? __ldg(sm.gtw + m)
+                            : cmul(sm.hi[m >> sm.split], sm.lo[m & ((1 << sm.split) - 1)]);
     return S > 0 ? w : conjf2(w);
 }
 

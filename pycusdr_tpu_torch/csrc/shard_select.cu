@@ -137,7 +137,7 @@ shard_select(const float* __restrict__ vals, const int* __restrict__ keys, int n
     if (hits) {
         const int j = min(max(g.A + k, 0), N - 1);
         const int hw = min(max(2 * (int)ceilf(spc), 0), hw_max);
-        if (any_hit(hits + (size_t)b * (N / 32), max(j - hw, 0), min(j + hw, N - 1)))
+        if (any_hit(hits + (size_t)b * ((N + 31) / 32), max(j - hw, 0), min(j + hw, N - 1)))
             tr = kTrustClipped;
     }
     r[x] = bitLUT ? (float)bitLUT[sym] : 0.f;
@@ -165,7 +165,7 @@ PYCUSDR_API int pycusdr_symbol_detect_local(const float* colmax, const int* cola
 
 // vals: (nd, B, S) f32 and keys: (nd, B, S) i32 from K4l on every shard;
 // spSym, codeOffset, code_val: (B,) f32; bitLUT: (M,) int8 or NULL (bits
-// 0); hits: (B, N/32) u32 or NULL; clipped_any: (B,) i32 or NULL (0);
+// 0); hits: (B, ceil(N/32)) u32 or NULL; clipped_any: (B,) i32 or NULL (0);
 // row: (B, L) f32 packed rows, L >= 5 S + 12.
 PYCUSDR_API int pycusdr_shard_select(const float* vals, const int* keys, int nd,
                                      const float* spSym, const float* codeOffset,
@@ -174,7 +174,7 @@ PYCUSDR_API int pycusdr_shard_select(const float* vals, const int* keys, int nd,
                                      int L, int B, int N, int W, int spsymMin, int S, int M,
                                      int trust_normal, int hw_max, cudaStream_t stream) {
     if (nd <= 0 || B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 || M <= 0 ||
-        L < 5 * S + 12 || !code_val || !row || (hits && N % 32))
+        L < 5 * S + 12 || !code_val || !row)
         return (int)cudaErrorInvalidValue;
     shard_select<<<dim3((S + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
         vals, keys, nd, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, row, L, B, N, W,

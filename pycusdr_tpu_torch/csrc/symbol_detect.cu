@@ -66,7 +66,9 @@
 // (n, M) x (M, K) matmul avoided a gather on the TPU) and the trust and
 // nBits lines of dsp/block.py:318-331. bit i needs symbol i+1, which
 // another K4 thread finds, so it is a second launch over K4's row: one
-// thread per slot, the LUT (<= 16 x 2 x 4 words) in shared memory. The
+// thread per slot, the LUT in shared memory (bench_BPSK's is 8 x 2 x 2
+// words; up to the device's opt-in limit, 227 KB on Hopper), or read
+// through L1 where it is larger. The
 // roll wraps slot S-1 onto slot 0 over the padded slots too, as jnp.roll
 // does. Bound: 4 bytes read and 8 written per slot (~55 KB per flagship
 // block), so the launch bounds it.
@@ -116,7 +118,7 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
     const float co = codeOffset[b];
     const float* cm = colmax + (size_t)b * N;
     const int* ca = colarg + (size_t)b * N;
-    const unsigned* hrow = hits ? hits + (size_t)b * (N / 32) : nullptr;
+    const unsigned* hrow = hits ? hits + (size_t)b * ((N + 31) / 32) : nullptr;
     const int hw = hits ? min(max(2 * (int)ceilf(spc), 0), hw_max) : 0;
     float* r = row ? row + (size_t)b * L : nullptr;
     if (x0 + tid == 0) {
@@ -239,11 +241,15 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
     }
 }
 
+// kShared: the (M, 2, K) LUT staged in shared memory; else read through L1
+template <bool kShared>
 __global__ void __launch_bounds__(kNrzsThreads)
 nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, int M, int K) {
     extern __shared__ int tab[];  // (M, 2, K)
-    for (int i = threadIdx.x; i < M * 2 * K; i += kNrzsThreads) tab[i] = lut[i];
-    __syncthreads();
+    if (kShared) {
+        for (int i = threadIdx.x; i < M * 2 * K; i += kNrzsThreads) tab[i] = lut[i];
+        __syncthreads();
+    }
     float* r = row + (size_t)blockIdx.y * L;
     const int x = blockIdx.x * kNrzsThreads + threadIdx.x;
     if (x == 0) r[5 * (size_t)S + 1] = r[5 * (size_t)S] - 1.f;  // nBits = nSym - 1
@@ -252,10 +258,10 @@ nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, in
     const int next = (int)r[2 * (size_t)S + (x + 1 == S ? 0 : x + 1)];
     bool one = false, zero = false;
     if (prev >= 0 && prev < M) {
-        const int* t = tab + prev * 2 * K;
+        const size_t o = (size_t)prev * 2 * K;
         for (int k = 0; k < K; ++k) {
-            one |= t[k] == next;
-            zero |= t[K + k] == next;
+            one |= (kShared ? tab[o + k] : __ldg(lut + o + k)) == next;
+            zero |= (kShared ? tab[o + K + k] : __ldg(lut + o + K + k)) == next;
         }
     } else {  // JAX's one-hot select gives all-zero tables here
         one = zero = next == 0;
@@ -269,7 +275,8 @@ nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, in
 
 // colmax, colargmax: (B, N); spSym, codeOffset: (B,) f32; bitLUT: (M,) int8
 // or NULL (bits 0);
-// hits: (B, N/32) u32 or NULL; code_val: (B,) f32 (read only with a row);
+// hits: (B, ceil(N/32)) u32 or NULL (the bits past N zero); code_val: (B,)
+// f32 (read only with a row);
 // clipped_any: (B,) i32 or NULL (0). Either the typed outputs symbols,
 // centres: (B, S) i32; mags: (B, S) f32; bits, trust: (B, S) int8; nSym:
 // (B,) i32 -- or row: (B, L) f32, L >= 5 S + 12, with the typed pointers NULL.
@@ -287,7 +294,7 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
                                       int N, int W, int spsymMin, int S, int trust_normal,
                                       int hw_max, int threads, int spt, int argwin,
                                       cudaStream_t stream) {
-    if (B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 || (hits && N % 32) ||
+    if (B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 ||
         !(threads == 64 || threads == kMaxThreads) || !(spt == 1 || spt == 2) ||
         (argwin && spt != 1))
         return (int)cudaErrorInvalidValue;
@@ -314,13 +321,30 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
 }
 
 // row: (B, L) f32 packed rows that K4 wrote (L >= 5 S + 12), updated in
-// place; lut: (M, 2, K) int32.
+// place; lut: (M, 2, K) int32. shared 1: the LUT in shared memory (above
+// the 48 KB a launch gets by default, up to the device's opt-in limit);
+// shared 0: read through L1. ops/demod_kernels.py:k4n_form picks by size.
 PYCUSDR_API int pycusdr_nrzs_bits(float* row, const int* lut, int L, int B, int S, int M,
-                                  int K, cudaStream_t stream) {
-    const size_t smem = (size_t)M * 2 * K * sizeof(int);
-    if (B <= 0 || S <= 0 || M <= 0 || K <= 0 || L < 5 * S + 12 || smem > 48 * 1024)
+                                  int K, int shared, cudaStream_t stream) {
+    if (B <= 0 || S <= 0 || M <= 0 || K <= 0 || L < 5 * S + 12 || B > 65535)
         return (int)cudaErrorInvalidValue;
-    nrzs_bits<<<dim3((S + kNrzsThreads - 1) / kNrzsThreads, B), kNrzsThreads, smem, stream>>>(
-        row, lut, L, S, M, K);
+    const dim3 grid((S + kNrzsThreads - 1) / kNrzsThreads, B);
+    if (!shared) {
+        nrzs_bits<false><<<grid, kNrzsThreads, 0, stream>>>(row, lut, L, S, M, K);
+        return (int)cudaGetLastError();
+    }
+    const size_t smem = (size_t)M * 2 * K * sizeof(int);
+    if (smem > 48 * 1024) {
+        int dev = 0, optin = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e != cudaSuccess) return (int)e;
+        if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+        e = cudaFuncSetAttribute(nrzs_bits<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    nrzs_bits<true><<<grid, kNrzsThreads, smem, stream>>>(row, lut, L, S, M, K);
     return (int)cudaGetLastError();
 }

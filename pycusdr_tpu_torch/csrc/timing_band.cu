@@ -22,9 +22,11 @@
 // the register-radix Stockham passes of fft_smem.cuh (half the transform
 // work of real rows), splits each row into its two columns' spectra by
 // conjugate symmetry, applies the twiddle exp(-2πi c k1 / N) (two staged
-// tables), and adds the tile's share of every band bin, nb * cw
-// multiply-adds, to the group's partial in column order (kept in
-// registers across the group's tiles up to 2048 bins). The stage-2
+// tables; above N = 2^18 the float64-built table in global memory), and
+// adds the tile's share of every band bin, nb * cw multiply-adds, to the
+// group's partial in column order (kept in registers across the group's
+// tiles up to 2048 bins, in device memory for a wider band, as at N >
+// 2^18 where the band grows with N). The stage-2
 // twiddle comes from the float64-built table, one address per warp for
 // most lanes. (At N <= 512 a tile is one column, transformed unpacked.)
 // Pass 2 (band_argmax), one block per b: adds the groups' partials of
@@ -57,7 +59,8 @@ __device__ __forceinline__ float2 tile_bin(const float2* buf, const float2* __re
     float2 w[kMaxCw];
 #pragma unroll
     for (int cc = 0; cc < kMaxCw; ++cc)
-        if (cc < cw) w[cc] = __ldg(&tw[(((c0 + cc) * k2) & (N2 - 1)) << logN1]);
+        if (cc < cw)  // unsigned: c k2 passes 2^31 where N2 does 2^16; the low bits hold
+            w[cc] = __ldg(&tw[(((unsigned)(c0 + cc) * (unsigned)k2) & (N2 - 1)) << logN1]);
 #pragma unroll
     for (int cc = 0; cc < kMaxCw; ++cc)
         if (cc < cw)
@@ -71,7 +74,7 @@ band_partial(const float* __restrict__ x, const float2* __restrict__ tw,
              float2* __restrict__ part, int logN, int lo, int nb, int logN1, int logCw,
              int chunks) {
     extern __shared__ float2 smem[];
-    const pycusdr::FftSmem sm = pycusdr::fft_smem(smem, logN);
+    const pycusdr::FftSmem sm = pycusdr::fft_smem(smem, logN, tw);
     float2* buf = sm.buf;
     const int g = blockIdx.x, b = blockIdx.y, G = gridDim.x;
     const int N1 = 1 << logN1, logN2 = logN - logN1, N2 = 1 << logN2, cw = 1 << logCw;

@@ -39,9 +39,9 @@ SIGNATURES = {
     "pycusdr_doppler_energy": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
     # S, masks, shift, shift_stride, tw, Y, colsum, colmax, colargmax, B, N, M, n1, C, R,
-    # Mg, sum_lo, sum_hi, stream
+    # Mg, sum_lo, sum_hi, mids, stream
     "pycusdr_mf_bank_colreduce": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _P],
     # x, tw, part, spSym, codeOffset, code_val, B, N, lo, hi, n1, cw, groups, stream
     "pycusdr_timing_band": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any,
@@ -54,13 +54,17 @@ SIGNATURES = {
     # bin_hz, stream
     "pycusdr_doppler_estimate": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    # x, y, part, hits, clipped_any, B, N, chunk, scale, stream
-    "pycusdr_threshold": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, y, part|NULL, hits, clipped_any, B, N, chunk, scale, long_form, chunks, cluster,
+    # stream
+    "pycusdr_threshold": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    # N, chunks, cluster, count (int*): the clusters of K6's launch the device holds
+    # at once (no stream)
+    "pycusdr_threshold_clusters": [_I, _I, _I, _P],
     # sym, lengths, dec|NULL, bits|NULL, met, S, Tmax, soft, terminated, invert_g2,
     # decode, stream
     "pycusdr_viterbi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # row, lut, L, B, S, M, K, stream
-    "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # row, lut, L, B, S, M, K, shared, stream
+    "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, out, C, L, S, master_idx, master_weight, mask_pad, stream
     "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, state|NULL, h2, tw, y, T, M, K, stream

@@ -13,6 +13,7 @@ ties in the column argmax, the earliest sample wins in the symbol
 window, and slots are clamped to [0, N - W].
 """
 
+import ctypes
 import functools
 import math
 
@@ -28,8 +29,15 @@ TRUST_CLIPPED = -2
 TRUST_SYMBOL_ERROR = -1
 #: the clip dilation's half width is clamped here (JAX dilate_mask_dynamic)
 CLIP_HW_MAX = 2048
-#: samples per K6 block; the partial sums of the chunks are added in order
+#: samples of a K6 chunk: 256 threads sum a chunk, thread t every 256th
+#: sample from t, and the chunks' sums are added in order
 K6_CHUNK = 4096
+#: K6's cluster form: at most this many CTAs in a row's cluster (above 8 a
+#: non-portable size), each taking at most K6_MAX_CHUNKS chunks
+K6_MAX_CLUSTER, K6_MAX_CHUNKS = 16, 4
+#: K4n keeps its symbol LUT in shared memory up to the 227 KB a block may
+#: opt in to on Hopper (above 48 KB by cudaFuncAttributeMaxDynamicSharedMemorySize)
+K4N_SMEM_MAX = 227 * 1024
 
 
 def twiddle_table(N: int, device) -> torch.Tensor:
@@ -40,12 +48,26 @@ def twiddle_table(N: int, device) -> torch.Tensor:
     return torch.from_numpy(tab).to(device)
 
 
-def fft_split(N: int) -> int:
-    """N1 of K2's four-step split N = N1 * N2 (N1 >= N2, both <= 512)."""
-    if N < 4 or N & (N - 1) or N > 1 << 18:
-        raise ValueError(f"K2 needs a power-of-two Nfft in [4, 2^18], got {N}")
+@functools.lru_cache(maxsize=None)
+def fft_factors(N: int) -> tuple:
+    """K2's split of N into transform factors, each at most 512, in pass
+    order: (N1, N2) with N1 >= N2 up to 2^18 (the two-pass four-step); above
+    it N1 = 512 and N / 512 in more factors, as even as can be, the larger
+    first, each beyond the second a middle pass."""
+    if N < 4 or N & (N - 1):
+        raise ValueError(f"K2 needs a power-of-two Nfft >= 4, got {N}")
     log2n = N.bit_length() - 1
-    return 1 << ((log2n + 1) // 2)
+    if log2n <= 18:
+        n1 = 1 << ((log2n + 1) // 2)
+        return n1, N // n1
+    rest = log2n - 9
+    q = -(-rest // 9)
+    return (512, *(1 << (rest // q + (i < rest % q)) for i in range(q)))
+
+
+def fft_split(N: int) -> int:
+    """N1 of K2's four-step split (``fft_factors``)."""
+    return fft_factors(N)[0]
 
 
 # The shared-memory tiles of K2 and K3 (``csrc/fft_smem.cuh``): complex
@@ -85,8 +107,8 @@ def timing_band_plan(N: int) -> dict:
     """K3's launch plan, a function of N alone (so a block's bits do not
     depend on the batch): N = n1 * n2, tiles of ``cw`` adjacent columns,
     ``groups`` blocks per batch row each taking ``chunks`` tiles in order."""
-    if N < 4 or N & (N - 1) or N > 1 << 18:
-        raise ValueError(f"K3 needs a power-of-two N in [4, 2^18], got {N}")
+    if N < 4 or N & (N - 1):
+        raise ValueError(f"K3 needs a power-of-two N >= 4, got {N}")
     n1 = min(N, FFT_MAX_L)
     n2 = N // n1
     cw = min(n2, K3_CW)
@@ -98,37 +120,76 @@ def timing_band_plan(N: int) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def mf_bank_plan(N: int, M: int, B: int) -> dict:
-    """K2's launch plan: the split N = n1 * n2, ``C`` columns per pass-1
-    block, ``R`` rows per pass-2 block (at most 8 and 2048 / n2 outputs,
-    halved while B * n1 / R blocks would not fill the SMs twice, down to
-    2) and ``Mg`` masks per pass-2
-    group. None of it changes a result bit: each output is the same
-    transform and sums its masks in increasing order."""
-    n1 = fft_split(N)
-    n2 = N // n1
-    C = min(n2, FFT_TILE // n1, FFT_MAX_ROWS)
+    """K2's launch plan: the split N = n1 * n2 (``fft_factors``), ``C``
+    columns per pass-1 block, ``R`` rows per pass-2 block (at most 8 and
+    2048 / n2 outputs, halved while B * n1 / R blocks would not fill the
+    SMs twice, down to 2) and ``Mg`` masks per pass-2 group. Above 2^18,
+    ``mid``: the middle factors between n1 and n2, ``Cm`` the columns a
+    block of each middle pass, ``grid_mid`` their grids; pass 2 then has a
+    block per (tile of R rows, middle digits, b). None of it changes a
+    result bit: each output is the same transform and sums its masks in
+    increasing order."""
+    n1, *mid, n2 = fft_factors(N)
+    nmid = math.prod(mid)
+    C = min(N // n1, FFT_TILE // n1, FFT_MAX_ROWS)
     R = min(8, n1, K2_OUT * FFT_THREADS // n2)
-    while R > 2 and B * (n1 // R) < 2 * SM_COUNT:
+    while R > 2 and B * nmid * (n1 // R) < 2 * SM_COUNT:
         R //= 2
     Mg = max(1, min(M, FFT_MAX_ROWS // R, FFT_TILE // (R * n2)))
-    return dict(n1=n1, n2=n2, C=C, R=R, Mg=Mg, grid1=(n2 // C, M, B), grid2=(n1 // R, B),
-                smem=FFT_SMEM_BYTES, cluster=1)
+    plan = dict(n1=n1, n2=n2, C=C, R=R, Mg=Mg, grid1=(N // n1 // C, M, B),
+                grid2=(n1 // R * nmid, B), smem=FFT_SMEM_BYTES, cluster=1)
+    if mid:
+        inner = [N // n1 // math.prod(mid[:i + 1]) for i in range(len(mid))]
+        Cm = tuple(min(w, FFT_TILE // f, FFT_MAX_ROWS) for f, w in zip(mid, inner))
+        plan.update(mid=tuple(mid), Cm=Cm,
+                    grid_mid=tuple(B * M * N // (f * w) * (w // c)
+                                   for f, w, c in zip(mid, inner, Cm)))
+    return plan
+
+
+def mid_code(plan: dict) -> int:
+    """The middle factors' log2 for the kernel: 4 bits each, the first lowest."""
+    return sum((f.bit_length() - 1) << (4 * i) for i, f in enumerate(plan.get("mid", ())))
 
 
 # ---------------------------------------------------------------- K6
 
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
-    """(B, N) bool -> (B, N/32) int32 words; bit i of word w is sample 32 w + i."""
+    """(B, N) bool -> (B, ceil(N/32)) int32 words; bit i of word w is sample
+    32 w + i, the bits past N zero."""
     B, N = mask.shape
-    w = mask.reshape(B, N // 32, 32).to(torch.int64) << torch.arange(32, device=mask.device)
+    nw = -(-N // 32)
+    m = torch.zeros((B, 32 * nw), dtype=torch.int64, device=mask.device)
+    m[:, :N] = mask
+    w = m.reshape(B, nw, 32) << torch.arange(32, device=mask.device)
     return w.sum(dim=-1).to(torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, N: int) -> torch.Tensor:
-    """Inverse of ``pack_bits``: (B, N/32) int32 -> (B, N) bool."""
+    """Inverse of ``pack_bits``: (B, ceil(N/32)) int32 -> (B, N) bool."""
     bits = (words[:, :, None] >> torch.arange(32, device=words.device, dtype=torch.int32)) & 1
-    return bits.reshape(words.shape[0], N).bool()
+    return bits.reshape(words.shape[0], -1)[:, :N].bool()
+
+
+@functools.lru_cache(maxsize=None)
+def k6_plan(N: int) -> dict:
+    """K6's launch plan, a function of N alone (so a block gives the same
+    bits alone and in any batch): the row in ``nch`` chunks of K6_CHUNK
+    samples. Form "cluster" (nch <= K6_MAX_CLUSTER * K6_MAX_CHUNKS, N <=
+    2^18): one launch, a cluster of ``cluster`` CTAs a row, each staging
+    ``chunks`` chunks of x in ``smem`` bytes of shared memory with
+    ``threads`` (256 a chunk). Form "long": three launches of a CTA a chunk,
+    the chunk sums through a (2, B, nch) scratch in device memory. Both add
+    every chunk's sum in the order of ``thr_pass1`` (``csrc/threshold.cu``)."""
+    if N < 1:
+        raise ValueError(f"K6 needs N >= 1, got {N}")
+    nch = -(-N // K6_CHUNK)
+    if nch > K6_MAX_CLUSTER * K6_MAX_CHUNKS:
+        return dict(form="long", nch=nch, chunks=1, cluster=1, threads=256, smem=0)
+    k = -(-nch // K6_MAX_CLUSTER)
+    return dict(form="cluster", nch=nch, chunks=k, cluster=-(-nch // k), threads=256 * k,
+                smem=8 * min(N, k * K6_CHUNK))
 
 
 def threshold_input_plain(x: torch.Tensor, scale: float):
@@ -150,27 +211,43 @@ def threshold_input_plain(x: torch.Tensor, scale: float):
     return torch.complex(re * g1 * g2, im * g1 * g2), hit2
 
 
+def k6_clusters(N: int) -> int:
+    """How many clusters of K6's cluster-form launch at N (``k6_plan``) the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    plan = k6_plan(N)
+    if plan["form"] != "cluster":
+        raise ValueError(f"K6 at N={N} runs the long form")
+    count = ctypes.c_int(0)
+    err = _lib.lib().pycusdr_threshold_clusters(N, plan["chunks"], plan["cluster"],
+                                                ctypes.addressof(count))
+    if err != 0:
+        raise RuntimeError(f"pycusdr_threshold_clusters: CUDA error {err}")
+    return count.value
+
+
 def threshold_input(x: torch.Tensor, scale: float):
     """K6: two-pass spike clipping (see ``threshold_input_plain``).
-    Returns (clipped signal (B, N) complex64, pass-2 hits as a (B, N/32)
-    int32 bitmask (``pack_bits``), clipped_any (B,) int32). The signal is
-    written to a new tensor; ``x`` is left as it is."""
+    Returns (clipped signal (B, N) complex64, pass-2 hits as a (B,
+    ceil(N/32)) int32 bitmask (``pack_bits``), clipped_any (B,) int32). The
+    signal is written to a new tensor; ``x`` is left as it is. The launch
+    is ``k6_plan``'s."""
     if x.device.type == "cpu":
         y, hit2 = threshold_input_plain(x, scale)
         return y, pack_bits(hit2), hit2.any(dim=-1).to(torch.int32)
     if x.device.type != "cuda":
         raise ValueError(f"threshold_input: unsupported device {x.device}")
     B, N = x.shape
-    if N % 32:
-        raise ValueError(f"threshold_input: N must be a multiple of 32, got {N}")
     _lib.check(x, "x", torch.complex64, (B, N))
-    nch = -(-N // K6_CHUNK)
+    plan = k6_plan(N)
+    long_form = plan["form"] == "long"
     y = torch.empty_like(x)
-    part = torch.empty((2, B, nch), dtype=torch.float32, device=x.device)
-    hits = torch.empty((B, N // 32), dtype=torch.int32, device=x.device)
+    part = (torch.empty((2, B, plan["nch"]), dtype=torch.float32, device=x.device)
+            if long_form else None)
+    hits = torch.empty((B, -(-N // 32)), dtype=torch.int32, device=x.device)
     clipped_any = torch.empty((B,), dtype=torch.int32, device=x.device)
     _lib.launch("pycusdr_threshold", _lib.ptr(x), _lib.ptr(y), _lib.ptr(part), _lib.ptr(hits),
-                _lib.ptr(clipped_any), B, N, K6_CHUNK, float(scale))
+                _lib.ptr(clipped_any), B, N, K6_CHUNK, float(scale), int(long_form),
+                plan["chunks"], plan["cluster"])
     threshold_input.launches += 1
     return y, hits, clipped_any
 
@@ -254,7 +331,7 @@ def mf_bank_colreduce(S: torch.Tensor, masks: torch.Tensor, shift: torch.Tensor,
     _lib.launch("pycusdr_mf_bank_colreduce", _lib.ptr(S), _lib.ptr(masks), _lib.ptr(shift),
                 int(shift.shape[0] == B), _lib.ptr(tw), _lib.ptr(Y), _lib.ptr(colsum),
                 _lib.ptr(colmax), _lib.ptr(colarg), B, N, M, plan["n1"], plan["C"], plan["R"],
-                plan["Mg"], sum_lo, sum_hi)
+                plan["Mg"], sum_lo, sum_hi, mid_code(plan))
     mf_bank_colreduce.launches += 1
     return colsum, colmax, colarg
 
@@ -401,7 +478,7 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     (see ``symbol_detect_plain``). spSym and codeOffset stay on the
     device: the kernel reads them by pointer.
 
-    ``hits``: K6's pass-2 hits as a (B, Nfft/32) int32 bitmask. A slot
+    ``hits``: K6's pass-2 hits as a (B, ceil(Nfft/32)) int32 bitmask. A slot
     whose winning sample j has a hit within [j - hw, j + hw], hw =
     ``clip_halfwidth`` clamped to [0, 2048], gets trust -2; the result
     then has at_win as a 7th output.
@@ -437,9 +514,7 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     if bitLUT is not None:
         _lib.check(bitLUT, "bitLUT", torch.int8, None, dev)
     if hits is not None:
-        if N % 32:
-            raise ValueError(f"symbol_detect: a clip bitmask needs N % 32 == 0, got {N}")
-        _lib.check(hits, "hits", torch.int32, (B, N // 32), dev)
+        _lib.check(hits, "hits", torch.int32, (B, -(-N // 32)), dev)
     if clipped_any is not None:
         _lib.check(clipped_any, "clipped_any", torch.int32, (B,), dev)
     if row is not None:
@@ -514,11 +589,17 @@ def nrzs_rows_plain(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) 
     return row
 
 
+def k4n_form(M: int, K: int) -> str:
+    """Where K4n reads an (M, 2, K) int32 symbol LUT: "shared" (staged in
+    shared memory) up to K4N_SMEM_MAX bytes, else "global" (through L1)."""
+    return "shared" if 4 * M * 2 * K <= K4N_SMEM_MAX else "global"
+
+
 def nrzs_bits(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> torch.Tensor:
     """K4n: NRZ-S bits over the packed (B, L) f32 rows that K4 wrote, in
     place: bits from the symbols (``nrzs_bits_plain``), trust -1 on an
     error (``nrzs_trust_plain``), nBits = nSym - 1. symbolLUT: (M, 2, K)
-    int32 on the rows' device. Returns ``row``."""
+    int32 on the rows' device, any size (``k4n_form``). Returns ``row``."""
     S = numSymMax
     if row.dim() != 2 or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
         raise ValueError(f"nrzs_bits: row shape {tuple(row.shape)} too small for S={S}")
@@ -532,7 +613,7 @@ def nrzs_bits(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> tor
     _lib.check(symbolLUT, "symbolLUT", torch.int32, None, row.device)
     M, _, K = symbolLUT.shape
     _lib.launch("pycusdr_nrzs_bits", _lib.ptr(row), _lib.ptr(symbolLUT), row.shape[1],
-                row.shape[0], S, M, K)
+                row.shape[0], S, M, K, int(k4n_form(M, K) == "shared"))
     nrzs_bits.launches += 1
     return row
 
@@ -647,7 +728,7 @@ def shard_select(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
     """K4s: the cross-shard select (see ``shard_select_plain``) written into
     the (B, L) f32 packed rows: the five arrays and the scalars nSym, nBits
     = nSym, spSym, codeOffset, ``code_val`` (B,) and ``clipped_any`` (B,)
-    int32 (0 when None). ``hits``: K6's (B, Nfft/32) int32 bitmask; a slot
+    int32 (0 when None). ``hits``: K6's (B, ceil(Nfft/32)) int32 bitmask; a slot
     whose winning sample has a hit within ``clip_halfwidth`` (clamped to
     2048) gets trust -2. K4n runs after it for NRZ-S. Returns ``row``."""
     kw = dict(M=M, Nfft=Nfft, windowWidth=windowWidth, spsymMin=spsymMin, numSymMax=numSymMax,
@@ -676,9 +757,7 @@ def shard_select(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
     if bitLUT is not None:
         _lib.check(bitLUT, "bitLUT", torch.int8, (M,), dev)
     if hits is not None:
-        if Nfft % 32:
-            raise ValueError(f"shard_select: a clip bitmask needs N % 32 == 0, got {Nfft}")
-        _lib.check(hits, "hits", torch.int32, (B, Nfft // 32), dev)
+        _lib.check(hits, "hits", torch.int32, (B, -(-Nfft // 32)), dev)
     if clipped_any is not None:
         _lib.check(clipped_any, "clipped_any", torch.int32, (B,), dev)
     _lib.launch("pycusdr_shard_select", _lib.ptr(vals), _lib.ptr(keys), nd, _lib.ptr(spSym),

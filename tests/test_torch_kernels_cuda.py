@@ -9,7 +9,10 @@ pad mask, and the generic step; K2 at M=16 and 32, B=1 and 64, and K3 at
 every N from 2^2 to 2^18 at the band edges, with zero and NaN rows; K1 at
 33, 64 and 128 masks; K5 with planted ties, grids of 2048 and 3000 entries,
 1 to 128 masks and noise alone in its SNR bands; K4 at B=64 on six window
-shapes, each block alone).
+shapes, each block alone; K6 at every form of its plan, at N not a multiple
+of 32 and above 2^18, equal bit for bit to the numpy model of its order; K4
+and K4s with a partial last clip word; K4n with LUTs of 64 and 256 KB; K2
+and K3 at 2^19 and 2^20).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -206,6 +209,72 @@ def test_mf_bank_colreduce_batches(cuda, B, M):
         assert torch.equal(u[0], v[b])
 
 
+@pytest.mark.parametrize("N", [2 ** 19, 2 ** 20])
+def test_bank_and_band_above_2_18(cuda, N):
+    """K2 (the middle passes) and K3 above 2^18 against their plain
+    versions, two blocks, each alone equal to its row."""
+    rng = np.random.RandomState(N % 1009)
+    M = 3
+    S = torch.from_numpy((rng.randn(2, N) + 1j * rng.randn(2, N)).astype(np.complex64)).to(cuda)
+    masks = torch.from_numpy((rng.randn(M, N) + 1j * rng.randn(M, N))
+                             .astype(np.complex64)).to(cuda)
+    shift = torch.tensor([3, N - 7], dtype=torch.int32, device=cuda)
+    ks, km, ka = dk.mf_bank_colreduce(S, masks, shift, 1, M)
+    ps, pm, pa = dk.mf_bank_colreduce_plain(S, masks, shift, 1, M)
+    assert float((ks - ps).abs().max()) <= 1e-4 * float(ps.abs().max())
+    assert float((km - pm).abs().max()) <= 1e-4 * float(pm.abs().max())
+    top2 = torch.topk(dk.mf_bank_power_plain(S, masks, shift), 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0]
+    assert int(((ka != pa) & clear).sum()) == 0
+    one = dk.mf_bank_colreduce(S[1:].contiguous(), masks, shift[1:].contiguous(), 1, M)
+    assert all(torch.equal(u[0], v[1]) for u, v in zip(one, (ks, km, ka)))
+    kt = N // 16 + 5
+    n = np.arange(N)
+    x = np.stack([0.2 * rng.randn(N) + np.cos(2 * np.pi * kt * n / N + 0.7),
+                  rng.randn(N)]).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    for lo, hi in ((N // 32, N // 8), (kt - 3, kt + 40)):
+        sp, co, cv = dk.timing_band(x, lo, hi)
+        psp, pco, pcv = dk.timing_band_plain(x, lo, hi)
+        assert torch.equal(sp, psp), (sp.tolist(), psp.tolist())
+        assert float((cv - pcv).abs().max()) <= 1e-4 * float(pcv.abs().max())
+        assert abs(float(co[0] - pco[0])) <= 1e-3
+        one = dk.timing_band(x[1:].contiguous(), lo, hi)
+        assert all(torch.equal(u[0], v[1]) for u, v in zip(one, (sp, co, cv)))
+
+
+def test_clip_bitmask_partial_last_word(cuda):
+    """K4 and K4s with K6's bitmask at N = 1000 (a partial last word, hits
+    on its last sample) against their plain versions."""
+    N, S, B, M = 1000, 500, 2, 4
+    rng = np.random.RandomState(1000)
+    colmax = torch.from_numpy(rng.rand(B, N).astype(np.float32)).to(cuda)
+    colarg = torch.from_numpy(rng.randint(0, M, (B, N)).astype(np.int32)).to(cuda)
+    sp = torch.tensor([4.0, 5.5], device=cuda)
+    co = torch.tensor([1.3, 0.2], device=cuda)
+    hit = torch.zeros((B, N), dtype=torch.bool)
+    hit[0, [0, N - 1]] = True
+    hit[1, N - 3] = True
+    hit = hit.to(cuda)
+    hits = dk.pack_bits(hit)
+    lut = torch.tensor([0, 1, 1, 0], dtype=torch.int8, device=cuda)
+    kw = dict(Nfft=N, windowWidth=3, spsymMin=2, numSymMax=S, trust_normal=2)
+    a = dk.symbol_detect(colmax, colarg, sp, co, lut, hits=hits, **kw)
+    clip = dk.dilate_mask_plain(hit, dk.clip_halfwidth(sp, 2))
+    b = dk.symbol_detect_plain(colmax, colarg, sp, co, lut, clip_mask=clip, **kw)
+    assert bool(b[6][:, -10:].any())
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    kl = {k: v for k, v in kw.items() if k != "trust_normal"}
+    val, key = dk.symbol_detect_local(colmax, colarg, sp, co, m0=0, M=M, **kl)
+    rows = [torch.zeros((B, 5 * S + 12), device=cuda) for _ in range(2)]
+    k4s = dict(kw, M=M, code_val=torch.zeros(B, device=cuda), hits=hits)
+    dk.shard_select(val[None], key[None], sp, co, lut, row=rows[0], **k4s)
+    dk.shard_select_rows_plain(val[None], key[None], sp, co, lut, row=rows[1], **k4s)
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0], rows[1])
+
+
 def _band_kinds(N):
     """Bands from bin 0, up to N/2+1, one bin wide, and across K3's tile
     boundary k = n1 (tests/test_torch_fft_plan.py holds the model)."""
@@ -331,17 +400,27 @@ def test_doppler_estimate(case):
 
 def _spiky(rng, B, N):
     x = (rng.randn(B, N) + 1j * rng.randn(B, N)) / np.sqrt(2)
+    spikes = ((8, N // 3), (1, 5), (16, N - 16)) if N >= 64 else ((1, N // 2),)
     for b in range(B - 1):  # the last block has no spike
-        for w, at in ((8, N // 3), (1, 5), (16, N - 16)):
+        for w, at in spikes:
             x[b, at:at + w] += 60.0 * np.exp(2j * np.pi * rng.rand(w))
     return x.astype(np.complex64)
 
 
-@pytest.mark.parametrize("N", [2 ** 13, 2 ** 17])
+#: K6's forms: the cluster form at one chunk (N < 4096, not a multiple of
+#: 32 among them), 2, 32 (STX), 33 and 64 chunks; the long form above 2^18
+K6_NS = [1, 5, 48, 4097, 2 ** 13, 2 ** 17, 33 * 4096 + 7, 2 ** 18, 2 ** 19 + 3]
+
+
+@pytest.mark.parametrize("N", K6_NS)
 def test_threshold_input(cuda, N):
     """K6 against its plain version: masks equal except where |a - thr|
     <= 1e-5 thr (the two sum in different orders), signals where the masks
-    agree (rtol 1e-5); a block alone gives the same bits as in a batch."""
+    agree (rtol 1e-5); a block alone gives the same bits as in a batch; the
+    thresholds, y and hit words equal the numpy model of the kernel's order
+    (``tests/test_torch_threshold_plan.py``) bit for bit."""
+    from test_torch_threshold_plan import clip_model, parent_thresholds
+
     rng = np.random.RandomState(N)
     xh = _spiky(rng, 3, N)
     x = torch.from_numpy(xh).to(cuda)
@@ -355,13 +434,18 @@ def test_threshold_input(cuda, N):
     clear = torch.from_numpy((np.abs(a - thr1) > 1e-5 * thr1)
                              & (np.abs(a1 - thr2) > 1e-5 * thr2)).to(cuda)
     assert int((hk != hp)[clear].sum()) == 0
-    assert bool(hp[0].any()) and not bool(hp[2].any())
+    if N > 1:
+        assert bool(hp[0].any()) and not bool(hp[2].any())
     agree = hk == hp
     torch.testing.assert_close(torch.view_as_real(y)[agree], torch.view_as_real(yp)[agree],
                                rtol=1e-5, atol=1e-6)
     assert torch.equal(anyk, hp.any(dim=-1).to(torch.int32))
     y1, h1, a1k = dk.threshold_input(x[1:2].contiguous(), 4.5)
     assert torch.equal(y1[0], y[1]) and torch.equal(h1[0], hits[1]) and int(a1k[0]) == int(anyk[1])
+    for b in range(3):
+        ym, hm = clip_model(xh[b], *parent_thresholds(xh[b], 4.5))
+        assert np.array_equal(y[b].cpu().numpy(), ym.astype(np.complex64))
+        assert torch.equal(hits[b].cpu(), dk.pack_bits(torch.from_numpy(hm)[None])[0])
 
 
 def test_symbol_detect_clip(case):
@@ -593,6 +677,31 @@ def bpsk_case(cuda):
     rows[:, :S], rows[:, S:2 * S], rows[:, 5 * S + 1] = 9.0, 4.0, -3.0
     rows[:, S:2 * S:5] = -2.0
     return spec, DeviceConsts.from_spec(spec, cuda), rows
+
+
+@pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
+def test_nrzs_bits_large_lut(cuda, M, K):
+    """K4n with a LUT above 48 KB: in shared memory opted in (64 KB) and
+    read through L1 (256 KB), rows equal to the plain version's."""
+    rng = np.random.RandomState(M)
+    S, B = 4608, 3
+    lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
+    rows = torch.zeros((B, 5 * S + 12))
+    rows[:, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, M + 1, (B, S)).astype(np.float32))
+    for b in range(B):
+        sym = rows[b, 2 * S:3 * S].long().numpy()
+        for i in range(0, S, 3):
+            if 0 <= sym[i] < M:
+                lut[sym[i], i % 2, i % K] = sym[(i + 1) % S]
+    rows[:, S:2 * S] = 2.0
+    rows[:, S:2 * S:7] = -2.0
+    rows[:, 5 * S] = 4000.0
+    rows = rows.to(cuda)
+    lt = torch.from_numpy(lut).to(cuda)
+    got = dk.nrzs_bits(rows.clone(), lt, S)
+    want = dk.nrzs_rows_plain(rows.clone(), lt, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((got[:, S:2 * S] == -1).any())
 
 
 def test_nrzs_bits(bpsk_case):
