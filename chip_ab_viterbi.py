@@ -1,8 +1,8 @@
-"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, or K6, and the graphs
+"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, K6, or K9, and the graphs
 around them, of two checkouts, timed in turns on one card.
 
-    python3 chip_ab_viterbi.py PARENT_DIR [--turn viterbi|doppler|detect|threshold]
-                               [--rounds R]
+    python3 chip_ab_viterbi.py PARENT_DIR
+        [--turn viterbi|doppler|detect|threshold|channelize] [--rounds R]
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
 the parent commit unpacked under ``build/``); the other tree is the one
@@ -38,7 +38,18 @@ root, which builds that tree's kernels and times, on card 0:
   launch taken again), the wrapper's ms (``cuda_ms``) and host us a call;
   the sha256 of y, the hit words and clipped_any, and of the STX block
   graph's packed rows, which the summary holds equal across the turns of
-  both trees; the STX graph's wall ms and device busy ms a call.
+  both trees; the STX graph's wall ms and device busy ms a call;
+- ``--turn channelize``: K9 (``channelize``) on chip_smoke's ``k9_inputs``
+  (seeded samples and a random carry) at the wideband shape (M=64, K=8,
+  T=2^16) and at the vote's (M=4): the device ms a call of its kernel
+  (torch.profiler, a trace that lost a launch taken again) and of all the
+  call's device work (the parent also copies the carry), the wrapper's ms
+  (``cuda_ms``) and host us a call; max|y - y_parent| / max|y|, y_parent
+  saved by the first turn of the parent; the sha256 of the carry, which the
+  summary holds equal across the turns of both trees; the wideband chain
+  (K9 and the channel-parallel step at C=64, vote off): K9's device ms
+  inside it (after the step, K9 runs slower than alone), wall ms by CUDA
+  events and device busy ms a hop.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
@@ -47,11 +58,13 @@ turn prints one JSON line; the card's name and power limit come first.
 Both trees' ``chip_smoke.py`` must have what the turn calls
 (``viterbi_inputs``, ``cuda_ms``, ``time_feed``; ``configuration``,
 ``kernel_inputs``, ``signal_blocks``, ``k9_inputs``; ``k4_kwargs``,
-``k5_args``). Needs a card: a turn fails without one.
+``k5_args``). The turns' scratch files (y_parent) go under
+``build/ab_scratch``. Needs a card: a turn fails without one.
 """
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -129,6 +142,7 @@ x, _ = c.k9_inputs(wb, spec.Nfft)
 ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
 step = build_sharded_demod_step(spec, make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"]),
                                 vote=False)
+out["K9 M=64 device ms in the chain"] = kernel_ms(lambda: step(ch(x)[0]), "channelize")
 out["wideband chain ms"] = c.cuda_ms(lambda: step(ch(x)[0]), iters=5, reps=5)
 out["K9 fused y sha256"] = hashlib.sha256(ch(x)[0].cpu().numpy().tobytes()).hexdigest()
 print(json.dumps(out))
@@ -176,7 +190,8 @@ def kernel_ms(fn, name, calls=20):
 
 
 # device busy ms a call: every device event of the trace, once two traces
-# in a row hold the same number of events (a trace may lose some)
+# in a row hold the same number of events, and some (a trace may lose some,
+# or all)
 def busy_ms(fn, calls=20):
     fn()
     torch.cuda.synchronize()
@@ -184,7 +199,7 @@ def busy_ms(fn, calls=20):
     for _ in range(5):
         seen.append(trace(fn, calls))
         n = [sum(e[1] for e in t) for t in seen[-2:]]
-        if n[0] == n[1]:
+        if n[0] == n[1] > 0:
             return sum(e[2] for e in seen[-1]) / 1e3 / calls
     raise AssertionError(f"busy: traces held {[sum(e[1] for e in t) for t in seen]} events")
 """
@@ -281,6 +296,53 @@ for B in (1, 16, 64):
 print(json.dumps(out))
 """
 
+#: K9 in either tree: one ``channelize`` launch a call (the parent adds a copy
+#: of the carry); argv[3]: the scratch directory y_parent is saved in, argv[4]:
+#: the root of the change tree
+TURNS["channelize"] = """
+import hashlib, json, re, sys, time
+from pathlib import Path
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.configs import wideband_conf
+from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import channelizer as pch
+""" + PROFILING + """
+
+out = {}
+scratch = Path(sys.argv[3])
+wb = wideband_conf()
+spec = c.configuration("flagship")[2]
+N = spec.Nfft
+for M in (wb["M"], 4):
+    w = dict(wb, M=M)
+    x, st = c.k9_inputs(w, N)
+    ch = pch.Channelizer(M, w["taps_per_branch"], w["beta"], device="cuda")
+    fn = lambda: pch.channelize(x, ch.h2, st, tw=ch.tw)
+    out[f"K9 M={M} device ms"] = kernel_ms(fn, "channelize")
+    out[f"K9 M={M} call device busy ms"] = busy_ms(fn)
+    out[f"K9 M={M} ms"] = c.cuda_ms(fn)
+    out[f"K9 M={M} host us"] = host_us(fn)
+    y, carry = fn()
+    ref = scratch / f"y_parent_M{M}.pt"
+    if not ref.exists():
+        assert Path.cwd() != Path(sys.argv[4]), "the first turn is the parent's"
+        scratch.mkdir(parents=True, exist_ok=True)
+        torch.save(y.cpu(), ref)
+    yp = torch.load(ref).cuda()
+    out[f"K9 M={M} rel err vs y_parent"] = float((y - yp).abs().max() / y.abs().max())
+    out[f"K9 M={M} carry sha256"] = hashlib.sha256(carry.cpu().numpy().tobytes()).hexdigest()
+x, _ = c.k9_inputs(wb, N)
+ch = pch.Channelizer(wb["M"], wb["taps_per_branch"], wb["beta"], device="cuda")
+step = build_sharded_demod_step(spec, make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"]),
+                                vote=False)
+out["K9 M=64 device ms in the chain"] = kernel_ms(lambda: step(ch(x)[0]), "channelize")
+out["wideband chain ms"] = c.cuda_ms(lambda: step(ch(x)[0]), iters=5, reps=5)
+out["wideband chain device busy ms"] = busy_ms(lambda: step(ch(x)[0]))
+print(json.dumps(out))
+"""
+
 
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -302,8 +364,11 @@ def main() -> int:
             raise SystemExit(f"{name}: no chip_smoke.py under {root}")
     print(card_line(), flush=True)
     runs = {name: [] for name in trees}
+    scratch = HERE / "build" / "ab_scratch"
+    shutil.rmtree(scratch, ignore_errors=True)
     for name in ("parent", "change", "change", "parent") * args.rounds:
-        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS), str(HOST_CALLS)],
+        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS), str(HOST_CALLS),
+                            str(scratch), str(HERE)],
                            cwd=trees[name],
                            capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
@@ -313,7 +378,10 @@ def main() -> int:
         print(json.dumps({"tree": name, **runs[name][-1]}), flush=True)
     for key in runs["change"][0]:
         new = [r[key] for r in runs["change"]]
-        if isinstance(new[0], str):  # a digest: the same in every turn of both trees?
+        if key.endswith("vs y_parent"):  # an error against the parent's first turn
+            old = [r[key] for r in runs["parent"]]
+            print(f"{key}: parent {old} change {new}, at most {max(old + new):.3e}", flush=True)
+        elif isinstance(new[0], str):  # a digest: the same in every turn of both trees?
             both = new + [r[key] for r in runs["parent"] if key in r]
             print(f"{key}: {'equal' if len(set(both)) == 1 else 'DIFFERENT'} in all "
                   f"{len(both)} turns: {sorted(set(both))}", flush=True)

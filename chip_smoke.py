@@ -23,7 +23,13 @@ and then no result line is printed):
    shard's M=4, tiny) and on random, compact and mixed grids (M = 1, 5,
    8, 16, 32; D = 1, 3, 100, 129; N from 512 to 2^18), each printed with
    the window and global-read groups it ran, every block alone equal to
-   its row of the batch, two runs equal, and at the flagship grid at B=64; K9's
+   its row of the batch, two runs equal, and at the flagship grid at B=64;
+   K9: ptxas's registers, stack and spills of the fused kernel's 22
+   instantiations (none may spill; each at its row of ``k9_layouts``), the
+   path shapes, then every form of ``k9_plan`` (M = 1 to 1024 at K = 1, 8 and
+   32: every row split and the span and direct forms) on a ragged T and on
+   T < K - 1 with a random carry, within 1e-5 of max|y|, the carry equal,
+   two halves through the carry within 1e-5 of one call; K9's
    wide form (the FIR kernel, then cuFFT across the branches) at (M, K) =
    (2048, 8), (64, 40) and (4096, 2) with a random carry, within 1e-5 of
    max|y| and through two half hops; K7 (the Viterbi
@@ -120,8 +126,9 @@ and then no result line is printed):
       the one-process step, the voted pair equal on every rank;
    (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K8 at
    C=3/16/64, S=4608, with pinned ties and master_idx 0, 1 and C-1, with
-   and without its pad mask, K9 at M=64, K=8, T=2^16 with a random carry
-   (1e-5 of max|y|; two half hops equal one hop), K1 and K5 with
+   and without its pad mask, K9 at M=64, K=8, T=2^16 and at the vote's
+   M=4 with a random carry (1e-5 of max|y|; two half hops equal one hop),
+   K1 and K5 with
    centre_shift at B=1/16 against their plain versions, and K4l and K4s
    at B=1/16 at the flagship, STX (clip window) and bench_BPSK (K4n after
    K4s) shapes, on one shard and on the two halves of the mask bank;)
@@ -135,8 +142,10 @@ and then no result line is printed):
    K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3 against
    the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
-   K9 with its two-call yardstick (grouped conv1d + torch.fft.fft), and
-   its wide form at the three wide shapes; the
+   K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
+   yardstick (grouped conv1d + torch.fft.fft), its wide form at the
+   three wide shapes, and its direct form at (1024, 8) and (512, 16)
+   beside the wide form at the same shapes; the
    wideband chain per hop against the signal a hop holds; the tracker's
    acquire and track graphs per block at B=1; K4l and K4s at B=1/16/64
    and the generic step at C=16 against the channel-parallel step on the
@@ -1951,9 +1960,60 @@ def check_channelize(wb, T):
     return err, err / scale, bool(torch.equal(halves, yk))
 
 
+def k9_ptxas():
+    """ptxas's report of the fused K9 kernel's instantiations: [(G, V, P,
+    MS, MSV, TTP, staged, registers, stack bytes, spill stores, spill
+    loads)]."""
+    return ptxas_report("channelizer.cu", r"channelizeILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                        r"ELi(\d+)ELb([01])EE", 22)
+
+
+def check_channelize_plan():
+    """Every form of ``k9_plan``: M = 1 to 1024 (every row split G x V) at K
+    = 1, 8 and 32 (the span and the direct form), on a ragged T (three
+    tiles and 7 rows) and on T < K - 1 (old state rows in the carry), with
+    a random carry and random taps: y within K9_REL of max|y| of the plain
+    version, the carry equal; two halves through the carry within K9_REL of
+    max|y| of one call, the carry after them equal. Returns {form: [(M, K,
+    T, relative err)]}."""
+    out = {}
+    for M in (1 << e for e in range(11)):
+        for K in (1, 8, 32):
+            plan = pch.k9_plan(M, K)
+            for T in (3 * plan["TT"] + 7, max(1, K - 3)):
+                rng = np.random.RandomState(M + K + T)
+                x = torch.from_numpy(((rng.randn(T * M) + 1j * rng.randn(T * M)) / np.sqrt(2))
+                                     .astype(np.complex64)).cuda()
+                st = torch.from_numpy(((rng.randn(K - 1, M) + 1j * rng.randn(K - 1, M))
+                                       / np.sqrt(2)).astype(np.complex64)).cuda()
+                h2 = torch.from_numpy(rng.randn(K, M).astype(np.float32)).cuda()
+                yk, sk = pch.channelize(x, h2, st)
+                yp, sp = pch.channelize_plain(x, h2, st)
+                torch.cuda.synchronize()
+                scale = float(yp.abs().max())
+                rel = float((yk - yp).abs().max()) / scale
+                tag = f"K9 {plan['form']} M={M} K={K} T={T}"
+                assert rel <= K9_REL, f"{tag}: err {rel} of max|y|"
+                assert torch.equal(sk, sp), f"{tag}: the carry differs"
+                if T >= 2:
+                    h = T // 2 * M
+                    y1, s1 = pch.channelize(x[:h], h2, st)
+                    y2, s2 = pch.channelize(x[h:], h2, s1)
+                    torch.cuda.synchronize()
+                    rel_h = float((torch.cat([y1, y2], 1) - yp).abs().max()) / scale
+                    assert rel_h <= K9_REL, f"{tag}: halves err {rel_h}"
+                    assert torch.equal(s2, sp), f"{tag}: the carry after the halves differs"
+                out.setdefault(plan["form"], []).append((M, K, T, rel))
+    return out
+
+
 #: K9's wide form (M > 1024 or K > 32): (M, K, T), each T M = 2^22 samples,
 #: the wideband hop's count
 K9_WIDE = ((2048, 8, 2048), (64, 40, 65536), (4096, 2, 1024))
+#: K9's direct form (the fused kernel reading x through L1/L2 where two spans
+#: do not fit in shared memory), timed beside the wide form at the same
+#: (M, K, T), T M = 2^22
+K9_DIRECT = ((1024, 8, 4096), (512, 16, 8192))
 
 
 def k9_wide_inputs(M, K, T, seed=SEED + 19):
@@ -2445,13 +2505,11 @@ def k9_bound(wb, T):
     return bound_of(nbytes, (4 * K + 5 * math.log2(M)) * T * M)
 
 
-def time_slice5(wb, spec, tracker, xb):
-    """K9 at the wideband shape (kernel, plain version, the two-call
-    yardstick: a grouped ``conv1d`` over the branches and ``torch.fft.fft``
-    across them, TF32 off); the wideband chain (K9 plus the step at C=64,
-    vote off) per hop; the tracker's acquire and track graphs per block at
-    B=1 (CUDA events)."""
-    M, K, N = wb["M"], wb["taps_per_branch"], spec.Nfft
+def time_k9(wb, N):
+    """K9 at M x N (kernel, plain version, device ms) beside its bound and
+    its two-call yardstick: a grouped ``conv1d`` over the branches and
+    ``torch.fft.fft`` across them, TF32 off (ms, relative err against K9)."""
+    M, K = wb["M"], wb["taps_per_branch"]
     x, st = k9_inputs(wb, N)
     ch = pch.Channelizer(M, K, wb["beta"], device="cuda")
     k9 = (cuda_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw)),
@@ -2469,8 +2527,20 @@ def time_slice5(wb, spec, tracker, xb):
     yk = pch.channelize(x, ch.h2, st, tw=ch.tw)[0]
     torch.cuda.synchronize()
     e = float((yardstick() - yk).abs().max()) / float(yk.abs().max())
-    assert e <= 1e-5, f"K9 yardstick disagrees with K9: {e}"
-    yard_ms = cuda_ms(yardstick)
+    assert e <= 1e-5, f"K9 yardstick disagrees with K9 at M={M}: {e}"
+    return dict(k9=k9, k9_bound=k9_bound(wb, N), yardstick_ms=cuda_ms(yardstick),
+                yardstick_err=e, plan=pch.k9_plan(M, K))
+
+
+def time_slice5(wb, spec, tracker, xb):
+    """K9 at the wideband shape and at the vote's M=4 (``time_k9``); the
+    wideband chain (K9 plus the step at C=64, vote off) per hop; the
+    tracker's acquire and track graphs per block at B=1 (CUDA events)."""
+    M, K, N = wb["M"], wb["taps_per_branch"], spec.Nfft
+    out = time_k9(wb, N)
+    out["vote"] = time_k9(dict(wb, M=WB_VOTE_C), N)
+    x, _ = k9_inputs(wb, N)
+    ch = pch.Channelizer(M, K, wb["beta"], device="cuda")
     mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
     step = build_sharded_demod_step(spec, mesh, vote=False)
     y = ch(x)[0]
@@ -2486,9 +2556,19 @@ def time_slice5(wb, spec, tracker, xb):
                             cuda_ms(lambda: pch.channelize_plain(xw, chw.h2, stw), iters=5, reps=5),
                             k9_bound(wbw, Tw),
                             device_ms(lambda: pch.channelize(xw, chw.h2, stw), "channelize_wide"))
-    return dict(k9=k9, k9_bound=k9_bound(wb, N), k9_wide=wide, yardstick_ms=yard_ms,
-                yardstick_err=e,
-                chain_ms=chain_ms, step_ms=step_ms, acquire_ms=acq_ms, track_ms=trk_ms)
+    direct = {}
+    for Md, Kd, Td in K9_DIRECT:
+        assert pch.k9_plan(Md, Kd)["form"] == "direct", f"K9 ({Md}, {Kd}) is no direct shape"
+        wbd, xd, std, chd = k9_wide_inputs(Md, Kd, Td)
+        direct[Md, Kd, Td] = (cuda_ms(lambda: pch.channelize(xd, chd.h2, std, tw=chd.tw)),
+                              device_ms(lambda: pch.channelize(xd, chd.h2, std, tw=chd.tw),
+                                        "channelize"),
+                              cuda_ms(lambda: pch.channelize_wide(xd, chd.h2, std)),
+                              device_ms(lambda: pch.channelize_wide(xd, chd.h2, std),
+                                        "channelize_wide"),
+                              k9_bound(wbd, Td))
+    return dict(out, k9_wide=wide, k9_direct=direct, chain_ms=chain_ms, step_ms=step_ms,
+                acquire_ms=acq_ms, track_ms=trk_ms)
 
 
 def cuda_ms(fn, iters=20, reps=7):
@@ -2951,12 +3031,28 @@ def main() -> int:
                    f"disqualified slots trust -1; with the pad mask off (the generic step's "
                    f"vote) rows untouched and voted pair equal")
     wb = wideband_conf()
-    k9_abs, k9_rel, halves_equal = check_channelize(wb, fspec.Nfft)
-    errs["channelize"] = k9_abs
-    say("kernels", f"K9 channelize vs plain OK at M={wb['M']}, K={wb['taps_per_branch']}, "
-                   f"T={fspec.Nfft} with a random carry: max abs err {k9_abs:.3e}, "
-                   f"{k9_rel:.3e} of max|y| (bar {K9_REL}); carry equal; two half hops == one "
-                   f"hop (bit-equal: {halves_equal})")
+    for G, V, P, MS, MSV, TTP, staged, regs, stack, st, ld in k9_ptxas():
+        assert (G, V, P, MS, MSV, TTP) == pch.k9_layouts()[G * V][:6], \
+            f"K9 channelize<{G}, {V}, {P}, {MS}, {MSV}, {TTP}> is not k9_layouts' row"
+        say("kernels", f"K9 channelize<G={G}, V={V}, P={P}, MS={MS}, MSV={MSV}, TTP={TTP}, "
+                       f"staged={staged}> ptxas: {regs} registers, {stack} bytes stack frame, {st} "
+                       f"bytes spill stores, {ld} bytes spill loads")
+        assert st == ld == 0, f"K9 channelize<{G}, {V}, {P}, {staged}> spills"
+    wbv = dict(wb, M=WB_VOTE_C)
+    for w in (wb, wbv):
+        M, K = w["M"], w["taps_per_branch"]
+        k9_abs, k9_rel, halves_equal = check_channelize(w, fspec.Nfft)
+        errs["channelize"] = max(errs["channelize"], k9_abs)
+        say("kernels", f"K9 channelize vs plain OK at M={M}, K={K}, T={fspec.Nfft} with a random "
+                       f"carry, plan {pch.k9_plan(M, K)}: max abs "
+                       f"err {k9_abs:.3e}, {k9_rel:.3e} of max|y| (bar {K9_REL}); carry equal; two "
+                       f"half hops == one hop (bit-equal: {halves_equal})")
+    for form, cases in check_channelize_plan().items():
+        worst = max(cases, key=lambda c: c[3])
+        say("kernels", f"K9 {form} form vs plain OK at {len(cases)} shapes (M, K, T) "
+                       f"{[c[:3] for c in cases]} with a random carry: at most {worst[3]:.3e} of "
+                       f"max|y| (bar {K9_REL}, at {worst[:3]}); carry equal; halves through the "
+                       f"carry within the bar")
     for M, K, T, rel, rel_h in check_channelize_wide():
         say("kernels", f"K9 wide form (FIR kernel + cuFFT) vs plain OK at M={M}, K={K}, T={T} "
                        f"with a random carry: {rel:.3e} of max|y| (bar {K9_REL}); carry equal; "
@@ -3152,18 +3248,27 @@ def main() -> int:
                  f"({100 * (t4['group_ms'] - t4['batch_ms']) / t4['group_ms']:.1f}%)")
     t5 = time_slice5(wb, fspec, tracker, track_blocks)
     (k9_ms, k9_pms, k9_dms), (k9_bms, k9_by) = t5["k9"], t5["k9_bound"]
-    for v in (k9_ms, k9_pms, k9_dms, t5["yardstick_ms"]):
-        assert v >= k9_bms, f"K9: a time {v} is below bound_ms {k9_bms}"
-    say("times", f"{card} | channelize M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}: "
-                 f"ms={k9_ms:.5f} plain_ms={k9_pms:.5f} library_ms=null "
-                 f"bound_ms={k9_bms:.4g} ({k9_by}) device_ms={k9_dms:.5f}; yardstick (grouped conv1d + torch.fft.fft, "
-                 f"TF32 off) {t5['yardstick_ms']:.5f} ms, rel err vs K9 {t5['yardstick_err']:.2e}")
+    for Mk, tk in ((wb["M"], t5), (WB_VOTE_C, t5["vote"])):
+        (ms, pms, dms), (bms, by) = tk["k9"], tk["k9_bound"]
+        for v in (ms, pms, dms, tk["yardstick_ms"]):
+            assert v >= bms, f"K9 M={Mk}: a time {v} is below bound_ms {bms}"
+        say("times", f"{card} | channelize M={Mk} K={wb['taps_per_branch']} T={fspec.Nfft} "
+                     f"({tk['plan']['form']} form): ms={ms:.5f} plain_ms={pms:.5f} "
+                     f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f}; yardstick "
+                     f"(grouped conv1d + torch.fft.fft, TF32 off) {tk['yardstick_ms']:.5f} ms, "
+                     f"rel err vs K9 {tk['yardstick_err']:.2e}")
     for (Mw, Kw, Tw), (ms, pms, (bms, by), dms) in t5["k9_wide"].items():
         assert min(ms, pms, dms) >= bms, f"K9 wide ({Mw}, {Kw}): a time is below bound_ms {bms}"
         say("times", f"{card} | channelize wide form M={Mw} K={Kw} T={Tw}: ms={ms:.5f} "
                      f"plain_ms={pms:.5f} library_ms=null bound_ms={bms:.4g} ({by}) "
                      f"device_ms={dms:.5f} (the FIR kernel alone; ms includes cuFFT and the "
                      f"transpose)")
+    for (Md, Kd, Td), (ms, dms, wms, wdms, (bms, by)) in t5["k9_direct"].items():
+        assert min(ms, dms, wms, wdms) >= bms, f"K9 direct ({Md}, {Kd}): a time is below {bms}"
+        say("times", f"{card} | channelize direct form M={Md} K={Kd} T={Td}: ms={ms:.5f} "
+                     f"device_ms={dms:.5f}; the wide form at the same shape ms={wms:.5f} (its "
+                     f"FIR kernel {wdms:.5f} device ms, then cuFFT and the transpose); "
+                     f"bound_ms={bms:.4g} ({by})")
     hop_ms = 1e3 * fspec.Nfft / fspec.sampleRate
     say("times", f"{card} | wideband chain (K9 + step C={wb['M']}, vote off) "
                  f"{t5['chain_ms']:.4f} ms per hop of {wb['M']} x {fspec.Nfft} samples "
@@ -3247,11 +3352,21 @@ def main() -> int:
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": k9_ms, "plain_ms": k9_pms, "bound_ms": k9_bms,
                 "bound_by": k9_by, "library_ms": None, "yardstick_ms": t5["yardstick_ms"],
-                "device_ms": k9_dms,
+                "device_ms": k9_dms, "form": t5["plan"]["form"],
                 "shape": f"wideband M={wb['M']} K={wb['taps_per_branch']} T={fspec.Nfft}",
+                "vote_shape": {
+                    "shape": f"M={WB_VOTE_C} K={wb['taps_per_branch']} T={fspec.Nfft}",
+                    "form": t5["vote"]["plan"]["form"], "ms": t5["vote"]["k9"][0],
+                    "plain_ms": t5["vote"]["k9"][1], "device_ms": t5["vote"]["k9"][2],
+                    "bound_ms": t5["vote"]["k9_bound"][0], "bound_by": t5["vote"]["k9_bound"][1],
+                    "yardstick_ms": t5["vote"]["yardstick_ms"]},
                 "wide_form": {f"M={Mw} K={Kw} T={Tw}": {
                     "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1],
-                    "device_ms": v[3]} for (Mw, Kw, Tw), v in t5["k9_wide"].items()}})
+                    "device_ms": v[3]} for (Mw, Kw, Tw), v in t5["k9_wide"].items()},
+                "direct_form": {f"M={Md} K={Kd} T={Td}": {
+                    "ms": v[0], "device_ms": v[1], "wide_form_ms": v[2],
+                    "wide_form_fir_device_ms": v[3], "bound_ms": v[4][0], "bound_by": v[4][1]}
+                    for (Md, Kd, Td), v in t5["k9_direct"].items()}})
             continue
         if k == "viterbi":
             ms, pms, (bms, by), _, _ = vt[1]

@@ -67,8 +67,8 @@ SIGNATURES = {
     "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, out, C, L, S, master_idx, master_weight, mask_pad, stream
     "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, state|NULL, h2, tw, y, T, M, K, stream
-    "pycusdr_channelize": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, state|NULL, h2, tw, y, carry, T, M, K, stream
+    "pycusdr_channelize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, state|NULL, h2, v, T, M, K, stream
     "pycusdr_channelize_fir": [_P, _P, _P, _P, _I, _I, _I, _P],
     # colmax, colargmax, spSym, codeOffset, val, key, B, N, W, spsymMin, S, M, m0, stream

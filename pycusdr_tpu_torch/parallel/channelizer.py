@@ -17,19 +17,24 @@ copy. ``design_prototype`` and ``channelize_numpy`` are copies of the JAX
 package's.
 """
 
+import functools
+import re
+
 import numpy as np
 import torch
 
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops.demod_kernels import twiddle_table
 
-#: K9's fused form (one launch: the FIR and the DFT in a shared-memory tile)
-#: takes power-of-two M up to this many branches ...
+#: K9's fused form (one launch: the FIR, the DFT in registers, the store and
+#: the carry) takes power-of-two M up to this many branches ...
 K9_FUSED_MAX_M = 1024
 #: ... and up to this many taps per branch; a wider bank takes the wide form
 #: (the FIR kernel, then cuFFT across the branches), so K9 as a whole takes
 #: any power-of-two M and any K >= 1, as JAX's channelizer does
 K9_FUSED_MAX_K = 32
+#: threads of a fused-form CTA (``csrc/channelizer.cu:kThreads``)
+K9_THREADS = 256
 
 
 def design_prototype(M: int, taps_per_branch: int = 8, beta: float = 9.0) -> np.ndarray:
@@ -68,6 +73,46 @@ def k9_fused(M: int, K: int) -> bool:
     return M <= K9_FUSED_MAX_M and K <= K9_FUSED_MAX_K
 
 
+@functools.lru_cache(maxsize=None)
+def k9_layouts() -> dict:
+    """The fused form's layout at each M, {M: (G, V, P, MS, MSV, TTP, KS)}:
+    the rows of ``kLayouts`` in ``csrc/channelizer.cu``, which the kernel is
+    compiled from."""
+    text = (_lib.CSRC / "channelizer.cu").read_text()
+    table = text.split("constexpr Layout kLayouts[] = {", 1)[1].split("};", 1)[0]
+    rows = [tuple(int(v) for v in row.split(","))
+            for row in re.findall(r"\{\s*(\d+(?:\s*,\s*\d+){7})\s*\}", table)]
+    return {row[0]: row[1:] for row in rows}
+
+
+@functools.lru_cache(maxsize=None)
+def k9_plan(M: int, K: int) -> dict:
+    """K9's launch plan, a function of (M, K) alone (``csrc/channelizer.cu``).
+
+    Form "wide" (M > 1024 or K > 32): the FIR kernel, then cuFFT across
+    the branches. Otherwise one launch of the fused kernel at M's row of
+    ``k9_layouts``:
+    - the DFT in registers (``dft``: "registers", every M): a row in ``G``
+      lanes of ``V`` values, ``P`` rows a lane (2 at M = 64), ``TT`` =
+      256 P / G rows a tile (64 at M = 64: 512-byte runs of each channel);
+    - the FIR: a thread takes ``R`` consecutive rows of ``BR`` branches
+      (one up to M = 256), consecutive threads on consecutive branches;
+    - the strides in complex of the staged rows (``MS``), of v's tile
+      (``MSV``) and of the output tile (``TTP``);
+    - form "span" up to the row's KS taps a branch (two staged spans of TT
+      + K - 1 rows fit in a CTA's shared memory), else "direct" (x read
+      through L1/L2)."""
+    k9_check_shape(M, K)
+    if not k9_fused(M, K):
+        return dict(form="wide", dft="cuFFT")
+    G, V, P, MS, MSV, TTP, KS = k9_layouts()[M]
+    TT = K9_THREADS // G * P
+    BR = max(1, M // K9_THREADS)
+    R = TT * M // (K9_THREADS * BR)
+    return dict(form="span" if K <= KS else "direct", dft="registers", G=G, V=V, P=P, TT=TT,
+                R=R, BR=BR, MS=MS, MSV=MSV, TTP=TTP)
+
+
 def _rows(x: torch.Tensor, M: int) -> int:
     if x.dim() != 1 or x.numel() % M or x.numel() == 0:
         raise ValueError(f"channelizer: x must be (T*{M},) samples, got {tuple(x.shape)}")
@@ -75,7 +120,8 @@ def _rows(x: torch.Tensor, M: int) -> int:
 
 
 def _new_state(x: torch.Tensor, state: torch.Tensor, T: int, K: int, M: int) -> torch.Tensor:
-    """The last K-1 rows of [state; x]: the carry into the next call."""
+    """The last K-1 rows of [state; x]: the carry into the next call (the
+    wide form's; the fused kernel writes its own)."""
     xm = x.view(T, M)
     if T >= K - 1:
         return xm[T - (K - 1):].clone()
@@ -106,10 +152,9 @@ def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
     ``tw``: the (M, 2) ``twiddle_table(M)``, built when None). A CPU tensor
     takes the plain version; a CUDA tensor launches ``csrc/channelizer.cu``
     or raises (``k9_check_shape``): it never gives way to the plain version.
-    Up to M = 1024 and K = 32 the FIR and the DFT run fused in one launch;
-    a wider bank takes the wide form, the FIR kernel writing v (T, M) and
-    ``torch.fft.fft`` across the branches (``k9_fused``). Either form counts
-    one launch. ``new_state`` is a copy of the last K-1 input rows."""
+    Up to M = 1024 and K = 32 one fused launch (``k9_plan``) writes y and
+    the new carry; a wider bank takes the wide form (``channelize_wide``).
+    Either form counts one launch."""
     if x.device.type == "cpu":
         return channelize_plain(x, h2, state)
     if x.device.type != "cuda":
@@ -121,23 +166,33 @@ def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
     _lib.check(h2, "h2", torch.float32, (K, M), x.device)
     if state is not None:
         _lib.check(state, "state", torch.complex64, (K - 1, M), x.device)
-    if k9_fused(M, K):
-        if tw is None:
-            tw = twiddle_table(M, x.device)
-        _lib.check(tw, "tw", torch.float32, (M, 2), x.device)
-        y = torch.empty((M, T), dtype=torch.complex64, device=x.device)
-        _lib.launch("pycusdr_channelize", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
-                    _lib.ptr(tw), _lib.ptr(y), T, M, K)
-    else:
-        v = torch.empty((T, M), dtype=torch.complex64, device=x.device)
-        _lib.launch("pycusdr_channelize_fir", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
-                    _lib.ptr(v), T, M, K)
-        y = torch.fft.fft(v, dim=1).T.contiguous()
+    if not k9_fused(M, K):
+        return channelize_wide(x, h2, state)
+    if tw is None:
+        tw = twiddle_table(M, x.device)
+    _lib.check(tw, "tw", torch.float32, (M, 2), x.device)
+    y = torch.empty((M, T), dtype=torch.complex64, device=x.device)
+    carry = torch.empty((K - 1, M), dtype=torch.complex64, device=x.device)
+    _lib.launch("pycusdr_channelize", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2), _lib.ptr(tw),
+                _lib.ptr(y), _lib.ptr(carry), T, M, K)
     channelize.launches += 1
-    return y, _new_state(x, state, T, K, M)
+    return y, carry
 
 
 channelize.launches = 0
+
+
+def channelize_wide(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None):
+    """K9's wide form on CUDA tensors at any (M, K) (``channelize`` checks
+    them): the FIR kernel writes v (T, M), ``torch.fft.fft`` runs across the
+    branches and ``_new_state`` copies the carry. Counts one launch."""
+    K, M = h2.shape
+    T = _rows(x, M)
+    v = torch.empty((T, M), dtype=torch.complex64, device=x.device)
+    _lib.launch("pycusdr_channelize_fir", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
+                _lib.ptr(v), T, M, K)
+    channelize.launches += 1
+    return torch.fft.fft(v, dim=1).T.contiguous(), _new_state(x, state, T, K, M)
 
 
 class Channelizer:

@@ -2,7 +2,9 @@
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
 on ragged batches at the chunk edges, up to T=2144 and S=129, and the
 ViterbiStream at one launch a feed; K4n at the tiny bench_BPSK shape; K8 on
-random rows and in the group graph; K9 at four shapes; K1 and K5 with
+random rows and in the group graph; K9 at every fused M from 1 to 1024
+at K = 1, 8 and 32 (ragged, T < K - 1 with a carry, T = 2^16), the wide
+form, one launch a fused call; K1 and K5 with
 ``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
 and K4s on one and two shards, K4s with the clip window, K8 without its
 pad mask, and the generic step; K2 at M=16 and 32, B=1 and 64, and K3 at
@@ -757,15 +759,35 @@ def test_group_graph_matches_plain(case, cuda):
 # ---- slice 5: K9 channelize, K5 and K1 with centre_shift, K8 with master_idx
 
 
+def _k9_t(M, K, kind):
+    """T of a K9 card case: "ragged" (three tiles of the plan and 7 rows),
+    "short" (T < K - 1 where K allows, so the carry mixes old state and x;
+    one row at K <= 2), "full" (2^16)."""
+    if kind == "full":
+        return 2 ** 16
+    if kind == "short":
+        return max(1, K - 3)
+    plan = pch.k9_plan(M, K)
+    return 3 * plan["TT"] + 7 if plan["form"] != "wide" else 21
+
+
+#: the fused form at every row split (G x V) from M = 1 to 1024 and both forms
+#: of k9_plan ("direct" at (1024, 8) and (1024, 32)), each T kind
+K9_CARD = [(M, K, _k9_t(M, K, kind)) for M in (1, 2, 4, 8, 64, 256, 1024) for K in (1, 8, 32)
+           for kind in ("ragged", "short", "full")]
+
+
 @pytest.mark.parametrize("M,K,T", [(64, 8, 4096), (8, 4, 1001), (1024, 32, 40), (1, 3, 7),
-                                   (2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
+                                   (2048, 8, 16), (64, 40, 64), (4096, 2, 8)] + K9_CARD)
 @pytest.mark.parametrize("with_state", [True, False])
 def test_channelize(cuda, M, K, T, with_state):
-    """K9 against its plain version: y within 1e-5 of max|y| (a radix-2 DFT
-    against cuFFT), the carry equal; a ragged last tile, the largest fused M
-    and K, M = 1 (no DFT), and the wide form at (2048, 8), (64, 40) and
-    (4096, 2), also with the carry split in halves (two calls through the
-    carried state equal to one call)."""
+    """K9 against its plain version: y within 1e-5 of max|y| (the DFT in
+    registers against cuFFT), the carry equal (written by the fused kernel);
+    a ragged last tile, T < K - 1 (the carry holds old state rows), T = 2^16,
+    every fused M from 1 to 1024 at K = 1, 8 and 32 (both plan forms), and
+    the wide form at (2048, 8), (64, 40) and (4096, 2); the stream split in
+    halves through the carry within 1e-5 of one call, the carry after them
+    equal."""
     rng = np.random.RandomState(M + K + T)
     x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
     h2 = torch.from_numpy(rng.randn(K, M).astype(np.float32)).to(cuda)
@@ -776,13 +798,35 @@ def test_channelize(cuda, M, K, T, with_state):
     torch.cuda.synchronize()
     assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
     assert torch.equal(sk, sp)
-    if not pch.k9_fused(M, K):
+    if T >= 2:
         h = T // 2 * M
         y1, s1 = pch.channelize(x[:h], h2, st)
         y2, s2 = pch.channelize(x[h:], h2, s1)
         torch.cuda.synchronize()
         assert float((torch.cat([y1, y2], 1) - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
         assert torch.equal(s2, sp)
+
+
+@pytest.mark.parametrize("M,K", [(64, 8), (4, 8), (1024, 8)])
+def test_channelize_one_launch(cuda, M, K):
+    """A fused-form K9 call (the wideband shape, the vote's, a direct-form
+    one) is one launch of the fused kernel and nothing else on the card: no
+    copy of the carry (torch.profiler), and the counter counts one."""
+    T = 2 ** 12
+    x = torch.randn(T * M, dtype=torch.complex64, device=cuda)
+    ch = pch.Channelizer(M, K, device=cuda)
+    st = torch.randn(K - 1, M, dtype=torch.complex64, device=cuda)
+    ch(x, st)
+    torch.cuda.synchronize()
+    before = pch.channelize.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ch(x, st)
+        torch.cuda.synchronize()
+    assert pch.channelize.launches == before + 1
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.count for e in ev] == [1] and "channelize" in ev[0].key, \
+        [(e.key, e.count) for e in ev]
 
 
 def test_channelize_halves_equal_one_shot(cuda):
