@@ -1,8 +1,10 @@
-"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, K6, or K9, and the graphs
-around them, of two checkouts, timed in turns on one card.
+"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, K6, K9, K4 with K4n, or
+K8, and the graphs around them, of two checkouts, timed in turns on one
+card.
 
     python3 chip_ab_viterbi.py PARENT_DIR
-        [--turn viterbi|doppler|detect|threshold|channelize] [--rounds R]
+        [--turn viterbi|doppler|detect|threshold|channelize|nrzs|vote] [--rounds R]
+    python3 chip_ab_viterbi.py PARENT_DIR --summary-of OUTPUT_FILE
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
 the parent commit unpacked under ``build/``); the other tree is the one
@@ -49,16 +51,40 @@ root, which builds that tree's kernels and times, on card 0:
   summary holds equal across the turns of both trees; the wideband chain
   (K9 and the channel-parallel step at C=64, vote off): K9's device ms
   inside it (after the step, K9 runs slower than alone), wall ms by CUDA
-  events and device busy ms a hop.
+  events and device busy ms a hop;
+- ``--turn nrzs``: K4 with the NRZ-S bits (K4n) on bench_BPSK blocks
+  (chip_smoke's ``bpsk_configuration`` and ``bpsk_stream``) at B=1/16/64,
+  into the packed rows: one launch of K4's NRZ-S form where the tree has
+  ``symbol_detect_nrzs``, else K4 and then the standalone K4n; the device
+  ms a call of the kernels (torch.profiler, a trace that lost a launch
+  taken again), the ms by CUDA events, the host us a call and the sha256
+  of the rows; the bench_BPSK block graph at B=1/16/64: wall ms by CUDA
+  events, device busy ms, host us a call (the enqueue of GRAPH_CALLS
+  calls) and the sha256 of its rows; and, as the guard, K4's device ms at
+  the flagship and STX shapes (typed outputs, ``kernel_inputs``); the
+  graph's host us is also read as the least of 10 readings of a quarter
+  as many calls (the host's noise between readings is larger than a
+  wrapper). The
+  summary holds every sha256 equal across the turns of both trees;
+- ``--turn vote``: K8 (``vote_rows``) on chip_smoke's ``vote_input`` rows
+  at S=4608 (the flagship's numSymMax) for C=3/16/64/256, and at C=3 for
+  the big path's S=36480 (blockSize 19): device ms a call, ms by CUDA
+  events, host us a call; and the sha256 of the voted pair and the rows
+  of a fresh vote with the pad mask (master 0) and one without it (master
+  C - 1), held equal across the turns of both trees.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
 one tree, and each tree runs first as often as the other. Each
-turn prints one JSON line; the card's name and power limit come first.
+turn prints one JSON line; the card's name and power limit come first,
+and a summary last: each quantity's readings in both trees, min-max and
+median, and the ratios parent / change. ``--summary-of FILE`` prints that
+summary again from a run's saved output, on any machine.
 Both trees' ``chip_smoke.py`` must have what the turn calls
 (``viterbi_inputs``, ``cuda_ms``, ``time_feed``; ``configuration``,
 ``kernel_inputs``, ``signal_blocks``, ``k9_inputs``; ``k4_kwargs``,
-``k5_args``). The turns' scratch files (y_parent) go under
+``k5_args``; ``bpsk_configuration``, ``bpsk_stream``, ``vote_input``,
+``big_configuration``). The turns' scratch files (y_parent) go under
 ``build/ab_scratch``. Needs a card: a turn fails without one.
 """
 
@@ -75,6 +101,8 @@ HERE = Path(__file__).resolve().parent
 BLOCKS = 200
 #: wrapper calls a host-time reading of the detect turn enqueues
 HOST_CALLS = 2000
+#: graph calls a host-time reading of the nrzs turn enqueues
+GRAPH_CALLS = 200
 
 #: run with ``python -c`` from a tree's root, so that it imports that tree
 TURNS = {}
@@ -96,6 +124,9 @@ print(json.dumps(out))
 TURNS["doppler"] = """
 import hashlib
 import json
+import re
+import sys
+import time
 import torch
 assert torch.cuda.is_available(), "no card"
 import chip_smoke as c
@@ -106,6 +137,7 @@ from pycusdr_tpu_torch.ops import doppler_search as ds
 from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
 from pycusdr_tpu_torch.parallel import channelizer as pch
 K1_NAMES = ("doppler_partial", "doppler_reduce", "doppler_energy_k")
+""" + "{PROFILING}" + """
 
 
 # device ms a call in the kernels whose names hold one of names (None: all, the busy time)
@@ -202,7 +234,15 @@ def busy_ms(fn, calls=20):
         if n[0] == n[1] > 0:
             return sum(e[2] for e in seen[-1]) / 1e3 / calls
     raise AssertionError(f"busy: traces held {[sum(e[1] for e in t) for t in seen]} events")
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 """
+TURNS["doppler"] = TURNS["doppler"].replace("{PROFILING}", PROFILING)
 
 TURNS["detect"] = """
 import json, re, sys, time
@@ -271,13 +311,6 @@ def k6_ms(fn, calls=20):
     raise AssertionError(f"K6: five traces held {seen} launches, not {calls * PER_CALL}")
 
 
-def digest(*ts):
-    h = hashlib.sha256()
-    for t in ts:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 out = {}
 spec = c.configuration("stx")[2]
 consts = DeviceConsts.from_spec(spec, torch.device("cuda"))
@@ -344,38 +377,124 @@ print(json.dumps(out))
 """
 
 
+#: K4 with K4n in either tree: one launch of K4's NRZ-S form (symbol_detect
+#: with the symbol LUT), or K4 into the row and then nrzs_bits
+TURNS["nrzs"] = r"""
+import hashlib, json, re, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
+from pycusdr_tpu_torch.ops import _lib
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+""" + PROFILING + r"""
+
+FUSED = hasattr(dk, "symbol_detect_nrzs")
+out = {}
+_lib.lib()  # ptxas's registers and stack of each K4 instantiation, from the build log
+log = Path(_lib.build_info["log"]).read_text()
+for part in log.split("== symbol_detect.cu", 1)[1].split("\n== ", 1)[0].split(
+        "Compiling entry function")[1:]:
+    m = re.search(r"symbol_detectILi(\d)ELb([01])ELb([01])E(?:Lb([01])E)?E", part.split("\n")[0])
+    if m:
+        out[f"K4 ptxas SPT={m[1]} argwin={m[2]} vec={m[3]} nrzs={m[4] or 0}"] = (
+            re.search(r"Used (\d+) registers", part)[1] + " registers, "
+            + re.search(r"(\d+) bytes stack frame", part)[1] + " bytes stack")
+spec = c.configuration("flagship")[2]
+bspec = c.bpsk_configuration()[2]
+consts = DeviceConsts.from_spec(bspec, torch.device("cuda"))
+S, L, M, off = bspec.numSymMax, packed_len(bspec), bspec.num_masks, bspec.code_search_mask_offset
+graph = build_process_batch(bspec, device="cuda", packed=True)
+plain = build_process_batch(bspec, device="cuda", plain=True)
+kw = c.k4_kwargs(bspec, consts)
+for B in (1, 16, 64):
+    rng = np.random.RandomState(c.SEED + B)
+    x = torch.from_numpy(np.stack([
+        c.bpsk_stream(bspec, rng.randint(0, 2, bspec.Nfft // int(bspec.spsym) + 8), bspec.Nfft,
+                      seed=c.SEED + b) for b in range(B)])).cuda()
+    X = torch.fft.fft(x)
+    shift = plain(x)["shift"].to(torch.int32).contiguous()
+    colsum, colmax, colarg = dk.mf_bank_colreduce_plain(X, consts.masks_f, shift, off, M - off)
+    spSym, codeOffset, code_val = dk.timing_band_plain(colsum, bspec.code_idx_lo,
+                                                       bspec.code_idx_hi)
+    k4 = (colmax, colarg, spSym, codeOffset)
+    row = torch.zeros((B, L), device="cuda")
+    if FUSED:
+        def fn():
+            dk.symbol_detect_nrzs(*k4, consts.symbolLUT, **kw, row=row, code_val=code_val)
+        out[f"K4+K4n B={B} device ms"] = kernel_ms(fn, "symbol_detect")
+    else:
+        def fn():
+            dk.symbol_detect(*k4, None, **kw, row=row, code_val=code_val)
+            dk.nrzs_bits(row, consts.symbolLUT, S)
+        out[f"K4+K4n B={B} device ms"] = kernel_ms(fn, "symbol_detect") + kernel_ms(fn, "nrzs_bits")
+    out[f"K4+K4n B={B} ms"] = c.cuda_ms(fn)
+    out[f"K4+K4n B={B} host us"] = host_us(fn)
+    row.zero_()
+    fn()
+    out[f"K4+K4n B={B} rows sha256"] = digest(row)
+    out[f"bpsk graph B={B} ms"] = c.cuda_ms(lambda: graph(x), iters=10)
+    out[f"bpsk graph B={B} device busy ms"] = busy_ms(lambda: graph(x))
+    out[f"bpsk graph B={B} host us"] = host_us(lambda: graph(x), n=int(sys.argv[5]))
+    out[f"bpsk graph B={B} least host us"] = min(
+        host_us(lambda: graph(x), n=int(sys.argv[5]) // 4) for _ in range(10))
+    out[f"bpsk graph B={B} rows sha256"] = digest(graph(x))
+for p in ("flagship", "stx"):
+    pspec = c.configuration(p)[2]
+    pconsts = DeviceConsts.from_spec(pspec, torch.device("cuda"))
+    for B in (1, 16, 64):
+        inp = c.kernel_inputs(pspec, pconsts, B)
+        a4 = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], pconsts.bitLUT)
+        kw4 = c.k4_kwargs(pspec, pconsts)
+        hits = inp.get("hits")
+        out[f"K4 {p} B={B} device ms"] = kernel_ms(
+            lambda: dk.symbol_detect(*a4, hits=hits, **kw4), "symbol_detect")
+print(json.dumps(out))
+"""
+
+#: K8 in either tree at the group sizes, C=256 and the big path's S
+TURNS["vote"] = """
+import hashlib, json, re, sys, time
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.dsp.block import packed_len
+from pycusdr_tpu_torch.parallel import vote as pv
+""" + PROFILING + """
+
+out = {}
+fspec = c.configuration("flagship")[2]
+big = c.big_configuration()[2]
+cases = [(C, fspec.numSymMax, packed_len(fspec)) for C in (3, 16, 64, 256)]
+cases.append((c.GROUP_C, big.numSymMax, packed_len(big)))
+for C, S, L in cases:
+    tag = f"C={C} S={S}"
+    rows, _ = c.vote_input(C, S, L)
+    o = torch.empty((2, S), device="cuda")
+    fn = lambda: pv.vote_rows(rows, S, 1.2, o)
+    out[f"K8 {tag} device ms"] = kernel_ms(fn, "vote")
+    out[f"K8 {tag} ms"] = c.cuda_ms(fn)
+    out[f"K8 {tag} host us"] = host_us(fn)
+    r1, r2 = c.vote_input(C, S, L)[0], c.vote_input(C, S, L)[0]
+    p1 = pv.vote_rows(r1, S, 1.2)
+    p2 = pv.vote_rows(r2, S, 1.2, master_idx=-1, mask_pad=False)
+    out[f"K8 {tag} pairs and rows sha256"] = digest(p1, r1, p2, r2)
+print(json.dumps(out))
+"""
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("parent", type=Path, help="root of the other checkout")
-    ap.add_argument("--turn", choices=sorted(TURNS), default="viterbi",
-                    help="what each turn times (default: viterbi)")
-    ap.add_argument("--rounds", type=int, default=1,
-                    help="times to run parent, change, change, parent (default: 1)")
-    args = ap.parse_args()
-    trees = {"parent": args.parent.resolve(), "change": HERE}
-    for name, root in trees.items():
-        if not (root / "chip_smoke.py").is_file():
-            raise SystemExit(f"{name}: no chip_smoke.py under {root}")
-    print(card_line(), flush=True)
-    runs = {name: [] for name in trees}
-    scratch = HERE / "build" / "ab_scratch"
-    shutil.rmtree(scratch, ignore_errors=True)
-    for name in ("parent", "change", "change", "parent") * args.rounds:
-        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS), str(HOST_CALLS),
-                            str(scratch), str(HERE)],
-                           cwd=trees[name],
-                           capture_output=True, text=True, timeout=900)
-        if p.returncode != 0:
-            sys.stderr.write(p.stdout + p.stderr)
-            raise SystemExit(f"{name}: the turn failed with code {p.returncode}")
-        runs[name].append(json.loads(p.stdout.strip().splitlines()[-1]))
-        print(json.dumps({"tree": name, **runs[name][-1]}), flush=True)
+def summarize(runs) -> None:
+    """One line a quantity: each tree's readings, min-max and median, the
+    ratios parent / change; digests held equal across both trees."""
     for key in runs["change"][0]:
         new = [r[key] for r in runs["change"]]
         if key.endswith("vs y_parent"):  # an error against the parent's first turn
@@ -387,9 +506,53 @@ def main() -> int:
                   f"{len(both)} turns: {sorted(set(both))}", flush=True)
         elif key in runs["parent"][0]:
             old = [r[key] for r in runs["parent"]]
-            print(f"{key}: parent {old} change {new} parent/change "
+            mo, mn = statistics.median(old), statistics.median(new)
+            print(f"{key}: parent {min(old):.6g}-{max(old):.6g} (med {mo:.6g}) change "
+                  f"{min(new):.6g}-{max(new):.6g} (med {mn:.6g}) parent/change "
                   f"{min(old) / max(new):.3f}-{max(old) / min(new):.3f}, of the medians "
-                  f"{statistics.median(old) / statistics.median(new):.3f}", flush=True)
+                  f"{mo / mn:.3f}; parent {old} change {new}", flush=True)
+        else:
+            print(f"{key}: change {min(new):.6g}-{max(new):.6g} (med "
+                  f"{statistics.median(new):.6g}); {new}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("parent", type=Path, help="root of the other checkout")
+    ap.add_argument("--turn", choices=sorted(TURNS), default="viterbi",
+                    help="what each turn times (default: viterbi)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times to run parent, change, change, parent (default: 1)")
+    ap.add_argument("--summary-of", type=Path, default=None,
+                    help="print the summary of the turn lines a run wrote to this file, and "
+                         "run nothing")
+    args = ap.parse_args()
+    runs = {"parent": [], "change": []}
+    if args.summary_of is not None:
+        for line in args.summary_of.read_text().splitlines():
+            if line.startswith('{"tree": '):
+                turn = json.loads(line)
+                runs[turn.pop("tree")].append(turn)
+        summarize(runs)
+        return 0
+    trees = {"parent": args.parent.resolve(), "change": HERE}
+    for name, root in trees.items():
+        if not (root / "chip_smoke.py").is_file():
+            raise SystemExit(f"{name}: no chip_smoke.py under {root}")
+    print(card_line(), flush=True)
+    scratch = HERE / "build" / "ab_scratch"
+    shutil.rmtree(scratch, ignore_errors=True)
+    for name in ("parent", "change", "change", "parent") * args.rounds:
+        p = subprocess.run([sys.executable, "-c", TURNS[args.turn], str(BLOCKS), str(HOST_CALLS),
+                            str(scratch), str(HERE), str(GRAPH_CALLS)],
+                           cwd=trees[name],
+                           capture_output=True, text=True, timeout=900)
+        if p.returncode != 0:
+            sys.stderr.write(p.stdout + p.stderr)
+            raise SystemExit(f"{name}: the turn failed with code {p.returncode}")
+        runs[name].append(json.loads(p.stdout.strip().splitlines()[-1]))
+        print(json.dumps({"tree": name, **runs[name][-1]}), flush=True)
+    summarize(runs)
     return 0
 
 

@@ -93,7 +93,8 @@ and then no result line is printed):
       NRZ-S LUT) through ``models.uhf.Demodulator``, the same four ways,
       on seeded 10000-bit packets back to back at +3000 Hz; BER < 1e-3,
       every whole packet the port's ``Decoder`` finds equal to the
-      payload; K1-K5 and K4n must launch;
+      payload; K1-K5 must launch, K4 always in its NRZ-S form (K4n in
+      K4's launch, one a call), the standalone K4n never;
    e. group: ``build_group_graph`` at the flagship spec on three antennas
       with independent AWGN: K8 launched once, every channel's decisions
       and the voted pair equal to the plain path's, the voted BER no worse
@@ -124,8 +125,10 @@ and then no result line is printed):
       processes of one gloo world, all on cuda:0 (NCCL refuses two ranks on
       one card), C=4 with the vote: each rank within the golden table of
       the one-process step, the voted pair equal on every rank;
-   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K8 at
-   C=3/16/64, S=4608, with pinned ties and master_idx 0, 1 and C-1, with
+   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K4's
+   NRZ-S form there (with a clip bitmask) against K4 followed by K4n and
+   against its plain version, K8 at C=3/16/64/256, S=4608, with pinned
+   ties and master_idx 0, 1 and C-1, with
    and without its pad mask, K9 at M=64, K=8, T=2^16 and at the vote's
    M=4 with a random carry (1e-5 of max|y|; two half hops equal one hop),
    K1 and K5 with
@@ -139,7 +142,9 @@ and then no result line is printed):
    path, for both configurations; K7 at S=1/2/64 and at the feed's S=3
    and S=1 metric-only, with ns per trellis step beside an estimate of
    its dependency chain at ``clocks.max.sm``, and ``clocks.sm`` after;
-   K4n at B=1/16/64 and K8 at C=3/16/64; the group graph at C=3 against
+   K4n, K4's NRZ-S form (beside K4 alone into the row) and the bench_BPSK
+   block graph (wall and device busy ms) at B=1/16/64, and K8 at
+   C=3/16/64; the group graph at C=3 against
    the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
    K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
@@ -154,7 +159,7 @@ and then no result line is printed):
    must clear its bound;
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1, 16 and 64,
-   STX at B=1 and 64; of the wideband chain (K9 + the step at C=64); and of the
+   STX at B=1 and 64, bench_BPSK at B=1, 16 and 64; of the wideband chain (K9 + the step at C=64); and of the
    generic step at C=16.
 
 It then prints the card line, one JSON line with every kernel's numbers,
@@ -256,6 +261,8 @@ VIT_KINDS = ("hard", "soft_pm1", "soft_float")
 CONFIGS = "pycusdr_tpu_torch/config/configs"
 #: K8's channel counts: the three-antenna station (bench_3_chan_rx), and wider groups
 VOTE_CS = (3, 16, 64)
+#: K8's phase-3 channel counts (C=256: a chunk of 256 channels, 32 a warp)
+VOTE_CHECK_CS = VOTE_CS + (256,)
 GROUP_C = 3
 #: the runtime phase's first port (it uses 35 from there, below the kernel's
 #: ephemeral range and apart from the tests' ports) and its bound on every wait, s
@@ -321,6 +328,8 @@ KERNELS = {
     "viterbi": ("pycusdr_tpu_torch/csrc/viterbi.cu", "pycusdr_tpu/ops/viterbi.py:59"),
     "nrzs_bits": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
                   "pycusdr_tpu/ops/demod_kernels.py:597"),
+    "symbol_detect_nrzs": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
+                           "pycusdr_tpu/ops/demod_kernels.py:597"),
     "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
     "channelize": ("pycusdr_tpu_torch/csrc/channelizer.cu",
                    "pycusdr_tpu/parallel/channelizer.py:43"),
@@ -337,7 +346,7 @@ PATH_KERNELS = {
     "ccsds": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
               "symbol_detect", "viterbi"),
     "bpsk": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
-             "symbol_detect", "nrzs_bits"),
+             "symbol_detect", "symbol_detect_nrzs"),
     "group": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
               "symbol_detect", "vote"),
     "wideband": ("channelize", "doppler_energy", "doppler_estimate", "mf_bank_colreduce",
@@ -414,9 +423,10 @@ def signal_blocks(spec, B, seed=SEED):
     return torch.from_numpy(np.stack(rows)).cuda()
 
 
-def kernel_inputs(spec, consts, B):
-    """Every kernel's inputs at batch B, from the plain path on the card."""
-    x = signal_blocks(spec, B)
+def kernel_inputs(spec, consts, B, x=None):
+    """Every kernel's inputs at batch B, from the plain path on the card, on
+    the blocks ``x`` (``signal_blocks`` when None)."""
+    x = signal_blocks(spec, B) if x is None else x
     inp = dict(x=x)
     xs = x
     if not spec.disable_peak_thresholding:
@@ -912,6 +922,14 @@ def viterbi_ptxas():
     return ptxas_report("viterbi.cu", r"viterbiILb([01])ELb([01])EE", 4)
 
 
+def symbol_detect_ptxas():
+    """K4's eight instantiations, the centre-bit forms and the NRZ-S forms:
+    [(SPT, argwin, vec, nrzs, registers, stack bytes, spill stores, spill
+    loads)]."""
+    return ptxas_report("symbol_detect.cu",
+                        r"symbol_detectILi(\d)ELb([01])ELb([01])ELb([01])EE", 8)
+
+
 def best_aligned_ber(rx, tx, max_lag=400):
     """(BER, lag) of rx against tx at the best lag in [-max_lag, max_lag]."""
     best = (1.0, 0)
@@ -1280,6 +1298,14 @@ def bpsk_stream(spec, bits, n_samples, seed=SEED, doppler_hz=DOPPLER_HZ):
     return sig.astype(np.complex64)
 
 
+def bpsk_blocks(spec, B, rng):
+    """B blocks of seeded BPSK (``bpsk_stream``, random bits) on the card."""
+    sps = int(spec.spsym)
+    x = np.stack([bpsk_stream(spec, rng.randint(0, 2, spec.Nfft // sps + 8), spec.Nfft,
+                              seed=SEED + b) for b in range(B)])
+    return torch.from_numpy(x).cuda()
+
+
 def nrzs_rows(spec, consts, B):
     """K4n's input: the block graph's rows of B BPSK blocks with bits,
     trust and nBits overwritten (bits 7, trust normal and -2 on every 7th
@@ -1287,10 +1313,8 @@ def nrzs_rows(spec, consts, B):
     symbols random in [-1, 16] (every transition error and symbols outside
     the LUT's 8 rows)."""
     rng = np.random.RandomState(SEED + B)
-    S, sps = spec.numSymMax, int(spec.spsym)
-    x = np.stack([bpsk_stream(spec, rng.randint(0, 2, spec.Nfft // sps + 8), spec.Nfft,
-                              seed=SEED + b) for b in range(B)])
-    rows = build_process_batch(spec, device="cuda", packed=True)(x)
+    S = spec.numSymMax
+    rows = build_process_batch(spec, device="cuda", packed=True)(bpsk_blocks(spec, B, rng))
     if B > 1:
         rows[-1, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, 17, S).astype(np.float32))
     rows[:, :S] = 7.0
@@ -1313,6 +1337,65 @@ def check_nrzs(spec, consts, B):
     errs = int((got[:, S:2 * S] == -1).sum())
     assert B == 1 or errs > 0, "K4n check: no transition error"
     return errs
+
+
+def nrzs_form_inputs(spec, consts, B):
+    """K4's inputs on B BPSK blocks (``kernel_inputs``); at B > 1 the last
+    block's colargmax random in [-1, 16] (transition errors and symbols
+    outside the LUT's 8 rows), and a sparse clip bitmask (K4's trust -2,
+    which the NRZ-S trust must keep)."""
+    rng = np.random.RandomState(SEED + 15 + B)
+    inp = kernel_inputs(spec, consts, B, x=bpsk_blocks(spec, B, rng))
+    N = spec.Nfft
+    if B > 1:
+        inp["colarg"][-1] = torch.from_numpy(rng.randint(-1, 17, N).astype(np.int32)).cuda()
+    inp["hits"] = dk.pack_bits(torch.from_numpy(rng.rand(B, N) < 0.001)).cuda()
+    return inp
+
+
+def nrzs_form_call(spec, consts, inp, row):
+    """K4 and K4n in one launch (``symbol_detect_nrzs``) into ``row``."""
+    return dk.symbol_detect_nrzs(inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"],
+                                 consts.symbolLUT, **k4_kwargs(spec, consts), hits=inp["hits"],
+                                 row=row, code_val=inp["code_val"])
+
+
+def nrzs_form_plain(spec, consts, inp, row):
+    """The NRZ-S form's plain version on the card: ``symbol_detect_plain``
+    (with the dilated clip window) into ``row``, then ``nrzs_rows_plain``."""
+    S = spec.numSymMax
+    clip = dk.dilate_mask_plain(dk.unpack_bits(inp["hits"], spec.Nfft),
+                                dk.clip_halfwidth(inp["spSym"], spec.spsymMin))
+    out = dk.symbol_detect_plain(inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"],
+                                 None, **k4_kwargs(spec, consts), clip_mask=clip)
+    dk._write_row_k4(row, out, S, inp["spSym"], inp["codeOffset"], inp["code_val"], None)
+    return dk.nrzs_rows_plain(row, consts.symbolLUT, S)
+
+
+def check_nrzs_form(spec, consts, B):
+    """K4's NRZ-S form (K4n in K4's launch) at the bench_BPSK shape against
+    K4 followed by the standalone K4n and against its plain version, on
+    ``nrzs_form_inputs``: the rows equal; one K4 launch, one of the NRZ-S
+    form and no standalone K4n a call. Returns (the plan, slots trust -1,
+    slots trust -2)."""
+    inp = nrzs_form_inputs(spec, consts, B)
+    S, L = spec.numSymMax, packed_len(spec)
+    before = ops.launch_counts()
+    got = nrzs_form_call(spec, consts, inp, torch.zeros((B, L), device="cuda"))
+    moved = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    assert moved == {"symbol_detect": 1, "symbol_detect_nrzs": 1}, moved
+    two = dk.symbol_detect(inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], None,
+                           **k4_kwargs(spec, consts), hits=inp["hits"],
+                           row=torch.zeros((B, L), device="cuda"), code_val=inp["code_val"])
+    dk.nrzs_bits(two, consts.symbolLUT, S)
+    want = nrzs_form_plain(spec, consts, inp, torch.zeros((B, L), device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, two), f"K4 NRZ-S form B={B}: rows differ from K4 + K4n"
+    assert torch.equal(got, want), f"K4 NRZ-S form B={B}: rows differ from the plain version"
+    trust = got[:, S:2 * S]
+    n1, n2 = int((trust == -1).sum()), int((trust == -2).sum())
+    assert n2 > 0 and (B == 1 or n1 > 0), f"K4 NRZ-S form B={B}: trust -1 {n1}, -2 {n2}"
+    return dk.k4_plan(B, S), n1, n2
 
 
 def vote_input(C, S, L):
@@ -1371,7 +1454,8 @@ def main_path_bpsk(conf, protocol, spec, make):
     random bits (the overlap-save history holds the first 64), then seeded
     10000-bit packets back to back, at +DOPPLER_HZ; BER < 1e-3 against the
     sent bits, and every whole packet the port's ``Decoder`` finds equal
-    to the payload; K1-K5 and K4n must launch."""
+    to the payload; K1-K5 must launch, K4 always in its NRZ-S form (K4n
+    in the same launch, one a call) and the standalone K4n never."""
     N, ov = spec.Nfft, spec.sigOverlap
     n = ov + N_HOPS * (N - ov)
     payload = packet_data(protocol.packetLen, protocol.randSeed)
@@ -1381,6 +1465,9 @@ def main_path_bpsk(conf, protocol, spec, make):
     stream = bpsk_stream(spec, tx, n)
     seqA, launches = drive(make, conf, protocol, stream, ov)
     check_launches("bpsk", launches)
+    k4 = launches["symbol_detect"]
+    assert launches["symbol_detect_nrzs"] == k4 == launches["timing_band"] and \
+        launches["nrzs_bits"] == 0, f"bpsk: K4 and K4n not one launch a call: {launches}"
     rx = np.concatenate([a["bits"] for a in seqA]).astype(np.int64)
     ber, lag = best_aligned_ber(rx, tx)
     assert ber < 1e-3, f"bpsk BER {ber} at lag {lag}"
@@ -2601,6 +2688,7 @@ KERNEL_FUNCS = {
     "mf_bank_multipass": ("mf_pass1", "mf_mid", "mf_pass2"),
     "viterbi": ("viterbi",),
     "nrzs_bits": ("nrzs_bits",),
+    "symbol_detect_nrzs": ("symbol_detect",),
     "vote": ("vote",),
     "channelize": ("channelize",),
     "channelize_wide": ("channelize_fir",),
@@ -2893,19 +2981,48 @@ def vote_bound(C, S):
     return bound_of(C * S * 8 + S * 8, 6 * C * S)
 
 
+def nrzs_form_bound(spec, B):
+    """K4's NRZ-S form's least time: K4's windows (at most N samples), one
+    colargmax read a slot and the clip bitmask in, the row's five f32 arrays
+    (20 bytes a slot) and scalars out, the LUT once | K4's operations and
+    2K compares a slot."""
+    N, W, S = spec.Nfft, spec.windowWidth, spec.numSymMax
+    M, _, K = spec.symbolLUT.shape
+    return bound_of(B * (4 * min(S * W, N) + 4 * S + 20 * S + 24 + N // 8) + 8 * M * K,
+                    B * S * (W + 8 + 2 * K))
+
+
 def time_slice4(bspec, bconsts, fspec):
-    """K4n at B=1/16/64 on the bench_BPSK rows and K8 at C=3/16/64 on the
-    flagship rows: name -> {B or C: (ms, plain_ms, (bound ms, by), device ms)}; and the
-    group graph at C=3 against the block graph at B=3 on the same blocks
-    (ms per call), which gives the vote's share."""
-    out = {"nrzs_bits": {}, "vote": {}}
-    S, lut = bspec.numSymMax, bconsts.symbolLUT
+    """K4n at B=1/16/64 on the bench_BPSK rows, K4's NRZ-S form there on
+    ``nrzs_form_inputs`` (with K4 alone into the row and the standalone K4n
+    beside it, device ms) and the bench_BPSK block graph (wall ms and
+    device busy ms a call), and K8 at C=3/16/64 on the flagship rows: name ->
+    {B or C: (ms, plain_ms, (bound ms, by), device ms)}; and the group graph
+    at C=3 against the block graph at B=3 on the same blocks (ms per call),
+    which gives the vote's share."""
+    out = {"nrzs_bits": {}, "symbol_detect_nrzs": {}, "vote": {}, "bpsk_graph": {},
+           "k4_alone": {}}
+    S, lut, L = bspec.numSymMax, bconsts.symbolLUT, packed_len(bspec)
+    graph = build_process_batch(bspec, device="cuda", packed=True)
     for B in BATCHES:
         rows = nrzs_rows(bspec, bconsts, B)
         out["nrzs_bits"][B] = (cuda_ms(lambda: dk.nrzs_bits(rows, lut, S)),
                                cuda_ms(lambda: dk.nrzs_rows_plain(rows, lut, S)),
                                nrzs_bound(bspec, B),
                                device_ms(lambda: dk.nrzs_bits(rows, lut, S), "nrzs_bits"))
+        inp = nrzs_form_inputs(bspec, bconsts, B)
+        row = torch.zeros((B, L), device="cuda")
+        fused = lambda: nrzs_form_call(bspec, bconsts, inp, row)
+        out["symbol_detect_nrzs"][B] = (
+            cuda_ms(fused), cuda_ms(lambda: nrzs_form_plain(bspec, bconsts, inp, row)),
+            nrzs_form_bound(bspec, B), device_ms(fused, "symbol_detect_nrzs"))
+        out["k4_alone"][B] = device_ms(lambda: dk.symbol_detect(
+            inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], None,
+            **k4_kwargs(bspec, bconsts), hits=inp["hits"], row=row, code_val=inp["code_val"]),
+            "symbol_detect")
+        x = bpsk_blocks(bspec, B, np.random.RandomState(SEED + B))
+        wall, busy, _, _ = profile_calls(lambda: graph(x))
+        out["bpsk_graph"][B] = (cuda_ms(lambda: graph(x), iters=10), busy, wall)
     L, S = packed_len(fspec), fspec.numSymMax
     for C in VOTE_CS:
         rows, _ = vote_input(C, S, L)
@@ -3001,6 +3118,11 @@ def main() -> int:
         say("kernels", f"K1 {name} ptxas: {regs} registers, {stack} bytes stack frame, {st} "
                        f"bytes spill stores, {ld} bytes spill loads")
         assert st == ld == 0, f"K1 {name} spills"
+    for spt, argwin, vec, nrzs, regs, stack, st, ld in symbol_detect_ptxas():
+        name = f"symbol_detect<SPT={spt}, argwin={argwin}, vec={vec}, nrzs={nrzs}>"
+        say("kernels", f"K4 {name} ptxas: {regs} registers, {stack} bytes stack frame, {st} "
+                       f"bytes spill stores, {ld} bytes spill loads")
+        assert st == ld == 0, f"K4 {name} spills"
     hmma = k1_sass()
     if hmma is None:
         say("kernels", "K1 SASS: no cuobjdump in the toolkit, not read")
@@ -3022,11 +3144,17 @@ def main() -> int:
     say("kernels", f"K4n nrzs_bits vs plain OK at the bench_BPSK shape (Nfft 2^16, S "
                    f"{bspec.numSymMax}, LUT {tuple(bspec.symbolLUT.shape)}), B={list(BATCHES)}: "
                    f"rows equal, trust -2 kept; slots set to trust -1: {minus1}")
+    for B in BATCHES:
+        plan, n1, n2 = check_nrzs_form(bspec, bconsts, B)
+        say("kernels", f"K4 NRZ-S form (K4n in K4's launch) B={B} at the bench_BPSK shape, plan "
+                       f"{plan}, with a clip bitmask: rows equal to K4 + K4n and to the plain "
+                       f"version; one launch; slots trust -1 {n1}, trust -2 {n2}")
+    errs["symbol_detect_nrzs"] = 0.0
     fspec = cfg["flagship"][2]
-    for C in VOTE_CS:
+    for C in VOTE_CHECK_CS:
         for master in VOTE_MASTERS:
             errs["vote"] = check_vote(C, fspec.numSymMax, packed_len(fspec), master)
-    say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CS)}, S={fspec.numSymMax}, master_idx "
+    say("kernels", f"K8 vote vs plain OK at C={list(VOTE_CHECK_CS)}, S={fspec.numSymMax}, master_idx "
                    f"{list(VOTE_MASTERS)}: masked rows and voted pair equal, pinned ties vote 0, "
                    f"disqualified slots trust -1; with the pad mask off (the generic step's "
                    f"vote) rows untouched and voted pair equal")
@@ -3237,11 +3365,18 @@ def main() -> int:
                  f"{100 * dec_ms / (1e3 * block_s):.2f}% of real time")
 
     t4 = time_slice4(bspec, bconsts, fspec)
-    for k, unit in (("nrzs_bits", "B"), ("vote", "C")):
+    for k, unit in (("nrzs_bits", "B"), ("symbol_detect_nrzs", "B"), ("vote", "C")):
         for n, (ms, pms, (bms, by), dms) in t4[k].items():
             assert min(ms, pms, dms) >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
             say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
                          f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f}")
+    for B in BATCHES:
+        say("times", f"{card} | bench_BPSK B={B}: K4's NRZ-S form "
+                     f"{t4['symbol_detect_nrzs'][B][3]:.5f} device ms against K4 alone into the "
+                     f"row {t4['k4_alone'][B]:.5f} + the standalone K4n "
+                     f"{t4['nrzs_bits'][B][3]:.5f}; block graph {t4['bpsk_graph'][B][0]:.4f} "
+                     f"ms/call (CUDA events), device busy {t4['bpsk_graph'][B][1]:.4f} ms/call "
+                     f"(profiled wall {t4['bpsk_graph'][B][2]:.4f})")
     say("times", f"{card} | group graph C={GROUP_C} {t4['group_ms']:.4f} ms/call against the "
                  f"block graph at B={GROUP_C} {t4['batch_ms']:.4f} ms/call on the same blocks: "
                  f"the vote adds {t4['group_ms'] - t4['batch_ms']:.4f} ms "
@@ -3297,8 +3432,13 @@ def main() -> int:
                      f"{r['first_packet_s']:.2f} s of feed")
 
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
-                 ("stx", 64), ("wideband", 64), ("generic", GENERIC_C)):
-        if p == "generic":
+                 ("stx", 64), ("bpsk", 1), ("bpsk", LINE_BATCH), ("bpsk", 64), ("wideband", 64),
+                 ("generic", GENERIC_C)):
+        if p == "bpsk":
+            graph = build_process_batch(bspec, device="cuda", packed=True)
+            x = bpsk_blocks(bspec, B, np.random.RandomState(SEED + B))
+            wall, busy, n, tops = profile_calls(lambda: graph(x))
+        elif p == "generic":
             x = torch.from_numpy(generic_blocks(fspec, GENERIC_C)[0]).cuda()
             step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
                                                              devices=["cuda"]), force_generic=True)
@@ -3333,8 +3473,8 @@ def main() -> int:
                 "device_ms": t6[k][LINE_BATCH][3]})
             continue
         if k in t4:
-            unit = "B" if k == "nrzs_bits" else "C"
-            at = LINE_BATCH if k == "nrzs_bits" else GROUP_C
+            unit = "C" if k == "vote" else "B"
+            at = GROUP_C if k == "vote" else LINE_BATCH
             ms, pms, (bms, by), _ = t4[k][at]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
@@ -3345,6 +3485,11 @@ def main() -> int:
                                    "bound_by": v[2][1], "device_ms": v[3]}
                                for n, v in t4[k].items()},
                 "device_ms": t4[k][at][3]})
+            if k == "symbol_detect_nrzs":
+                kernels[-1]["k4_alone_plus_k4n_device_ms"] = {
+                    B: t4["k4_alone"][B] + t4["nrzs_bits"][B][3] for B in BATCHES}
+                kernels[-1]["bpsk_graph"] = {B: {"ms": v[0], "device_busy_ms": v[1]}
+                                             for B, v in t4["bpsk_graph"].items()}
             continue
         if k == "channelize":
             kernels.append({

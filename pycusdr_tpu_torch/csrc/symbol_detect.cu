@@ -61,17 +61,27 @@
 // is the (symbol[i], symbol[i+1 mod S]) transition looked up in the (M, 2,
 // K) symbol LUT: 1 when symbol[i+1] is one of lut[symbol[i]][0], 0 when it
 // is one of lut[symbol[i]][1], else 0 with trust -1 (a -2 from the clip
-// window stays); nBits = nSym - 1. It replaces
+// window stays); a symbol[i] outside [0, M) selects JAX's all-zero tables
+// (next == 0 counts as both); nBits = nSym - 1. It replaces
 // pycusdr_tpu/ops/demod_kernels.py:extract_bits_nrzs (:597-619; its one-hot
 // (n, M) x (M, K) matmul avoided a gather on the TPU) and the trust and
-// nBits lines of dsp/block.py:318-331. bit i needs symbol i+1, which
-// another K4 thread finds, so it is a second launch over K4's row: one
-// thread per slot, the LUT in shared memory (bench_BPSK's is 8 x 2 x 2
-// words; up to the device's opt-in limit, 227 KB on Hopper), or read
-// through L1 where it is larger. The
-// roll wraps slot S-1 onto slot 0 over the padded slots too, as jnp.roll
-// does. Bound: 4 bytes read and 8 written per slot (~55 KB per flagship
-// block), so the launch bounds it.
+// nBits lines of dsp/block.py:318-331. The roll wraps slot S-1 onto slot 0
+// over the padded slots too, as jnp.roll does. Bound: 4 bytes read and 8
+// written per slot (~55 KB per flagship block), so the launch bounds it.
+// Two forms:
+// - fused into K4's row launch (kNrzs, the block graph's NRZ-S step): bit i
+//   needs symbol i+1, which another thread finds, so each CTA also runs
+//   the window search of the slot after its last (slot 0 for the CTA that
+//   holds slot S-1; every thread runs it with its own, so its reads are in
+//   flight with theirs, and the search is deterministic, so it finds the
+//   symbol the owner finds), puts its T * SPT + 1 symbols in shared memory,
+//   syncs once and looks each pair up in the LUT through L1 (any size). One
+//   launch a block where there were two: the second launch and its
+//   wrapper cost more than the kernel (B <= 16: the device idles);
+// - standalone nrzs_bits over a row that K4 or K4s wrote (the generic
+//   step): one thread per slot, the LUT in shared memory (bench_BPSK's is
+//   8 x 2 x 2 words; up to the device's opt-in limit, 227 KB on Hopper),
+//   or read through L1 where it is larger.
 #include "common.cuh"
 
 namespace {
@@ -101,8 +111,9 @@ __device__ __forceinline__ float slot_xs(int x, float spc, int W) {
 }
 
 // grid (ceil(S / (blockDim.x * SPT)), B); kVec: windows of at most kMaxChunkW
-// samples in 16-byte aligned rows, read as chunks (else sample by sample)
-template <int SPT, bool kArgWin, bool kVec>
+// samples in 16-byte aligned rows, read as chunks (else sample by sample);
+// kNrzs: the NRZ-S bits from the (lutM, 2, lutK) symLUT (the row form only)
+template <int SPT, bool kArgWin, bool kVec, bool kNrzs>
 __global__ void __launch_bounds__(kMaxThreads)
 symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
               const float* __restrict__ spSym, const float* __restrict__ codeOffset,
@@ -111,9 +122,14 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
               int* __restrict__ symbols, int* __restrict__ centres, float* __restrict__ mags,
               int8_t* __restrict__ bits, int8_t* __restrict__ trust, int* __restrict__ nSym,
               float* __restrict__ row, int L, int N, int W, int spsymMin, int S,
-              int trust_normal, int hw_max) {
+              int trust_normal, int hw_max, const int* __restrict__ symLUT, int lutM,
+              int lutK) {
     const int b = blockIdx.y, T = blockDim.x, tid = threadIdx.x;
     const int x0 = blockIdx.x * T * SPT;
+    // kNrzs: slot NS - 1 of every thread is the slot after the CTA's last
+    // (slot 0 for the CTA that holds slot S - 1), for the last pair
+    constexpr int NS = kNrzs ? SPT + 1 : SPT;
+    const int xe = x0 + T * SPT < S ? x0 + T * SPT : 0;
     const float spc = fmaxf(spSym[b], (float)spsymMin);
     const float co = codeOffset[b];
     const float* cm = colmax + (size_t)b * N;
@@ -126,7 +142,7 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
         if (r) {
             float* sc = r + 5 * (size_t)S;
             sc[0] = (float)ns;
-            sc[1] = (float)ns;
+            sc[1] = kNrzs ? (float)ns - 1.f : (float)ns;  // nBits
             sc[2] = spSym[b];
             sc[3] = co;
             sc[4] = code_val[b];
@@ -138,12 +154,13 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
 
     // every slot's window (and its clip words) first: the reads of all slots
     // are in flight together
-    float best[SPT], xs[SPT];
-    int sym[SPT], k[SPT], A[SPT], A0[SPT], wlo[SPT];
-    unsigned wd[SPT][kRegWords];
+    float best[NS], xs[NS];
+    int sym[NS], k[NS], A[NS], A0[NS], wlo[NS];
+    unsigned wd[NS][kRegWords];
 #pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-        const int x = min(x0 + s * T + tid, S - 1);  // a slot past S reads in range, stores nothing
+    for (int s = 0; s < NS; ++s) {
+        // a slot past S reads in range, stores nothing
+        const int x = kNrzs && s == SPT ? xe : min(x0 + s * T + tid, S - 1);
         xs[s] = slot_xs(x, spc, W);
         A0[s] = (int)truncf(__fadd_rn(xs[s], co));
         const int a = A[s] = min(max(A0[s], 0), max(N - W, 0));
@@ -185,7 +202,7 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
         best[s] = bst;
         sym[s] = sy;
         k[s] = kk;
-        if (hrow) {
+        if (hrow && !(kNrzs && s == SPT)) {
             wlo[s] = max(a - hw, 0) >> 5;
             const int nw = (min(a + W - 1 + hw, N - 1) >> 5) - wlo[s] + 1;
 #pragma unroll
@@ -196,7 +213,33 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
     }
     if (!kArgWin) {  // the symbol at each winning sample, all slots' reads together
 #pragma unroll
-        for (int s = 0; s < SPT; ++s) sym[s] = __ldg(ca + A[s] + k[s]);
+        for (int s = 0; s < NS; ++s) sym[s] = __ldg(ca + A[s] + k[s]);
+    }
+    float nbit[SPT];
+    bool nerr[SPT];
+    if constexpr (kNrzs) {  // each slot's pair (symbol[x], symbol[x + 1 mod S])
+        __shared__ int ssym[kMaxThreads * 2 + 1];
+#pragma unroll
+        for (int s = 0; s < SPT; ++s) ssym[s * T + tid] = sym[s];
+        if (tid == 0) ssym[T * SPT] = sym[SPT];
+        __syncthreads();
+#pragma unroll
+        for (int s = 0; s < SPT; ++s) {
+            const int x = x0 + s * T + tid;
+            const int next = ssym[x + 1 < S ? x + 1 - x0 : T * SPT], prev = sym[s];
+            bool one = false, zero = false;
+            if (prev >= 0 && prev < lutM) {
+                const int* t = symLUT + (size_t)prev * 2 * lutK;
+                for (int q = 0; q < lutK; ++q) {
+                    one |= __ldg(t + q) == next;
+                    zero |= __ldg(t + lutK + q) == next;
+                }
+            } else {  // JAX's one-hot select gives all-zero tables here
+                one = zero = next == 0;
+            }
+            nerr[s] = !(one || zero);
+            nbit[s] = !nerr[s] && one ? 1.f : 0.f;
+        }
     }
 
 #pragma unroll
@@ -224,8 +267,9 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
             }
             if (hit) tr = kTrustClipped;
         }
+        if (kNrzs && nerr[s] && tr != kTrustClipped) tr = -1;
         if (r) {
-            r[x] = bitLUT ? (float)bitLUT[sym[s]] : 0.f;
+            r[x] = kNrzs ? nbit[s] : bitLUT ? (float)bitLUT[sym[s]] : 0.f;
             r[S + x] = (float)tr;
             r[2 * (size_t)S + x] = (float)sym[s];
             r[3 * (size_t)S + x] = (float)centre;
@@ -274,7 +318,8 @@ nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, in
 }  // namespace
 
 // colmax, colargmax: (B, N); spSym, codeOffset: (B,) f32; bitLUT: (M,) int8
-// or NULL (bits 0);
+// or NULL (bits 0); symLUT: (lutM, 2, lutK) int32 or NULL: with a row and no
+// bitLUT, the NRZ-S bits, trust and nBits written in the same launch;
 // hits: (B, ceil(N/32)) u32 or NULL (the bits past N zero); code_val: (B,)
 // f32 (read only with a row);
 // clipped_any: (B,) i32 or NULL (0). Either the typed outputs symbols,
@@ -287,13 +332,13 @@ nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, in
 // sample, colargmax at the winning sample.
 PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
                                       const float* spSym, const float* codeOffset,
-                                      const int8_t* bitLUT, const unsigned* hits,
-                                      const float* code_val, const int* clipped_any,
-                                      int* symbols, int* centres, float* mags, int8_t* bits,
-                                      int8_t* trust, int* nSym, float* row, int L, int B,
-                                      int N, int W, int spsymMin, int S, int trust_normal,
-                                      int hw_max, int threads, int spt, int argwin,
-                                      cudaStream_t stream) {
+                                      const int8_t* bitLUT, const int* symLUT,
+                                      const unsigned* hits, const float* code_val,
+                                      const int* clipped_any, int* symbols, int* centres,
+                                      float* mags, int8_t* bits, int8_t* trust, int* nSym,
+                                      float* row, int L, int B, int N, int W, int spsymMin,
+                                      int S, int trust_normal, int hw_max, int lutM, int lutK,
+                                      int threads, int spt, int argwin, cudaStream_t stream) {
     if (B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 ||
         !(threads == 64 || threads == kMaxThreads) || !(spt == 1 || spt == 2) ||
         (argwin && spt != 1))
@@ -301,21 +346,31 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
     if (row ? (L < 5 * S + 12 || !code_val)
             : (!symbols || !centres || !mags || !bits || !trust || !nSym))
         return (int)cudaErrorInvalidValue;
+    if (symLUT && (!row || bitLUT || lutM <= 0 || lutK <= 0))
+        return (int)cudaErrorInvalidValue;
     const dim3 grid((S + threads * spt - 1) / (threads * spt), B);
     const bool vec = W <= kMaxChunkW && N % 4 == 0 && ((uintptr_t)colmax & 15) == 0 &&
                      ((uintptr_t)colargmax & 15) == 0;
 #define K4_ARGS                                                                              \
     colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, symbols,     \
-        centres, mags, bits, trust, nSym, row, L, N, W, spsymMin, S, trust_normal, hw_max
+        centres, mags, bits, trust, nSym, row, L, N, W, spsymMin, S, trust_normal, hw_max,  \
+        symLUT, lutM, lutK
+#define K4_LAUNCH(NRZS)                                                                      \
+    if (!vec)                                                                                \
+        symbol_detect<1, false, false, NRZS><<<grid1, threads, 0, stream>>>(K4_ARGS);        \
+    else if (argwin)                                                                         \
+        symbol_detect<1, true, true, NRZS><<<grid, threads, 0, stream>>>(K4_ARGS);           \
+    else if (spt == 1)                                                                       \
+        symbol_detect<1, false, true, NRZS><<<grid, threads, 0, stream>>>(K4_ARGS);          \
+    else                                                                                     \
+        symbol_detect<2, false, true, NRZS><<<grid, threads, 0, stream>>>(K4_ARGS);
     const dim3 grid1((S + threads - 1) / threads, B);  // one slot a thread
-    if (!vec)
-        symbol_detect<1, false, false><<<grid1, threads, 0, stream>>>(K4_ARGS);
-    else if (argwin)
-        symbol_detect<1, true, true><<<grid, threads, 0, stream>>>(K4_ARGS);
-    else if (spt == 1)
-        symbol_detect<1, false, true><<<grid, threads, 0, stream>>>(K4_ARGS);
-    else
-        symbol_detect<2, false, true><<<grid, threads, 0, stream>>>(K4_ARGS);
+    if (symLUT) {
+        K4_LAUNCH(true)
+    } else {
+        K4_LAUNCH(false)
+    }
+#undef K4_LAUNCH
 #undef K4_ARGS
     return (int)cudaGetLastError();
 }

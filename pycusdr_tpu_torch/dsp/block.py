@@ -14,7 +14,8 @@ bits near them with trust -2 and shifts the spectrum by the fixed IF
 offset (``pycusdr_tpu/dsp/block.py:219-222,268-275,296-331``). K4n runs
 for a protocol without a centre-bit LUT (bench_BPSK): its bits come from
 the symbol LUT, with trust -1 on a transition error and nBits = nSym - 1
-(``pycusdr_tpu/dsp/block.py:318-331``).
+(``pycusdr_tpu/dsp/block.py:318-331``); on the kernel path it runs in
+K4's launch (``symbol_detect_nrzs``).
 
 The graph comes in two forms, complex64 throughout:
 
@@ -43,10 +44,10 @@ from pycusdr_tpu_torch.ops.demod_kernels import (
     dilate_mask_plain,
     mf_bank_colreduce,
     mf_bank_colreduce_plain,
-    nrzs_bits,
     nrzs_bits_plain,
     nrzs_trust_plain,
     symbol_detect,
+    symbol_detect_nrzs,
     symbol_detect_plain,
     threshold_input,
     threshold_input_plain,
@@ -140,10 +141,10 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
     """The kernel path on a (B, N) complex64 batch; returns the (B, L)
     rows, written into ``row`` when given. ``centre``: None or the (B,)
     int32 grid recentre that K1 and K5 take."""
-    M, S_ = spec.num_masks, spec.numSymMax
+    M = spec.num_masks
     if row is None:
         row = torch.empty((x.shape[0], packed_len(spec)), dtype=torch.float32, device=x.device)
-    tail = row[:, len(PACK_ARRAYS) * S_:]
+    tail = row[:, len(PACK_ARRAYS) * spec.numSymMax:]
     hits = clipped_any = None
     if not spec.disable_peak_thresholding:
         x, hits, clipped_any = threshold_input(x, c.threshold_scale)
@@ -162,10 +163,12 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
     colsum, colmax, colarg = mf_bank_colreduce(S, c.masks_f, shift, off, M - off, tw=c.tw)
     spSym, codeOffset, code_val = timing_band(colsum, spec.code_idx_lo, spec.code_idx_hi,
                                               tw=c.tw)
-    symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
-                  hits=hits, row=row, code_val=code_val, clipped_any=clipped_any)
-    if c.bitLUT is None:
-        nrzs_bits(row, c.symbolLUT, S_)
+    k4 = dict(_k4_kwargs(spec, c), hits=hits, row=row, code_val=code_val,
+              clipped_any=clipped_any)
+    if c.bitLUT is None:  # K4 and the NRZ-S bits (K4n) in one launch
+        symbol_detect_nrzs(colmax, colarg, spSym, codeOffset, c.symbolLUT, **k4)
+    else:
+        symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **k4)
     return row
 
 

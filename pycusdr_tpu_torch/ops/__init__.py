@@ -1,6 +1,7 @@
 """Device ops of the port and the hand-written kernels behind them: the
 demodulation path (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
-``timing_band``, K4 ``symbol_detect`` with K4n ``nrzs_bits`` for NRZ-S,
+``timing_band``, K4 ``symbol_detect`` (with K4n in the same launch,
+``symbol_detect_nrzs``, on the NRZ-S block graph) and K4n ``nrzs_bits``,
 K5 ``doppler_estimate``, K6 ``threshold_input``), the generic channel x
 dopp step's split detector (K4l ``symbol_detect_local``, K4s
 ``shard_select``), the decoder's Viterbi
@@ -18,6 +19,7 @@ def kernel_wrappers() -> dict:
         shard_select,
         symbol_detect,
         symbol_detect_local,
+        symbol_detect_nrzs,
         threshold_input,
         timing_band,
     )
@@ -28,6 +30,7 @@ def kernel_wrappers() -> dict:
 
     return {"doppler_energy": doppler_energy, "mf_bank_colreduce": mf_bank_colreduce,
             "timing_band": timing_band, "symbol_detect": symbol_detect,
+            "symbol_detect_nrzs": symbol_detect_nrzs,
             "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
             "viterbi": viterbi_sweep, "nrzs_bits": nrzs_bits, "vote": vote_rows,
             "channelize": channelize, "symbol_detect_local": symbol_detect_local,

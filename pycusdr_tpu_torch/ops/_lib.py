@@ -44,11 +44,11 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _P],
     # x, tw, part, spSym, codeOffset, code_val, B, N, lo, hi, n1, cw, groups, stream
     "pycusdr_timing_band": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # colmax, colargmax, spSym, codeOffset, bitLUT, hits, code_val, clipped_any,
+    # colmax, colargmax, spSym, codeOffset, bitLUT, symLUT, hits, code_val, clipped_any,
     # symbols, centres, mags, bits, trust, nSym, row, L, B, N, W, spsymMin,
-    # numSymMax, trust_normal, hw_max, threads, spt, argwin, stream
-    "pycusdr_symbol_detect": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # numSymMax, trust_normal, hw_max, lutM, lutK, threads, spt, argwin, stream
+    "pycusdr_symbol_detect": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # E, P, shifts, shifts_signed, hz, sc, sc_stride, e_out, e_stride, shift_out,
     # centre|NULL, B, N, D, M, num_dopplers, offset, sum_all, snr_window, if_hz,
     # bin_hz, stream

@@ -473,7 +473,8 @@ def _write_row_k4(row, out, S, spSym, codeOffset, code_val, clipped_any):
 def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
                   windowWidth: int, spsymMin: int, numSymMax: int, trust_normal: int,
                   hits: torch.Tensor = None, row: torch.Tensor = None,
-                  code_val: torch.Tensor = None, clipped_any: torch.Tensor = None):
+                  code_val: torch.Tensor = None, clipped_any: torch.Tensor = None,
+                  symbolLUT: torch.Tensor = None):
     """K4: windowed symbol detection with the LUT bits and trust fill
     (see ``symbol_detect_plain``). spSym and codeOffset stay on the
     device: the kernel reads them by pointer.
@@ -486,7 +487,21 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
     ``row``: the (B, L) f32 packed rows (``ops/layout.py``). The arrays
     and the scalars nSym, nBits, spSym, codeOffset, ``code_val`` (B,) and
     ``clipped_any`` (B,) int32 (0 when None) are written there instead,
-    and ``row`` is returned."""
+    and ``row`` is returned.
+
+    ``symbolLUT``: the (M, 2, K) int32 NRZ-S LUT of a protocol without a
+    centre-bit LUT (``bitLUT`` None), with ``row`` only: the same launch
+    then writes what ``nrzs_bits`` writes over K4's row (the NRZ-S bits,
+    trust -1 on a transition error, nBits = nSym - 1), and counts in
+    ``symbol_detect_nrzs.launches`` too. Its plain version is
+    ``symbol_detect_plain`` and then ``nrzs_rows_plain``."""
+    if symbolLUT is not None:
+        if row is None or bitLUT is not None:
+            raise ValueError("symbol_detect: the NRZ-S form writes the packed row and takes "
+                             "no centre-bit LUT")
+        if symbolLUT.dim() != 3 or symbolLUT.shape[1] != 2:
+            raise ValueError(f"symbol_detect: symbolLUT must be (M, 2, K), got "
+                             f"{tuple(symbolLUT.shape)}")
     if colmax.device.type == "cpu":
         clip = None
         if hits is not None:
@@ -499,7 +514,7 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
         if row is None:
             return out
         _write_row_k4(row, out, numSymMax, spSym, codeOffset, code_val, clipped_any)
-        return row
+        return row if symbolLUT is None else nrzs_rows_plain(row, symbolLUT, numSymMax)
     if colmax.device.type != "cuda":
         raise ValueError(f"symbol_detect: unsupported device {colmax.device}")
     B, N = colmax.shape
@@ -517,6 +532,10 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
         _lib.check(hits, "hits", torch.int32, (B, -(-N // 32)), dev)
     if clipped_any is not None:
         _lib.check(clipped_any, "clipped_any", torch.int32, (B,), dev)
+    lut_mk = (0, 0)
+    if symbolLUT is not None:
+        _lib.check(symbolLUT, "symbolLUT", torch.int32, None, dev)
+        lut_mk = (symbolLUT.shape[0], symbolLUT.shape[2])
     if row is not None:
         _lib.check(row, "row", torch.float32, None, dev)
         if row.shape[0] != B or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
@@ -533,11 +552,13 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
                  torch.empty((B, S), dtype=torch.int8, device=dev),
                  torch.empty((B,), dtype=torch.int32, device=dev))
     _lib.launch("pycusdr_symbol_detect", _lib.ptr(colmax), _lib.ptr(colarg), _lib.ptr(spSym),
-                _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(hits), _lib.ptr(code_val),
-                _lib.ptr(clipped_any), *map(_lib.ptr, typed), _lib.ptr(row),
-                0 if row is None else row.shape[1], B, N, windowWidth, spsymMin, S,
-                trust_normal, CLIP_HW_MAX, *k4_plan(B, S))
+                _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(symbolLUT), _lib.ptr(hits),
+                _lib.ptr(code_val), _lib.ptr(clipped_any), *map(_lib.ptr, typed),
+                _lib.ptr(row), 0 if row is None else row.shape[1], B, N, windowWidth,
+                spsymMin, S, trust_normal, CLIP_HW_MAX, *lut_mk, *k4_plan(B, S))
     symbol_detect.launches += 1
+    if symbolLUT is not None:
+        symbol_detect_nrzs.launches += 1
     if row is not None:
         return row
     if hits is None:
@@ -546,6 +567,19 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
 
 
 symbol_detect.launches = 0
+
+
+def symbol_detect_nrzs(colmax, colarg, spSym, codeOffset, symbolLUT, *, row: torch.Tensor,
+                       code_val: torch.Tensor, **kw) -> torch.Tensor:
+    """K4 and K4n in one launch (the NRZ-S block graph's step):
+    ``symbol_detect`` with no centre-bit LUT and the (M, 2, K) int32
+    ``symbolLUT``, into the packed rows ``row``, which are returned. Its
+    launches count here and in ``symbol_detect.launches``."""
+    return symbol_detect(colmax, colarg, spSym, codeOffset, None, row=row, code_val=code_val,
+                         symbolLUT=symbolLUT, **kw)
+
+
+symbol_detect_nrzs.launches = 0
 
 
 # ---------------------------------------------------------------- K4n

@@ -14,7 +14,11 @@ every N from 2^2 to 2^18 at the band edges, with zero and NaN rows; K1 at
 shapes, each block alone; K6 at every form of its plan, at N not a multiple
 of 32 and above 2^18, equal bit for bit to the numpy model of its order; K4
 and K4s with a partial last clip word; K4n with LUTs of 64 and 256 KB; K2
-and K3 at 2^19 and 2^20).
+and K3 at 2^19 and 2^20; K4's NRZ-S form (K4n in K4's launch) against K4
+followed by K4n and its plain version at the bench_BPSK shape, S from 1 to
+36480, B = 1/16/64, with a clip bitmask, the sample-by-sample form and
+LUTs of 64 and 256 KB; K8 at C = 1 to 256, S = 1/31/4608, with and without
+its pad mask).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -1115,3 +1119,128 @@ def test_doppler_energy_deep_banks(cuda, M):
         assert float((Ek - Ep).abs().max()) <= 1e-4 * float(Ep.abs().max())
         one = ds.doppler_energy(P[2:3], Q, shifts, None if cs is None else cs[2:3])
         assert torch.equal(one[0], Ek[2])
+
+
+# ---- slice 15: K4n in K4's launch on the block graph, K8 redesigned
+
+NRZS_S = [1, 2, 63, 64, 65, 4607, 4608, 36480]
+
+
+def _nrzs_inputs(cuda, S, B, M, seed, W=None, unaligned=False):
+    """K4's inputs at the bench_BPSK shape (Nfft 2^16, its window and
+    spsymMin) for S slots: seeded colmax, colargmax in [-1, M + 1] (symbols
+    outside an M-row LUT), spSym about N / S (clamped to spsymMin), a
+    sparse clip bitmask; ``W`` a wider window, ``unaligned`` rows that are
+    not 16-byte aligned (both take the sample-by-sample form). Returns
+    (args, kwargs) of ``symbol_detect`` on the card."""
+    bspec = smoke.bpsk_configuration()[2]
+    N = bspec.Nfft
+    rng = np.random.RandomState(seed)
+    colmax = rng.rand(B, N).astype(np.float32)
+    colarg = rng.randint(-1, M + 2, (B, N)).astype(np.int32)
+    if unaligned:
+        buf = torch.zeros(B * N + 1, device=cuda)
+        buf[1:] = torch.from_numpy(colmax.ravel()).to(cuda)
+        cm = buf[1:].view(B, N)
+        ibuf = torch.zeros(B * N + 1, dtype=torch.int32, device=cuda)
+        ibuf[1:] = torch.from_numpy(colarg.ravel()).to(cuda)
+        ca = ibuf[1:].view(B, N)
+    else:
+        cm, ca = torch.from_numpy(colmax).to(cuda), torch.from_numpy(colarg).to(cuda)
+    sp = (N / S * (1 + 0.01 * rng.randn(B))).astype(np.float32)
+    co = rng.uniform(-20, 20, B).astype(np.float32)
+    hits = dk.pack_bits(torch.from_numpy(rng.rand(B, N) < 0.001)).to(cuda)
+    kw = dict(Nfft=N, windowWidth=W or bspec.windowWidth, spsymMin=bspec.spsymMin,
+              numSymMax=S, trust_normal=4, hits=hits)
+    return (cm, ca, torch.from_numpy(sp).to(cuda), torch.from_numpy(co).to(cuda)), kw
+
+
+def _nrzs_form_vs_two_launches(args, kw, lut, B):
+    """The fused form's rows, K4 then the standalone K4n's, and the plain
+    version's on the CPU; the fused call counts one K4 launch and one of
+    the NRZ-S form, and launches no standalone K4n."""
+    S = kw["numSymMax"]
+    L = 5 * S + 12 + 3
+    code_val = torch.ones(B, device=lut.device)
+    before = (dk.symbol_detect.launches, dk.symbol_detect_nrzs.launches, dk.nrzs_bits.launches)
+    fused = dk.symbol_detect_nrzs(*args, lut, **kw, row=torch.zeros((B, L), device=lut.device),
+                                  code_val=code_val)
+    after = (dk.symbol_detect.launches, dk.symbol_detect_nrzs.launches, dk.nrzs_bits.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    two = dk.symbol_detect(*args, None, **kw, row=torch.zeros((B, L), device=lut.device),
+                           code_val=code_val)
+    dk.nrzs_bits(two, lut, S)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    plain = dk.symbol_detect(*(a.cpu() for a in args), None, **cpu, row=torch.zeros((B, L)),
+                             code_val=code_val.cpu(), symbolLUT=lut.cpu())
+    torch.cuda.synchronize()
+    return fused, two, plain
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+@pytest.mark.parametrize("S", NRZS_S)
+def test_symbol_detect_nrzs_form(cuda, S, B):
+    """K4's NRZ-S form (K4n in K4's launch) at the bench_BPSK shape with the
+    (8, 2, 2) LUT and a clip bitmask: rows equal to K4 followed by the
+    standalone K4n and to the plain version, over every ``k4_plan`` form
+    that B x S picks."""
+    lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
+    args, kw = _nrzs_inputs(cuda, S, B, lut.shape[0], seed=S + B)
+    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, lut, B)
+    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+    if S >= 4607:
+        trust = fused[:, S:2 * S]
+        assert bool((trust == -1).any()) and bool((trust == -2).any())
+
+
+@pytest.mark.parametrize("form", ["wide", "unaligned"])
+@pytest.mark.parametrize("B", [1, 16])
+def test_symbol_detect_nrzs_form_sample_by_sample(cuda, B, form):
+    """The NRZ-S form's sample-by-sample instantiation (a window wider than
+    9 samples, or rows that are not 16-byte aligned) against K4 + K4n and
+    the plain version."""
+    lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
+    args, kw = _nrzs_inputs(cuda, 4608, B, lut.shape[0], seed=B + 5,
+                            W=12 if form == "wide" else None, unaligned=form == "unaligned")
+    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, lut, B)
+    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+
+
+@pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
+@pytest.mark.parametrize("B", [1, 16])
+def test_symbol_detect_nrzs_form_large_lut(cuda, B, M, K):
+    """The NRZ-S form with LUTs of 64 and 256 KB (read through L1), a third
+    of the transitions planted in a table: rows equal to K4 + K4n (which
+    stages the 64 KB LUT in shared memory) and to the plain version."""
+    S = 4608
+    args, kw = _nrzs_inputs(cuda, S, B, M, seed=M + B)
+    sym = dk.symbol_detect(*args, None, **kw)[0].cpu().numpy()
+    rng = np.random.RandomState(M)
+    lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
+    for b in range(B):
+        for i in range(0, S, 3):
+            if 0 <= sym[b, i] < M:
+                lut[sym[b, i], i % 2, i % K] = sym[b, (i + 1) % S]
+    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, torch.from_numpy(lut).to(cuda), B)
+    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+    assert bool((fused[:, :S] == 1).any()) and bool((fused[:, S:2 * S] == -1).any())
+
+
+@pytest.mark.parametrize("mask_pad", [True, False])
+@pytest.mark.parametrize("S", [1, 31, 4608])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 16, 64, 65, 256])
+def test_vote_tiles(cuda, C, S, mask_pad):
+    """K8 (tiles of 32 slots, channels across warps, chunks of 256) against
+    the plain vote on ``chip_smoke.vote_input`` rows (pinned ties, all
+    disqualified slots, ragged nBits), master 0 and C - 1: masked rows and
+    voted pair equal; one launch a call."""
+    L = 5 * S + 12 + 8
+    for master in (0, -1):
+        rows, _ = smoke.vote_input(C, S, L)
+        rk, rp = rows.clone(), rows.clone()
+        before = pv.vote_rows.launches
+        ok = pv.vote_rows(rk, S, 1.2, master_idx=master, mask_pad=mask_pad)
+        assert pv.vote_rows.launches == before + 1
+        op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device=cuda), master, mask_pad)
+        torch.cuda.synchronize()
+        assert torch.equal(rk, rp) and torch.equal(ok, op), f"master {master}"
