@@ -1,9 +1,9 @@
-"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, K6, K9, K4 with K4n, or
-K8, and the graphs around them, of two checkouts, timed in turns on one
-card.
+"""K7 and ``ViterbiStream.feed``, K1, K5 and K4, K6, K9, K4 with K4n, K8,
+or K4l and K4s, and the graphs around them, of two checkouts, timed in
+turns on one card.
 
     python3 chip_ab_viterbi.py PARENT_DIR
-        [--turn viterbi|doppler|detect|threshold|channelize|nrzs|vote] [--rounds R]
+        [--turn viterbi|doppler|detect|threshold|channelize|nrzs|vote|shard] [--rounds R]
     python3 chip_ab_viterbi.py PARENT_DIR --summary-of OUTPUT_FILE
 
 PARENT_DIR is another checkout of the repo (for example ``git archive`` of
@@ -71,7 +71,20 @@ root, which builds that tree's kernels and times, on card 0:
   the big path's S=36480 (blockSize 19): device ms a call, ms by CUDA
   events, host us a call; and the sha256 of the voted pair and the rows
   of a fresh vote with the pad mask (master 0) and one without it (master
-  C - 1), held equal across the turns of both trees.
+  C - 1), held equal across the turns of both trees;
+- ``--turn shard``: K4l (``symbol_detect_local``) at the flagship and
+  bench_BPSK shapes and K4s (``shard_select``) on the pairs of the bank
+  split 1, 2 and 4 ways (chip_smoke's ``shard_columns``; the pairs by K4l's
+  plain version) at the flagship shape and at STX's with its clip bitmask,
+  at B=1/16/64: device ms (torch.profiler), ms by CUDA events, host us a
+  call and the sha256 of the pairs and the rows; K4s with the NRZ-S bits
+  on bench_BPSK at nd = 1 and 2 (one launch of ``shard_select_nrzs`` where
+  the tree has it, in each of its forms of the next slot's symbol, else
+  K4s and then the standalone K4n); the bench_BPSK generic step at C=16
+  (``force_generic``): ms by CUDA events, device busy ms, the sha256 of
+  its outputs; K4's device ms at the flagship and STX shapes (the guard);
+  and ptxas's registers and stack of every K4, K4l and K4s instantiation.
+  The turn finds out which API the tree has.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
@@ -84,7 +97,7 @@ Both trees' ``chip_smoke.py`` must have what the turn calls
 (``viterbi_inputs``, ``cuda_ms``, ``time_feed``; ``configuration``,
 ``kernel_inputs``, ``signal_blocks``, ``k9_inputs``; ``k4_kwargs``,
 ``k5_args``; ``bpsk_configuration``, ``bpsk_stream``, ``vote_input``,
-``big_configuration``). The turns' scratch files (y_parent) go under
+``big_configuration``; ``k4l_kwargs``, ``shard_columns``, ``GENERIC_C``). The turns' scratch files (y_parent) go under
 ``build/ab_scratch``. Needs a card: a turn fails without one.
 """
 
@@ -452,6 +465,129 @@ for p in ("flagship", "stx"):
         hits = inp.get("hits")
         out[f"K4 {p} B={B} device ms"] = kernel_ms(
             lambda: dk.symbol_detect(*a4, hits=hits, **kw4), "symbol_detect")
+print(json.dumps(out))
+"""
+
+#: K4l and K4s in either tree: K4l's (value, key) pairs as two arrays or as
+#: one (B, S, 2) buffer, K4s on two arrays or on the buffer, and the NRZ-S bits
+#: in K4s's launch (``shard_select_nrzs``) or by the standalone K4n after it
+TURNS["shard"] = r"""
+import hashlib, json, re, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+assert torch.cuda.is_available(), "no card"
+import chip_smoke as c
+from pycusdr_tpu_torch.convert import DeviceConsts
+from pycusdr_tpu_torch.dsp.block import packed_len
+from pycusdr_tpu_torch.ops import _lib
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
+""" + PROFILING + r"""
+
+PACKED = hasattr(dk, "shard_select_nrzs")
+#: the change's forms of the next slot's symbol in K4s's NRZ-S form, where it has two
+NEXT_FORMS = getattr(dk, "K4S_NEXT_FORMS", (None,))
+out = {}
+_lib.lib()  # ptxas's registers and stack of K4's, K4l's and K4s's instantiations
+log = Path(_lib.build_info["log"]).read_text()
+for src in ("symbol_detect.cu", "shard_select.cu"):
+    for part in log.split(f"== {src}", 1)[1].split("\n== ", 1)[0].split(
+            "Compiling entry function")[1:]:
+        m = re.search(r"_GLOBAL__N_1(\d+)(\w+)", part.split("\n")[0])
+        name, rest = m[2][:int(m[1])], m[2][int(m[1]):]  # the template arguments, mangled
+        out[f"ptxas {name}{rest[:rest.index('Ev') - 1] if rest[:1] == 'I' else ''}"] = (
+            re.search(r"Used (\d+) registers", part)[1] + " registers, "
+            + re.search(r"(\d+) bytes stack frame", part)[1] + " bytes stack")
+
+
+def pairs_of(spec, consts, inp, nd):
+    # every shard's (values, keys) of the bank split nd ways, by K4l's plain version
+    kw = c.k4l_kwargs(spec)
+    Ml = spec.num_masks // nd
+    pp = [dk.symbol_detect_local_plain(cm, ca, inp["spSym"], inp["codeOffset"], m0=d * Ml, **kw)
+          for d, (cm, ca) in enumerate(c.shard_columns(spec, consts, inp, nd))]
+    return torch.stack([p[0] for p in pp]), torch.stack([p[1] for p in pp])
+
+
+def k4s(spec, consts, inp, vals, keys, hits, row, lut=None, form=None):
+    # one call of K4s (with the NRZ-S bits where lut is given) into row
+    a = (inp["spSym"], inp["codeOffset"])
+    kw = dict(c.k4_kwargs(spec, consts), M=spec.num_masks, code_val=inp["code_val"], hits=hits,
+              row=row)
+    if PACKED:
+        pairs = dk.pack_pairs(vals, keys)
+        if form is not None:
+            kw["next_form"] = form
+        if lut is None:
+            return lambda: dk.shard_select(pairs, *a, consts.bitLUT, **kw)
+        return lambda: dk.shard_select_nrzs(pairs, *a, lut, **kw)
+    if lut is None:
+        return lambda: dk.shard_select(vals, keys, *a, consts.bitLUT, **kw)
+
+    def two():
+        dk.shard_select(vals, keys, *a, None, **kw)
+        dk.nrzs_bits(row, lut, spec.numSymMax)
+    return two
+
+
+def timed(tag, fn, kernel, also=None):
+    out[f"{tag} device ms"] = kernel_ms(fn, kernel) + (kernel_ms(fn, also) if also else 0.0)
+    out[f"{tag} ms"] = c.cuda_ms(fn)
+    out[f"{tag} host us"] = host_us(fn)
+
+
+dev = torch.device("cuda")
+cfg = {p: c.configuration(p)[2] for p in ("flagship", "stx")}
+cfg["bpsk"] = c.bpsk_configuration()[2]
+consts = {p: DeviceConsts.from_spec(s, dev) for p, s in cfg.items()}
+for p, spec in cfg.items():
+    L = packed_len(spec)
+    for B in (1, 16, 64):
+        x = c.bpsk_blocks(spec, B, np.random.RandomState(c.SEED + B)) if p == "bpsk" else None
+        inp = c.kernel_inputs(spec, consts[p], B, x=x)
+        hits = inp.get("hits")
+        a = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"])
+        if p != "stx":  # K4l at the flagship and bench_BPSK shapes
+            fn = lambda: dk.symbol_detect_local(*a, m0=0, **c.k4l_kwargs(spec))
+            timed(f"K4l {p} B={B}", fn, "symbol_detect_local")
+            out[f"K4l {p} B={B} pairs sha256"] = digest(*fn())
+        if p != "bpsk":  # K4 at the flagship and STX shapes: the guard
+            out[f"K4 {p} B={B} device ms"] = kernel_ms(
+                lambda: dk.symbol_detect(*a, consts[p].bitLUT, hits=hits,
+                                         **c.k4_kwargs(spec, consts[p])), "symbol_detect")
+        row = torch.zeros((B, L), device=dev)
+        for nd in (1, 2, 4):
+            vals, keys = pairs_of(spec, consts[p], inp, nd)
+            if p == "bpsk":  # K4s with the NRZ-S bits
+                if nd == 4:
+                    continue
+                lut, seen = consts[p].symbolLUT, set()
+                for form in NEXT_FORMS:
+                    fn = k4s(spec, consts[p], inp, vals, keys, None, row, lut, form)
+                    tag = f"K4s+K4n bpsk nd={nd} B={B}" + (f" ({form})" if form else "")
+                    timed(tag, fn, "shard_select", None if PACKED else "nrzs_bits")
+                    row.zero_()
+                    fn()
+                    seen.add(digest(row))
+                assert len(seen) == 1, f"the forms' rows differ at nd={nd} B={B}"
+                out[f"K4s+K4n bpsk nd={nd} B={B} rows sha256"] = seen.pop()
+            else:  # K4s with STX's clip bitmask, and without it at the flagship
+                fn = k4s(spec, consts[p], inp, vals, keys, hits, row)
+                timed(f"K4s {p} nd={nd} B={B}", fn, "shard_select")
+                row.zero_()
+                fn()
+                out[f"K4s {p} nd={nd} B={B} rows sha256"] = digest(row)
+        del inp
+bspec = cfg["bpsk"]
+x = c.bpsk_blocks(bspec, c.GENERIC_C, np.random.RandomState(c.SEED + 70))
+step = build_sharded_demod_step(bspec, make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"]),
+                                force_generic=True)
+out["bpsk generic step C=16 ms"] = c.cuda_ms(lambda: step(x), iters=5, reps=5)
+out["bpsk generic step C=16 device busy ms"] = busy_ms(lambda: step(x))
+res = step(x)
+out["bpsk generic step C=16 sha256"] = digest(*(res[k] for k in (
+    "bits", "trust", "symbols", "centres", "mags", "nBits", "bits_voted", "trust_voted")))
 print(json.dumps(out))
 """
 

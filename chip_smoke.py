@@ -120,7 +120,8 @@ and then no result line is printed):
       K1, K2, K3, K4l, K4s, K5 and K8 launch, K4 does not; bits, symbols
       and centres equal the channel-parallel step's per channel; decisions
       and the voted pair equal the plain generic step's; BER < 1e-3 per
-      channel;
+      channel; and the same at C=16 bench_BPSK channels of seeded NRZ-S BPSK
+      (the NRZ-S bits after the cross-shard select);
    j. ranks: the generic step on {"channel": 2, "dopp": 2} in four
       processes of one gloo world, all on cuda:0 (NCCL refuses two ranks on
       one card), C=4 with the vote: each rank within the golden table of
@@ -160,7 +161,7 @@ and then no result line is printed):
 6. profile: device busy time by kernel and the device's idle share over
    calls of the block graph (torch.profiler): flagship at B=1, 16 and 64,
    STX at B=1 and 64, bench_BPSK at B=1, 16 and 64; of the wideband chain (K9 + the step at C=64); and of the
-   generic step at C=16.
+   generic step at C=16 on the flagship's GFSK and on bench_BPSK.
 
 It then prints the card line, one JSON line with every kernel's numbers,
 and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -357,6 +358,8 @@ PATH_KERNELS = {
              "symbol_detect"),
     "generic": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                 "symbol_detect_local", "shard_select", "vote"),
+    "generic_bpsk": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                     "symbol_detect_local", "shard_select", "nrzs_bits", "vote"),
     "big": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
             "symbol_detect"),
 }
@@ -2396,14 +2399,28 @@ def generic_blocks(spec, C, seed=SEED + 60):
     return np.stack([o[0] for o in out]), [o[1] for o in out], dopp
 
 
-def main_path_generic(spec):
+def generic_bpsk_blocks(spec, C, seed=SEED + 70):
+    """C bench_BPSK blocks of seeded NRZ-S BPSK (``bpsk_stream``), each with
+    its own bits, Doppler offset (-DOPPLER_HZ .. +DOPPLER_HZ) and noise;
+    returns (blocks complex64, sent bits per channel, the offsets)."""
+    rng = np.random.RandomState(seed)
+    dopp = [DOPPLER_HZ * (2.0 * c / max(C - 1, 1) - 1.0) for c in range(C)]
+    sent = [rng.randint(0, 2, spec.Nfft // int(spec.spsym) + 8) for _ in range(C)]
+    return np.stack([bpsk_stream(spec, sent[c], spec.Nfft, seed=seed + c, doppler_hz=dopp[c])
+                     for c in range(C)]), sent, dopp
+
+
+def main_path_generic(spec, path="generic"):
     """Phase 4i: ``build_sharded_demod_step(force_generic=True)`` on the
-    one-card mesh at C=GENERIC_C (with the vote): K1, K2, K3, K4l, K4s, K5
-    and K8 launch, K4 does not; bits, symbols and centres equal the
-    channel-parallel step's on every channel; decisions and the voted pair
-    equal the plain generic step's; BER < 1e-3 and the Doppler offset
-    within baud/2 on every channel."""
-    blocks, sent, dopp = generic_blocks(spec, GENERIC_C)
+    one-card mesh at C=GENERIC_C (with the vote), on the flagship's GFSK
+    (``path`` "generic") or on bench_BPSK's NRZ-S ("generic_bpsk", the
+    NRZ-S bits after the cross-shard select): the path's kernels launch, K4
+    does not; bits, symbols and centres equal the channel-parallel step's
+    on every channel; decisions and the voted pair equal the plain generic
+    step's; BER < 1e-3 and the Doppler offset within baud/2 on every
+    channel."""
+    make = generic_bpsk_blocks if path == "generic_bpsk" else generic_blocks
+    blocks, sent, dopp = make(spec, GENERIC_C)
     x = torch.from_numpy(blocks).cuda()
     mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
     gen = build_sharded_demod_step(spec, mesh, force_generic=True)
@@ -2411,21 +2428,21 @@ def main_path_generic(spec):
     res = gen(x)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check_launches("generic", launches)
+    check_launches(path, launches)
     fast = build_sharded_demod_step(spec, mesh)(x)
     plain = build_sharded_demod_step(spec, mesh, force_generic=True, plain=True)(x)
     torch.cuda.synchronize()
     for k in ("bits", "symbols", "centres"):
-        assert torch.equal(res[k], fast[k]), f"generic: {k} differ from the channel-parallel step's"
+        assert torch.equal(res[k], fast[k]), f"{path}: {k} differ from the channel-parallel step's"
     for k in DECISIONS + ("bits_voted", "trust_voted"):
-        assert torch.equal(res[k], plain[k]), f"generic: {k} differ from the plain step's"
+        assert torch.equal(res[k], plain[k]), f"{path}: {k} differ from the plain step's"
     out = {k: v.cpu().numpy() for k, v in res.items()}
     bers = []
     for c in range(GENERIC_C):
         ber, lag = best_aligned_ber(out["bits"][c, :out["nBits"][c]].astype(np.int64), sent[c])
         off = float(out["freq_offset_hz"][c])
-        assert ber < 1e-3, f"generic channel {c}: BER {ber} at lag {lag}"
-        assert abs(off - dopp[c]) < spec.baudRate / 2, f"generic channel {c}: {off} Hz vs {dopp[c]}"
+        assert ber < 1e-3, f"{path} channel {c}: BER {ber} at lag {lag}"
+        assert abs(off - dopp[c]) < spec.baudRate / 2, f"{path} channel {c}: {off} Hz vs {dopp[c]}"
         bers.append(ber)
     return dict(C=GENERIC_C, max_ber=max(bers), launches=launches,
                 trust_minus1_beyond_nsym=int((out["trust"] == -1).sum()))
@@ -3290,6 +3307,11 @@ def main() -> int:
                 f"equal to the channel-parallel step's; decisions and voted pair equal to the "
                 f"plain step's; BER < 1e-3 and Doppler within baud/2 per channel; "
                 + json.dumps(res["generic"]))
+    res["generic_bpsk"] = main_path_generic(bspec, "generic_bpsk")
+    say("main", f"generic step (force_generic, one card) on bench_BPSK C={GENERIC_C}: bits, "
+                f"symbols, centres equal to the channel-parallel step's; decisions and voted pair "
+                f"equal to the plain step's; BER < 1e-3 and Doppler within baud/2 per channel; "
+                + json.dumps(res["generic_bpsk"]))
     ranks = main_path_ranks(fspec)
     say("main", f"generic step on {{\"channel\": 2, \"dopp\": 2}}: {RANKS} ranks on cuda:0 over "
                 f"{ranks['backend']}, C={RANKS_C}: every rank within the golden table of the "
@@ -3433,14 +3455,16 @@ def main() -> int:
 
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
                  ("stx", 64), ("bpsk", 1), ("bpsk", LINE_BATCH), ("bpsk", 64), ("wideband", 64),
-                 ("generic", GENERIC_C)):
+                 ("generic", GENERIC_C), ("generic_bpsk", GENERIC_C)):
         if p == "bpsk":
             graph = build_process_batch(bspec, device="cuda", packed=True)
             x = bpsk_blocks(bspec, B, np.random.RandomState(SEED + B))
             wall, busy, n, tops = profile_calls(lambda: graph(x))
-        elif p == "generic":
-            x = torch.from_numpy(generic_blocks(fspec, GENERIC_C)[0]).cuda()
-            step = build_sharded_demod_step(fspec, make_mesh({"channel": 1, "dopp": 1},
+        elif p in ("generic", "generic_bpsk"):
+            gspec, make = (bspec, generic_bpsk_blocks) if p == "generic_bpsk" else (fspec,
+                                                                                    generic_blocks)
+            x = torch.from_numpy(make(gspec, GENERIC_C)[0]).cuda()
+            step = build_sharded_demod_step(gspec, make_mesh({"channel": 1, "dopp": 1},
                                                              devices=["cuda"]), force_generic=True)
             wall, busy, n, tops = profile_calls(lambda: step(x))
         elif p == "wideband":
@@ -3452,7 +3476,7 @@ def main() -> int:
         else:
             wall, busy, n, tops = profile_graph(cfg[p][2], B)
         idle = "not measured" if n == 0 else f"{100 * (1 - busy / wall):.1f}%"
-        what = {"wideband": "chain", "generic": "step"}.get(p, "graph")
+        what = {"wideband": "chain", "generic": "step", "generic_bpsk": "step"}.get(p, "graph")
         say("profile", f"{card} | {p} B={B} {what}: wall "
                        f"{wall:.4f} ms/call, device busy {busy:.4f} ms/call, idle {idle}; {n} "
                        f"kernel names, top (ms/call): {tops}")

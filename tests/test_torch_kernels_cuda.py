@@ -1011,6 +1011,37 @@ def test_generic_step_matches_channel_parallel(case, cuda):
         assert torch.equal(gen[k], plain[k]), k
 
 
+@pytest.fixture(scope="module")
+def bpsk_bench_case(cuda):
+    """bench_BPSK at the bench_conf shape (Nfft 2^13, D=16, 16 masks of 4
+    bits, the (8, 2, 2) NRZ-S LUT): 3 blocks of seeded BPSK."""
+    conf = configs._conf(blockSize=13, overlap=10, spsym=16, doppSteps=16, maskSize=4)
+    conf["Main"]["protocols"] = {"UHF": "bench_BPSK"}
+    spec = build_spec(conf, loadProtocol("bench_BPSK")(conf=conf), configs.RADIO)
+    rng = np.random.RandomState(9)
+    N = spec.Nfft
+    x = np.stack([modulate_bpsk(rng.randint(0, 2, N // 16), 16)[:N] for _ in range(3)])
+    x = x * np.exp(2j * np.pi * spec.centreFreqOffset / spec.sampleRate * np.arange(N))
+    x = x + 0.05 * (rng.randn(3, N) + 1j * rng.randn(3, N))
+    return spec, torch.from_numpy(x.astype(np.complex64)).to(cuda)
+
+
+def test_generic_bpsk_step_matches_channel_parallel(bpsk_bench_case, cuda):
+    """The generic step on bench_BPSK (the NRZ-S bits after the cross-shard
+    select): bits, symbols and centres equal the channel-parallel step's
+    (K4's NRZ-S form), and its kernel path equals its plain path's decisions."""
+    spec, x = bpsk_bench_case
+    mesh = make_mesh({"channel": 1, "dopp": 1}, devices=[cuda])
+    fast = build_sharded_demod_step(spec, mesh)(x)
+    gen = build_sharded_demod_step(spec, mesh, force_generic=True)(x)
+    plain = build_sharded_demod_step(spec, mesh, force_generic=True, plain=True)(x)
+    for k in ("bits", "symbols", "centres"):
+        assert torch.equal(fast[k], gen[k]), k
+    for k in ("bits", "trust", "symbols", "nSym", "nBits", "shift", "bits_voted", "trust_voted"):
+        assert torch.equal(gen[k], plain[k]), k
+    assert bool((gen["trust"] == -1).any())
+
+
 # ---- slice 12: K5 and K4 redesigned, K1 and K5 for any mask count and grid
 
 
