@@ -494,9 +494,9 @@ log = Path(_lib.build_info["log"]).read_text()
 for src in ("symbol_detect.cu", "shard_select.cu"):
     for part in log.split(f"== {src}", 1)[1].split("\n== ", 1)[0].split(
             "Compiling entry function")[1:]:
-        m = re.search(r"_GLOBAL__N_1(\d+)(\w+)", part.split("\n")[0])
-        name, rest = m[2][:int(m[1])], m[2][int(m[1]):]  # the template arguments, mangled
-        out[f"ptxas {name}{rest[:rest.index('Ev') - 1] if rest[:1] == 'I' else ''}"] = (
+        m = re.search(r"\d(symbol_detect_local|symbol_detect|shard_select)(I\w+?EE)?",
+                      part.split("\n")[0])  # the name and its template arguments, mangled
+        out[f"ptxas {m[1]}{m[2] or ''}"] = (
             re.search(r"Used (\d+) registers", part)[1] + " registers, "
             + re.search(r"(\d+) bytes stack frame", part)[1] + " bytes stack")
 

@@ -55,8 +55,8 @@ and then no result line is printed):
    and 2^18; the long form's three passes above 2^18) against its plain
    version, each block alone equal to its row, its launch and the
    clusters the card holds printed; K6's bitmask at N = 4097 into K4 and
-   K4s against their plain versions; K4n with 64 and 256 KB LUTs (shared
-   memory opted in, read through L1) at B=1 and 16; K2 (its middle
+   K4s against their plain versions; K4's and K4s's NRZ-S forms with 64
+   and 256 KB LUTs (read through L1) at B=1 and 16; K2 (its middle
    passes) and K3 at 2^19 and 2^20, B=4, each block alone equal to its
    row;
 4. main paths, each with the launch counts set to 0 just before it and
@@ -94,7 +94,7 @@ and then no result line is printed):
       on seeded 10000-bit packets back to back at +3000 Hz; BER < 1e-3,
       every whole packet the port's ``Decoder`` finds equal to the
       payload; K1-K5 must launch, K4 always in its NRZ-S form (K4n in
-      K4's launch, one a call), the standalone K4n never;
+      K4's launch, one a call);
    e. group: ``build_group_graph`` at the flagship spec on three antennas
       with independent AWGN: K8 launched once, every channel's decisions
       and the voted pair equal to the plain path's, the voted BER no worse
@@ -120,22 +120,24 @@ and then no result line is printed):
       K1, K2, K3, K4l, K4s, K5 and K8 launch, K4 does not; bits, symbols
       and centres equal the channel-parallel step's per channel; decisions
       and the voted pair equal the plain generic step's; BER < 1e-3 per
-      channel; and the same at C=16 bench_BPSK channels of seeded NRZ-S BPSK
-      (the NRZ-S bits after the cross-shard select);
+      channel; and the same at C=16 bench_BPSK channels of seeded NRZ-S BPSK,
+      where K4s runs its NRZ-S form (K4n in K4s's launch, one a call);
    j. ranks: the generic step on {"channel": 2, "dopp": 2} in four
       processes of one gloo world, all on cuda:0 (NCCL refuses two ranks on
       one card), C=4 with the vote: each rank within the golden table of
       the one-process step, the voted pair equal on every rank;
-   (phase 3 also holds K4n at the bench_BPSK shape at B=1/16/64, K4's
-   NRZ-S form there (with a clip bitmask) against K4 followed by K4n and
-   against its plain version, K8 at C=3/16/64/256, S=4608, with pinned
+   (phase 3 also holds K4's NRZ-S form (K4n in K4's launch) at the
+   bench_BPSK shape at B=1/16/64 (with a clip bitmask) against its plain
+   version, K8 at C=3/16/64/256, S=4608, with pinned
    ties and master_idx 0, 1 and C-1, with
    and without its pad mask, K9 at M=64, K=8, T=2^16 and at the vote's
    M=4 with a random carry (1e-5 of max|y|; two half hops equal one hop),
    K1 and K5 with
    centre_shift at B=1/16 against their plain versions, and K4l and K4s
-   at B=1/16 at the flagship, STX (clip window) and bench_BPSK (K4n after
-   K4s) shapes, on one shard and on the two halves of the mask bank;)
+   in every plan (B=1/16/64) at the flagship, STX (clip window) and
+   bench_BPSK (K4s's NRZ-S form, K4n in its launch, in each form of the
+   next slot's key) shapes, on the whole bank, its halves and its quarters;
+   no path may launch a standalone K4n;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
    function) at B=1/16/64, each kernel's device ms a call (torch.profiler,
@@ -143,7 +145,7 @@ and then no result line is printed):
    path, for both configurations; K7 at S=1/2/64 and at the feed's S=3
    and S=1 metric-only, with ns per trellis step beside an estimate of
    its dependency chain at ``clocks.max.sm``, and ``clocks.sm`` after;
-   K4n, K4's NRZ-S form (beside K4 alone into the row) and the bench_BPSK
+   K4's NRZ-S form (beside K4 alone into the row) and the bench_BPSK
    block graph (wall and device busy ms) at B=1/16/64, and K8 at
    C=3/16/64; the group graph at C=3 against
    the block graph at B=3; the decoder's host ms per block
@@ -153,8 +155,9 @@ and then no result line is printed):
    three wide shapes, and its direct form at (1024, 8) and (512, 16)
    beside the wide form at the same shapes; the
    wideband chain per hop against the signal a hop holds; the tracker's
-   acquire and track graphs per block at B=1; K4l and K4s at B=1/16/64
-   and the generic step at C=16 against the channel-parallel step on the
+   acquire and track graphs per block at B=1; K4l, K4s at nd = 1 and 2,
+   and K4s's NRZ-S form on bench_BPSK, at B=1/16/64, and the generic step
+   at C=16 against the channel-parallel step on the
    same blocks; K2 and K3 at the big path's Nfft 2^19 (B=1 and 4), K6's
    long form at 2^19 (B=1 and 16) and the big graph at B=4; every time
    must clear its bound;
@@ -300,8 +303,8 @@ DEEP_MASK_SIZE = 6
 #: threads, 128 KB), and the long form above 2^18; three blocks each, two
 #: with spikes
 K6_SIZES = (1000, 4097, 33 * 4096 + 7, 2 ** 18, 2 ** 19, 2 ** 19 + 3)
-#: K4n's LUTs above 48 KB (M, K): in shared memory opted in (64 KB) and
-#: read through L1 (256 KB), on S = 4608 slots at B=1 and 16
+#: NRZ-S LUTs above 48 KB (M, K), 64 and 256 KB, read through L1 by K4's and
+#: K4s's NRZ-S forms, on S = 4608 slots at B=1 and 16
 K4N_BIG_LUTS = ((2048, 4), (8192, 4))
 #: K2 and K3 above 2^18 (K2's middle passes), alone and in a batch of BIG_B
 BIG_NS, BIG_B = (2 ** 19, 2 ** 20), 4
@@ -327,8 +330,6 @@ KERNELS = {
     "threshold_input": ("pycusdr_tpu_torch/csrc/threshold.cu",
                         "pycusdr_tpu/ops/demod_kernels.py:27"),
     "viterbi": ("pycusdr_tpu_torch/csrc/viterbi.cu", "pycusdr_tpu/ops/viterbi.py:59"),
-    "nrzs_bits": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
-                  "pycusdr_tpu/ops/demod_kernels.py:597"),
     "symbol_detect_nrzs": ("pycusdr_tpu_torch/csrc/symbol_detect.cu",
                            "pycusdr_tpu/ops/demod_kernels.py:597"),
     "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
@@ -338,6 +339,8 @@ KERNELS = {
                             "pycusdr_tpu/parallel/sharded_demod.py:46"),
     "shard_select": ("pycusdr_tpu_torch/csrc/shard_select.cu",
                      "pycusdr_tpu/parallel/sharded_demod.py:361"),
+    "shard_select_nrzs": ("pycusdr_tpu_torch/csrc/shard_select.cu",
+                          "pycusdr_tpu/parallel/sharded_demod.py:384"),
 }
 #: the kernels each configuration's path runs
 PATH_KERNELS = {
@@ -359,7 +362,7 @@ PATH_KERNELS = {
     "generic": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                 "symbol_detect_local", "shard_select", "vote"),
     "generic_bpsk": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
-                     "symbol_detect_local", "shard_select", "nrzs_bits", "vote"),
+                     "symbol_detect_local", "shard_select", "shard_select_nrzs", "vote"),
     "big": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
             "symbol_detect"),
 }
@@ -588,7 +591,7 @@ def check_odd_clip(N=4097, B=16, S=2100):
     val, key = dk.symbol_detect_local(colmax, colarg, sp, co, m0=0, M=8, **kl)
     rows = [torch.zeros((B, 5 * S + 12), device="cuda") for _ in range(2)]
     k4s = dict(kw, M=8, code_val=torch.zeros(B, device="cuda"), hits=hits)
-    dk.shard_select(val[None], key[None], sp, co, lut, row=rows[0], **k4s)
+    dk.shard_select(dk.pack_pairs(val, key)[None], sp, co, lut, row=rows[0], **k4s)
     dk.shard_select_rows_plain(val[None], key[None], sp, co, lut, row=rows[1], **k4s)
     torch.cuda.synchronize()
     for name, u, v in zip(("symbols", "centres", "mags", "bits", "trust", "nSym", "at_win"),
@@ -600,34 +603,71 @@ def check_odd_clip(N=4097, B=16, S=2100):
     return int(want[6].sum())
 
 
-def check_nrzs_big():
-    """K4n with LUTs above 48 KB (K4N_BIG_LUTS: each form of ``k4n_form``)
-    at S = 4608, B=1 and 16, against its plain version: rows equal.
-    Returns [(M, K, form, slots set to trust -1)]."""
+def check_nrzs_big(bspec, bconsts):
+    """K4's and K4s's NRZ-S forms with LUTs above 48 KB (K4N_BIG_LUTS, read
+    through L1) at the bench_BPSK shape (S = 4608) and B=1 and 16, against
+    their plain versions: rows equal. K4 on ``nrzs_form_inputs`` with its
+    colargmax random in [0, M + 2), K4s on the two halves of a bank of M + 2
+    masks (K4l's pairs of the same columns); a third of each row's
+    transitions planted in a table. Returns [(M, K, slots trust -1 by K4,
+    by K4s)]."""
     out = []
-    S = 4608
+    S, N = bspec.numSymMax, bspec.Nfft
+    kw4 = k4_kwargs(bspec, bconsts)
     for M, K in K4N_BIG_LUTS:
         rng = np.random.RandomState(SEED + M)
+        inp = nrzs_form_inputs(bspec, bconsts, 16)
+        inp["colarg"] = torch.from_numpy(rng.randint(0, M + 2, (16, N)).astype(np.int32)).cuda()
+        Ml = (M + 2) // 2
+        loc = torch.from_numpy(rng.randint(0, Ml, (2, 16, N)).astype(np.int32)).cuda()
+        cols = ((inp["colmax"], loc[0]), (inp["colmax"].roll(7, dims=1).contiguous(), loc[1]))
+        pairs = torch.stack([dk.symbol_detect_local(cm, ca, inp["spSym"], inp["codeOffset"],
+                                                    m0=d * Ml, packed=True,
+                                                    **dict(k4l_kwargs(bspec), M=M + 2))
+                             for d, (cm, ca) in enumerate(cols)])
+        sym = {"K4": dk.symbol_detect(inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"],
+                                      None, **kw4)[0],
+               "K4s": dk.shard_select_plain(*dk.pair_views(pairs), inp["spSym"], inp["codeOffset"],
+                                            None, M=M + 2, **kw4)[0]}
         lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
-        rows = torch.zeros((16, 5 * S + 12))
-        rows[:, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, M + 1, (16, S)).astype(np.float32))
-        for b in range(16):
-            sym = rows[b, 2 * S:3 * S].long().numpy()
-            for i in range(0, S, 3):  # a third of the transitions hit a table
-                if 0 <= sym[i] < M:
-                    lut[sym[i], i % 2, i % K] = sym[(i + 1) % S]
-        rows[:, S:2 * S] = 2.0
-        rows[:, S:2 * S:7] = -2.0
-        rows[:, 5 * S] = 4000.0
-        rows, lt = rows.cuda(), torch.from_numpy(lut).cuda()
+        for name, sy in sym.items():
+            sy = sy.cpu().numpy()
+            for b in range(16):
+                for i in range(0, S, 3):  # a third of the transitions hit a table
+                    if 0 <= sy[b, i] < M:
+                        lut[sy[b, i], i % 2, i % K] = sy[b, (i + 1) % S]
+        lt = torch.from_numpy(lut).cuda()
+        minus1 = {}
         for B in (1, 16):
-            got = dk.nrzs_bits(rows[:B].clone(), lt, S)
-            want = dk.nrzs_rows_plain(rows[:B].clone(), lt, S)
+            L = packed_len(bspec)
+            got = dk.symbol_detect_nrzs(inp["colmax"][:B], inp["colarg"][:B], inp["spSym"][:B],
+                                        inp["codeOffset"][:B], lt, **kw4, hits=inp["hits"][:B],
+                                        row=torch.zeros((B, L), device="cuda"),
+                                        code_val=inp["code_val"][:B])
+            want = dk.symbol_detect_plain(inp["colmax"][:B], inp["colarg"][:B], inp["spSym"][:B],
+                                          inp["codeOffset"][:B], None, **kw4,
+                                          clip_mask=dk.dilate_mask_plain(
+                                              dk.unpack_bits(inp["hits"][:B], N),
+                                              dk.clip_halfwidth(inp["spSym"][:B], bspec.spsymMin)))
+            row = torch.zeros((B, L), device="cuda")
+            dk._write_row_k4(row, want, S, inp["spSym"][:B], inp["codeOffset"][:B],
+                             inp["code_val"][:B], None)
+            want = dk.nrzs_rows_plain(row, lt, S)
+            k4s = dict(kw4, M=M + 2, code_val=inp["code_val"][:B], hits=inp["hits"][:B])
+            got_s = dk.shard_select_nrzs(pairs[:, :B].contiguous(), inp["spSym"][:B],
+                                         inp["codeOffset"][:B], lt,
+                                         row=torch.zeros((B, L), device="cuda"), **k4s)
+            want_s = dk.nrzs_rows_plain(dk.shard_select_rows_plain(
+                *dk.pair_views(pairs[:, :B]), inp["spSym"][:B], inp["codeOffset"][:B], None,
+                row=torch.zeros((B, L), device="cuda"), **k4s), lt, S)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), f"K4n LUT ({M}, 2, {K}) B={B}: rows differ"
-        errs = int((got[:, S:2 * S] == -1).sum())
-        assert errs > 0 and bool((got[:, S:2 * S:7] == -2).all())
-        out.append((M, K, dk.k4n_form(M, K), errs))
+            assert torch.equal(got, want), f"K4 NRZ-S form, LUT ({M}, 2, {K}) B={B}: rows differ"
+            assert torch.equal(got_s, want_s), \
+                f"K4s NRZ-S form, LUT ({M}, 2, {K}) B={B}: rows differ"
+            minus1 = (int((got[:, S:2 * S] == -1).sum()), int((got_s[:, S:2 * S] == -1).sum()))
+            assert min(minus1) > 0 and bool((got[:, :S] == 1).any()) and \
+                bool((got_s[:, :S] == 1).any()), f"LUT ({M}, 2, {K}) B={B}: {minus1}"
+        out.append((M, K, *minus1))
     return out
 
 
@@ -997,6 +1037,9 @@ def drive(make, conf, protocol, stream, ov):
 
 
 def check_launches(path, launches):
+    """Every kernel of the path launched, none of another path's, and no
+    standalone K4n: K4n runs only in K4's or K4s's launch."""
+    assert "nrzs_bits" not in launches, f"{path}: a standalone K4n wrapper exists"
     want = PATH_KERNELS[path]
     missing = [k for k in want if launches[k] == 0]
     assert not missing, f"{path}: kernels never launched on the main path: {missing}"
@@ -1309,39 +1352,6 @@ def bpsk_blocks(spec, B, rng):
     return torch.from_numpy(x).cuda()
 
 
-def nrzs_rows(spec, consts, B):
-    """K4n's input: the block graph's rows of B BPSK blocks with bits,
-    trust and nBits overwritten (bits 7, trust normal and -2 on every 7th
-    slot, whose mark must stay, nBits -5) and, at B > 1, the last block's
-    symbols random in [-1, 16] (every transition error and symbols outside
-    the LUT's 8 rows)."""
-    rng = np.random.RandomState(SEED + B)
-    S = spec.numSymMax
-    rows = build_process_batch(spec, device="cuda", packed=True)(bpsk_blocks(spec, B, rng))
-    if B > 1:
-        rows[-1, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, 17, S).astype(np.float32))
-    rows[:, :S] = 7.0
-    rows[:, S:2 * S] = float(consts.trust_normal)
-    rows[:, S:2 * S:7] = -2.0
-    rows[:, len(PACK_ARRAYS) * S + SCALAR["nBits"]] = -5.0
-    return rows
-
-
-def check_nrzs(spec, consts, B):
-    """K4n against its plain version on ``nrzs_rows``: the rows must be
-    equal. Returns the number of slots that took trust -1."""
-    rows = nrzs_rows(spec, consts, B)
-    S = spec.numSymMax
-    got = dk.nrzs_bits(rows.clone(), consts.symbolLUT, S)
-    want = dk.nrzs_rows_plain(rows.clone(), consts.symbolLUT, S)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want), f"K4n B={B}: rows differ from the plain version's"
-    assert bool((got[:, S:2 * S:7] == -2).all()), "K4n overwrote a trust of -2"
-    errs = int((got[:, S:2 * S] == -1).sum())
-    assert B == 1 or errs > 0, "K4n check: no transition error"
-    return errs
-
-
 def nrzs_form_inputs(spec, consts, B):
     """K4's inputs on B BPSK blocks (``kernel_inputs``); at B > 1 the last
     block's colargmax random in [-1, 16] (transition errors and symbols
@@ -1377,23 +1387,17 @@ def nrzs_form_plain(spec, consts, inp, row):
 
 def check_nrzs_form(spec, consts, B):
     """K4's NRZ-S form (K4n in K4's launch) at the bench_BPSK shape against
-    K4 followed by the standalone K4n and against its plain version, on
-    ``nrzs_form_inputs``: the rows equal; one K4 launch, one of the NRZ-S
-    form and no standalone K4n a call. Returns (the plan, slots trust -1,
-    slots trust -2)."""
+    its plain version, on ``nrzs_form_inputs``: the rows equal; one K4
+    launch and one of the NRZ-S form a call, nothing else. Returns (the
+    plan, slots trust -1, slots trust -2)."""
     inp = nrzs_form_inputs(spec, consts, B)
     S, L = spec.numSymMax, packed_len(spec)
     before = ops.launch_counts()
     got = nrzs_form_call(spec, consts, inp, torch.zeros((B, L), device="cuda"))
     moved = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
     assert moved == {"symbol_detect": 1, "symbol_detect_nrzs": 1}, moved
-    two = dk.symbol_detect(inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"], None,
-                           **k4_kwargs(spec, consts), hits=inp["hits"],
-                           row=torch.zeros((B, L), device="cuda"), code_val=inp["code_val"])
-    dk.nrzs_bits(two, consts.symbolLUT, S)
     want = nrzs_form_plain(spec, consts, inp, torch.zeros((B, L), device="cuda"))
     torch.cuda.synchronize()
-    assert torch.equal(got, two), f"K4 NRZ-S form B={B}: rows differ from K4 + K4n"
     assert torch.equal(got, want), f"K4 NRZ-S form B={B}: rows differ from the plain version"
     trust = got[:, S:2 * S]
     n1, n2 = int((trust == -1).sum()), int((trust == -2).sum())
@@ -1458,7 +1462,7 @@ def main_path_bpsk(conf, protocol, spec, make):
     10000-bit packets back to back, at +DOPPLER_HZ; BER < 1e-3 against the
     sent bits, and every whole packet the port's ``Decoder`` finds equal
     to the payload; K1-K5 must launch, K4 always in its NRZ-S form (K4n
-    in the same launch, one a call) and the standalone K4n never."""
+    in the same launch, one a call)."""
     N, ov = spec.Nfft, spec.sigOverlap
     n = ov + N_HOPS * (N - ov)
     payload = packet_data(protocol.packetLen, protocol.randSeed)
@@ -1469,8 +1473,8 @@ def main_path_bpsk(conf, protocol, spec, make):
     seqA, launches = drive(make, conf, protocol, stream, ov)
     check_launches("bpsk", launches)
     k4 = launches["symbol_detect"]
-    assert launches["symbol_detect_nrzs"] == k4 == launches["timing_band"] and \
-        launches["nrzs_bits"] == 0, f"bpsk: K4 and K4n not one launch a call: {launches}"
+    assert launches["symbol_detect_nrzs"] == k4 == launches["timing_band"], \
+        f"bpsk: K4 and K4n not one launch a call: {launches}"
     rx = np.concatenate([a["bits"] for a in seqA]).astype(np.int64)
     ber, lag = best_aligned_ber(rx, tx)
     assert ber < 1e-3, f"bpsk BER {ber} at lag {lag}"
@@ -2340,46 +2344,60 @@ def shard_columns(spec, consts, inp, nd):
     return [(c[1], c[2]) for c in cols]
 
 
+#: K4s's nd in phase 3: the whole bank and its halves and quarters
+SPLIT_NDS = (1, 2, 4)
+
+
 def check_split_detector(spec, consts, B):
-    """K4l on one shard and on the two halves of the bank, and K4s on the
-    stacked pairs, against their plain versions on the card: the pairs and
-    the rows equal (values, keys, symbols, centres, trust with the clip
-    window). At nd = 1 the rows' bits, symbols, centres and mags equal
-    K4's; without a centre-bit LUT K4n runs after K4s on both rows.
-    Returns (nd -> slots set to trust -2, slots the upper half won)."""
+    """K4l on the whole bank, its halves and its quarters, and K4s on the
+    gathered pairs, against their plain versions on the card: the packed
+    pairs and the rows equal (values, keys, symbols, centres, trust with
+    the clip window), one launch a call. Without a centre-bit LUT K4s runs
+    its NRZ-S form (K4n in its launch) in every form of the next slot's
+    key, against K4s's plain version then ``nrzs_rows_plain``. At nd = 1
+    the rows' bits, symbols, centres and mags equal K4's (centre-bit LUT).
+    Returns (nd -> slots set to trust -2, slots the upper half won, the K4l
+    and K4s plans)."""
     inp = kernel_inputs(spec, consts, B)
     kw = k4l_kwargs(spec)
     kw4 = k4_kwargs(spec, consts)
     S, L = spec.numSymMax, packed_len(spec)
     sp, co, hits = inp["spSym"], inp["codeOffset"], inp.get("hits")
     clipped, split = {}, 0
-    for nd in (1, 2):
+    for nd in SPLIT_NDS:
         cols = shard_columns(spec, consts, inp, nd)
         Ml = spec.num_masks // nd
-        pk = [dk.symbol_detect_local(cm, ca, sp, co, m0=d * Ml, **kw)
-              for d, (cm, ca) in enumerate(cols)]
-        pp = [dk.symbol_detect_local_plain(cm, ca, sp, co, m0=d * Ml, **kw)
-              for d, (cm, ca) in enumerate(cols)]
+        before = dk.symbol_detect_local.launches
+        pk = torch.stack([dk.symbol_detect_local(cm, ca, sp, co, m0=d * Ml, packed=True, **kw)
+                          for d, (cm, ca) in enumerate(cols)])
+        assert dk.symbol_detect_local.launches == before + nd
+        pp = torch.stack([dk.pack_pairs(*dk.symbol_detect_local_plain(cm, ca, sp, co, m0=d * Ml,
+                                                                     **kw))
+                          for d, (cm, ca) in enumerate(cols)])
         torch.cuda.synchronize()
-        for d, ((vk, kk), (vp, kp)) in enumerate(zip(pk, pp)):
-            assert torch.equal(vk, vp) and torch.equal(kk, kp), \
-                f"K4l B={B} nd={nd} shard {d}: pairs differ from the plain version's"
-        vals, keys = torch.stack([p[0] for p in pp]), torch.stack([p[1] for p in pp])
-        args = (vals, keys, sp, co, consts.bitLUT)
-        rk = dk.shard_select(*args, **kw4, M=spec.num_masks, code_val=inp["code_val"], hits=hits,
-                             row=torch.zeros((B, L), device="cuda"))
-        rp = dk.shard_select_rows_plain(*args, **kw4, M=spec.num_masks, code_val=inp["code_val"],
-                                        hits=hits, row=torch.zeros((B, L), device="cuda"))
+        assert torch.equal(pk, pp), f"K4l B={B} nd={nd}: pairs differ from the plain version's"
+        sel = dict(kw4, M=spec.num_masks, code_val=inp["code_val"], hits=hits)
+        rp = dk.shard_select_rows_plain(*dk.pair_views(pp), sp, co, consts.bitLUT, **sel,
+                                        row=torch.zeros((B, L), device="cuda"))
         if consts.bitLUT is None:
-            dk.nrzs_bits(rk, consts.symbolLUT, S)
-            dk.nrzs_rows_plain(rp, consts.symbolLUT, S)
+            rp = dk.nrzs_rows_plain(rp, consts.symbolLUT, S)
+            rows = [dk.shard_select_nrzs(pk, sp, co, consts.symbolLUT, next_form=f, **sel,
+                                         row=torch.zeros((B, L), device="cuda"))
+                    for f in dk.K4S_NEXT_FORMS]
+        else:
+            rows = [dk.shard_select(pk, sp, co, consts.bitLUT, **sel,
+                                    row=torch.zeros((B, L), device="cuda"))]
         torch.cuda.synchronize()
-        assert torch.equal(rk, rp), f"K4s B={B} nd={nd}: rows differ from the plain version's"
+        for rk in rows:
+            assert torch.equal(rk, rp), f"K4s B={B} nd={nd}: rows differ from the plain version's"
+        rk = rows[0]
         clipped[nd] = int((rk[:, S:2 * S] == dk.TRUST_CLIPPED).sum())
         if nd == 2:
             split = int((rk[:, 2 * S:3 * S] >= Ml).sum())
         if hits is not None:
             assert clipped[nd] > 0, f"K4s B={B}: no slot met the clip window"
+        if consts.bitLUT is None:
+            assert bool((rk[:, S:2 * S] == -1).any()), f"K4s NRZ-S form B={B}: no trust -1"
         if nd == 1 and consts.bitLUT is not None:
             k4 = dk.symbol_detect(inp["colmax"], inp["colarg"], sp, co, consts.bitLUT, **kw4,
                                   hits=hits)
@@ -2387,7 +2405,7 @@ def check_split_detector(spec, consts, B):
                 i = PACK_ARRAYS.index(name)
                 assert torch.equal(rk[:, i * S:(i + 1) * S], k4[j].float()), \
                     f"K4l + K4s at nd = 1: {name} differ from K4's"
-    return clipped, split
+    return clipped, split, dk.k4_plan(B, S), dk.k4s_plan(B, S)
 
 
 def generic_blocks(spec, C, seed=SEED + 60):
@@ -2429,6 +2447,9 @@ def main_path_generic(spec, path="generic"):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_launches(path, launches)
+    if path == "generic_bpsk":
+        assert launches["shard_select_nrzs"] == launches["shard_select"] == \
+            launches["symbol_detect_local"] == 1, f"{path}: K4s's NRZ-S form: {launches}"
     fast = build_sharded_demod_step(spec, mesh)(x)
     plain = build_sharded_demod_step(spec, mesh, force_generic=True, plain=True)(x)
     torch.cuda.synchronize()
@@ -2551,29 +2572,53 @@ def main_path_ranks(spec):
 
 def k4l_bound(spec, B):
     """K4l's least time: per block the W-sample windows (at most N samples)
-    and one colargmax word a slot read, spSym and codeOffset; the value and
-    key written (8 bytes a slot) | W compares and ~8 slot operations a slot."""
+    and one colargmax word a slot read, spSym and codeOffset; the (value,
+    key) pair written (8 bytes a slot) | W compares and ~8 slot operations
+    a slot."""
     N, S, W = spec.Nfft, spec.numSymMax, spec.windowWidth
     return bound_of(B * (4 * min(S * W, N) + 4 * S + 8 + 8 * S), B * S * (W + 8))
 
 
 def k4s_bound(spec, B, nd, clip=False):
-    """K4s's least time: nd values and keys read and the five arrays written
-    a slot (8 nd + 20 bytes), the scalars, (clip) the hit bitmask | 2 nd
-    compares and ~12 operations a slot."""
+    """K4s's least time: nd (value, key) pairs read and the five arrays
+    written a slot (8 nd + 20 bytes), the scalars, (clip) the hit bitmask |
+    2 nd compares and ~12 operations a slot."""
     N, S = spec.Nfft, spec.numSymMax
     return bound_of(B * (S * (8 * nd + 20) + 36 + (N // 8 if clip else 0)),
                     B * S * (2 * nd + 12))
 
 
-def time_slice6(spec, consts):
-    """K4l (the whole bank, the one-card generic path's shape) and K4s
-    (nd = 1) at B=1/16/64: name -> {B: (ms, plain_ms, (bound ms, by), device ms)}; the
-    generic step against the channel-parallel step at C=GENERIC_C on the
-    same blocks (ms per call)."""
-    out = {"symbol_detect_local": {}, "shard_select": {}}
-    kw, kw4 = k4l_kwargs(spec), k4_kwargs(spec, consts)
-    L = packed_len(spec)
+def k4s_nrzs_bound(spec, B, nd):
+    """K4s's NRZ-S form's least time: K4s's bytes (``k4s_bound``) and the
+    LUT once | K4s's operations and 2K compares a slot."""
+    S = spec.numSymMax
+    M, _, K = spec.symbolLUT.shape
+    return bound_of(B * (S * (8 * nd + 20) + 36) + 8 * M * K, B * S * (2 * nd + 12 + 2 * K))
+
+
+def split_pairs(spec, consts, inp, nd):
+    """The (nd, B, S, 2) pairs of the bank split nd ways (``shard_columns``),
+    by K4l's plain version."""
+    Ml = spec.num_masks // nd
+    return torch.stack([dk.pack_pairs(*dk.symbol_detect_local_plain(
+        cm, ca, inp["spSym"], inp["codeOffset"], m0=d * Ml, **k4l_kwargs(spec)))
+        for d, (cm, ca) in enumerate(shard_columns(spec, consts, inp, nd))])
+
+
+#: K4s's nd in phase 5
+TIMED_NDS = (1, 2)
+
+
+def time_slice6(spec, consts, bspec, bconsts):
+    """K4l (the whole bank, the one-card generic path's shape), K4s at nd =
+    1 and 2 (the whole bank and its halves) on the flagship, and K4s's NRZ-S
+    form at nd = 1 on bench_BPSK, at B=1/16/64: name -> {B: (ms, plain_ms,
+    (bound ms, by), device ms)} ("shard_select" by nd first); the generic
+    step against the channel-parallel step at C=GENERIC_C on the same blocks
+    (ms per call)."""
+    out = {"symbol_detect_local": {}, "shard_select": {nd: {} for nd in TIMED_NDS},
+           "shard_select_nrzs": {}}
+    kw = k4l_kwargs(spec)
     for B in BATCHES:
         inp = kernel_inputs(spec, consts, B)
         a = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"])
@@ -2581,14 +2626,27 @@ def time_slice6(spec, consts):
             cuda_ms(lambda: dk.symbol_detect_local(*a, m0=0, **kw)),
             cuda_ms(lambda: dk.symbol_detect_local_plain(*a, m0=0, **kw)), k4l_bound(spec, B),
             device_ms(lambda: dk.symbol_detect_local(*a, m0=0, **kw), "symbol_detect_local"))
-        v, k = dk.symbol_detect_local(*a, m0=0, **kw)
-        s4 = (v[None], k[None], inp["spSym"], inp["codeOffset"], consts.bitLUT)
-        row = torch.empty((B, L), device="cuda")
-        k4s = dict(kw4, M=spec.num_masks, code_val=inp["code_val"], row=row)
-        out["shard_select"][B] = (cuda_ms(lambda: dk.shard_select(*s4, **k4s)),
-                                  cuda_ms(lambda: dk.shard_select_rows_plain(*s4, **k4s)),
-                                  k4s_bound(spec, B, 1),
-                                  device_ms(lambda: dk.shard_select(*s4, **k4s), "shard_select"))
+        for nd in TIMED_NDS:
+            pairs = split_pairs(spec, consts, inp, nd)
+            k4s = dict(k4_kwargs(spec, consts), M=spec.num_masks, code_val=inp["code_val"],
+                       row=torch.empty((B, packed_len(spec)), device="cuda"))
+            s4 = (inp["spSym"], inp["codeOffset"], consts.bitLUT)
+            fn = lambda: dk.shard_select(pairs, *s4, **k4s)
+            out["shard_select"][nd][B] = (
+                cuda_ms(fn), cuda_ms(lambda: dk.shard_select_rows_plain(
+                    *dk.pair_views(pairs), *s4, **k4s)),
+                k4s_bound(spec, B, nd), device_ms(fn, "shard_select"))
+        inp = kernel_inputs(bspec, bconsts, B, x=bpsk_blocks(bspec, B, np.random.RandomState(
+            SEED + B)))
+        pairs = split_pairs(bspec, bconsts, inp, 1)
+        k4s = dict(k4_kwargs(bspec, bconsts), M=bspec.num_masks, code_val=inp["code_val"],
+                   row=torch.empty((B, packed_len(bspec)), device="cuda"))
+        s4 = (inp["spSym"], inp["codeOffset"])
+        fn = lambda: dk.shard_select_nrzs(pairs, *s4, bconsts.symbolLUT, **k4s)
+        out["shard_select_nrzs"][B] = (
+            cuda_ms(fn), cuda_ms(lambda: dk.nrzs_rows_plain(dk.shard_select_rows_plain(
+                *dk.pair_views(pairs), *s4, None, **k4s), bconsts.symbolLUT, bspec.numSymMax)),
+            k4s_nrzs_bound(bspec, B, 1), device_ms(fn, "shard_select_nrzs"))
     x = torch.from_numpy(generic_blocks(spec, GENERIC_C)[0]).cuda()
     mesh = make_mesh({"channel": 1, "dopp": 1}, devices=["cuda"])
     gen = build_sharded_demod_step(spec, mesh, force_generic=True)
@@ -2704,13 +2762,13 @@ KERNEL_FUNCS = {
     "threshold_long": ("thr_pass1", "thr_pass2", "thr_pass3"),
     "mf_bank_multipass": ("mf_pass1", "mf_mid", "mf_pass2"),
     "viterbi": ("viterbi",),
-    "nrzs_bits": ("nrzs_bits",),
     "symbol_detect_nrzs": ("symbol_detect",),
     "vote": ("vote",),
     "channelize": ("channelize",),
     "channelize_wide": ("channelize_fir",),
     "symbol_detect_local": ("symbol_detect_local",),
     "shard_select": ("shard_select",),
+    "shard_select_nrzs": ("shard_select",),
 }
 
 
@@ -2983,15 +3041,6 @@ def time_feed(blocks=12, plain_blocks=3):
     return out
 
 
-def nrzs_bound(spec, B):
-    """K4n's least time: per block the symbols and trust read and the bits
-    and trust written (16 bytes a slot), nSym and nBits; the LUT once |
-    2K compares a slot."""
-    S = spec.numSymMax
-    M, _, K = spec.symbolLUT.shape
-    return bound_of(B * (16 * S + 8) + 8 * M * K, B * S * 2 * K)
-
-
 def vote_bound(C, S):
     """K8's least time: each row's bits and trust read, the pair written
     (C S 8 + S 8 bytes) | about 6 operations a (channel, slot)."""
@@ -3010,23 +3059,16 @@ def nrzs_form_bound(spec, B):
 
 
 def time_slice4(bspec, bconsts, fspec):
-    """K4n at B=1/16/64 on the bench_BPSK rows, K4's NRZ-S form there on
-    ``nrzs_form_inputs`` (with K4 alone into the row and the standalone K4n
-    beside it, device ms) and the bench_BPSK block graph (wall ms and
-    device busy ms a call), and K8 at C=3/16/64 on the flagship rows: name ->
-    {B or C: (ms, plain_ms, (bound ms, by), device ms)}; and the group graph
-    at C=3 against the block graph at B=3 on the same blocks (ms per call),
-    which gives the vote's share."""
-    out = {"nrzs_bits": {}, "symbol_detect_nrzs": {}, "vote": {}, "bpsk_graph": {},
-           "k4_alone": {}}
-    S, lut, L = bspec.numSymMax, bconsts.symbolLUT, packed_len(bspec)
+    """K4's NRZ-S form at B=1/16/64 on ``nrzs_form_inputs`` (with K4 alone
+    into the row beside it, device ms) and the bench_BPSK block graph (wall
+    ms and device busy ms a call), and K8 at C=3/16/64 on the flagship rows:
+    name -> {B or C: (ms, plain_ms, (bound ms, by), device ms)}; and the
+    group graph at C=3 against the block graph at B=3 on the same blocks (ms
+    per call), which gives the vote's share."""
+    out = {"symbol_detect_nrzs": {}, "vote": {}, "bpsk_graph": {}, "k4_alone": {}}
+    L = packed_len(bspec)
     graph = build_process_batch(bspec, device="cuda", packed=True)
     for B in BATCHES:
-        rows = nrzs_rows(bspec, bconsts, B)
-        out["nrzs_bits"][B] = (cuda_ms(lambda: dk.nrzs_bits(rows, lut, S)),
-                               cuda_ms(lambda: dk.nrzs_rows_plain(rows, lut, S)),
-                               nrzs_bound(bspec, B),
-                               device_ms(lambda: dk.nrzs_bits(rows, lut, S), "nrzs_bits"))
         inp = nrzs_form_inputs(bspec, bconsts, B)
         row = torch.zeros((B, L), device="cuda")
         fused = lambda: nrzs_form_call(bspec, bconsts, inp, row)
@@ -3156,16 +3198,12 @@ def main() -> int:
     bcfg = bpsk_configuration()
     bspec = bcfg[2]
     bconsts = DeviceConsts.from_spec(bspec, torch.device("cuda"))
-    minus1 = {B: check_nrzs(bspec, bconsts, B) for B in BATCHES}
-    errs["nrzs_bits"] = 0.0
-    say("kernels", f"K4n nrzs_bits vs plain OK at the bench_BPSK shape (Nfft 2^16, S "
-                   f"{bspec.numSymMax}, LUT {tuple(bspec.symbolLUT.shape)}), B={list(BATCHES)}: "
-                   f"rows equal, trust -2 kept; slots set to trust -1: {minus1}")
     for B in BATCHES:
         plan, n1, n2 = check_nrzs_form(bspec, bconsts, B)
-        say("kernels", f"K4 NRZ-S form (K4n in K4's launch) B={B} at the bench_BPSK shape, plan "
-                       f"{plan}, with a clip bitmask: rows equal to K4 + K4n and to the plain "
-                       f"version; one launch; slots trust -1 {n1}, trust -2 {n2}")
+        say("kernels", f"K4 NRZ-S form (K4n in K4's launch) B={B} at the bench_BPSK shape (Nfft "
+                       f"2^16, S {bspec.numSymMax}, LUT {tuple(bspec.symbolLUT.shape)}), plan "
+                       f"{plan}, with a clip bitmask: rows equal to the plain version; one "
+                       f"launch; slots trust -1 {n1}, trust -2 {n2}")
     errs["symbol_detect_nrzs"] = 0.0
     fspec = cfg["flagship"][2]
     for C in VOTE_CHECK_CS:
@@ -3242,15 +3280,16 @@ def main() -> int:
     for label, spec_, consts_ in (("flagship", fspec, consts["flagship"]),
                                   ("stx", cfg["stx"][2], consts["stx"]),
                                   ("bench_BPSK", bspec, bconsts)):
-        for B in (1, 16):
-            clipped, split = check_split_detector(spec_, consts_, B)
+        for B in BATCHES:
+            clipped, split, p4l, p4s = check_split_detector(spec_, consts_, B)
             half = spec_.num_masks // 2
-            say("kernels", f"K4l, K4s vs plain OK at the {label} shape B={B} (M="
-                           f"{spec_.num_masks}: one shard and the halves [0, {half}) and "
-                           f"[{half}, {spec_.num_masks})): pairs and rows "
-                           f"equal{' with K4n after K4s' if consts_.bitLUT is None else ''}; slots "
-                           f"the upper half won {split}; trust -2 slots {clipped}")
-    errs["symbol_detect_local"] = errs["shard_select"] = 0.0
+            nrzs = (f" in its NRZ-S form (K4n in K4s's launch; next-slot forms "
+                    f"{list(dk.K4S_NEXT_FORMS)})" if consts_.bitLUT is None else "")
+            say("kernels", f"K4l (plan {p4l}), K4s{nrzs} (plan {p4s}) vs plain OK at the {label} "
+                           f"shape B={B} (M={spec_.num_masks}: the bank split {list(SPLIT_NDS)} "
+                           f"ways): packed pairs and rows equal; slots the upper half "
+                           f"[{half}, {spec_.num_masks}) won {split}; trust -2 slots {clipped}")
+    errs["symbol_detect_local"] = errs["shard_select"] = errs["shard_select_nrzs"] = 0.0
     for N, plan, err in check_threshold_sizes():
         errs["threshold_input"] = max(errs["threshold_input"], err)
         say("kernels", f"K6 N={N} vs plain OK at B=3 (masks equal at clear samples, signal "
@@ -3259,9 +3298,11 @@ def main() -> int:
     say("kernels", f"K6's bitmask at N=4097 (a partial last word) into K4 and K4s (nd=1): "
                    f"every output and row equal to the plain versions'; "
                    f"{check_odd_clip()} slots trust -2")
-    for M, K, form, n1 in check_nrzs_big():
-        say("kernels", f"K4n with a ({M}, 2, {K}) LUT ({8 * M * K // 1024} KB, {form} form) vs "
-                       f"plain OK at S=4608, B=1 and 16: rows equal; {n1} slots trust -1")
+    for M, K, n4, n4s in check_nrzs_big(bspec, bconsts):
+        say("kernels", f"K4's and K4s's NRZ-S forms with a ({M}, 2, {K}) LUT "
+                       f"({8 * M * K // 1024} KB, read through L1) vs plain OK at the bench_BPSK "
+                       f"shape, B=1 and 16 (K4s on two shards of {M + 2} masks): rows equal; "
+                       f"slots trust -1 {n4} (K4), {n4s} (K4s)")
     for N, f, e2, e3 in check_bank_band_big():
         errs["mf_bank_colreduce"] = max(errs["mf_bank_colreduce"], e2)
         errs["timing_band"] = max(errs["timing_band"], e3)
@@ -3387,7 +3428,7 @@ def main() -> int:
                  f"{100 * dec_ms / (1e3 * block_s):.2f}% of real time")
 
     t4 = time_slice4(bspec, bconsts, fspec)
-    for k, unit in (("nrzs_bits", "B"), ("symbol_detect_nrzs", "B"), ("vote", "C")):
+    for k, unit in (("symbol_detect_nrzs", "B"), ("vote", "C")):
         for n, (ms, pms, (bms, by), dms) in t4[k].items():
             assert min(ms, pms, dms) >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
             say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
@@ -3395,8 +3436,7 @@ def main() -> int:
     for B in BATCHES:
         say("times", f"{card} | bench_BPSK B={B}: K4's NRZ-S form "
                      f"{t4['symbol_detect_nrzs'][B][3]:.5f} device ms against K4 alone into the "
-                     f"row {t4['k4_alone'][B]:.5f} + the standalone K4n "
-                     f"{t4['nrzs_bits'][B][3]:.5f}; block graph {t4['bpsk_graph'][B][0]:.4f} "
+                     f"row {t4['k4_alone'][B]:.5f}; block graph {t4['bpsk_graph'][B][0]:.4f} "
                      f"ms/call (CUDA events), device busy {t4['bpsk_graph'][B][1]:.4f} ms/call "
                      f"(profiled wall {t4['bpsk_graph'][B][2]:.4f})")
     say("times", f"{card} | group graph C={GROUP_C} {t4['group_ms']:.4f} ms/call against the "
@@ -3436,11 +3476,13 @@ def main() -> int:
                  f"{t5['acquire_ms']:.4f} ms/block, track (D={tracker.track_spec.D}, "
                  f"centre_shift) {t5['track_ms']:.4f} ms/block, ratio "
                  f"{t5['acquire_ms'] / t5['track_ms']:.3f}")
-    t6 = time_slice6(fspec, consts["flagship"])
-    for k, unit in (("symbol_detect_local", "B"), ("shard_select", "B")):
-        for n, (ms, pms, (bms, by), dms) in t6[k].items():
-            assert min(ms, pms, dms) >= bms, f"{k} {unit}={n}: a time is below bound_ms {bms}"
-            say("times", f"{card} | {k} {unit}={n}: ms={ms:.5f} plain_ms={pms:.5f} "
+    t6 = time_slice6(fspec, consts["flagship"], bspec, bconsts)
+    for k, shape, t in [("symbol_detect_local", "flagship", t6["symbol_detect_local"])] + [
+            ("shard_select", f"flagship nd={nd}", t6["shard_select"][nd]) for nd in TIMED_NDS] + [
+            ("shard_select_nrzs", "bench_BPSK nd=1", t6["shard_select_nrzs"])]:
+        for n, (ms, pms, (bms, by), dms) in t.items():
+            assert min(ms, pms, dms) >= bms, f"{k} {shape} B={n}: a time is below bound_ms {bms}"
+            say("times", f"{card} | {k} {shape} B={n}: ms={ms:.5f} plain_ms={pms:.5f} "
                          f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f} "
                          f"launches_per_block={1 / n:.4f}")
     say("times", f"{card} | generic step C={GENERIC_C} {t6['generic_ms']:.4f} / "
@@ -3485,16 +3527,22 @@ def main() -> int:
     for k, (src, replaces) in KERNELS.items():
         by_path = {p: res[p]["launches"][k] for p in res}
         if k in t6:
-            ms, pms, (bms, by), _ = t6[k][LINE_BATCH]
+            t = t6[k][1] if k == "shard_select" else t6[k]
+            ms, pms, (bms, by), dms = t[LINE_BATCH]
             kernels.append({
                 "name": k, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[k], "ms": ms, "plain_ms": pms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None, "batch": LINE_BATCH,
-                "shape": "flagship" + (", nd=1" if k == "shard_select" else ""),
+                "shape": {"shard_select": "flagship, nd=1",
+                          "shard_select_nrzs": "bench_BPSK, nd=1"}.get(k, "flagship"),
                 "by_B": {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                             "bound_by": v[2][1], "device_ms": v[3]} for n, v in t6[k].items()},
-                "device_ms": t6[k][LINE_BATCH][3]})
+                             "bound_by": v[2][1], "device_ms": v[3]} for n, v in t.items()},
+                "device_ms": dms})
+            if k == "shard_select":
+                kernels[-1]["by_nd"] = {nd: {n: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                                                 "bound_by": v[2][1], "device_ms": v[3]}
+                                             for n, v in t6[k][nd].items()} for nd in TIMED_NDS}
             continue
         if k in t4:
             unit = "C" if k == "vote" else "B"
@@ -3510,8 +3558,7 @@ def main() -> int:
                                for n, v in t4[k].items()},
                 "device_ms": t4[k][at][3]})
             if k == "symbol_detect_nrzs":
-                kernels[-1]["k4_alone_plus_k4n_device_ms"] = {
-                    B: t4["k4_alone"][B] + t4["nrzs_bits"][B][3] for B in BATCHES}
+                kernels[-1]["k4_alone_device_ms"] = dict(t4["k4_alone"])
                 kernels[-1]["bpsk_graph"] = {B: {"ms": v[0], "device_busy_ms": v[1]}
                                              for B, v in t4["bpsk_graph"].items()}
             continue

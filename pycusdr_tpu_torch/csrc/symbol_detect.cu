@@ -1,5 +1,5 @@
-// K4 symbol_detect: windowed symbol detection, bit mapping and trust;
-// K4n nrzs_bits: NRZ-S bit extraction from K4's symbols (BPSK).
+// K4 symbol_detect: windowed symbol detection, bit mapping and trust, and
+// (kNrzs) the NRZ-S bits of K4n in the same launch.
 //
 // For each slot x < numSymMax of block b, with spc = max(spSym, spsymMin):
 //   A0 = trunc(x*spc - W/2 + codeOffset), A = clamp(A0, 0, N - W)
@@ -53,9 +53,8 @@
 // every B (a stride of spc samples between threads' windows conflicts in
 // the banks, the staging room capped the CTAs an SM holds, and it reads
 // every sector of colargmax); it is not kept.
-// The slot arithmetic must round exactly as JAX's separate f32 multiply and
-// add do: nvcc would contract a*b+c into one FMA and move a truncation
-// boundary, so it is spelled with __f*_rn.
+// The window scan, the slot arithmetic (no FMA contraction) and the clip
+// test live in detect_window.cuh, which K4l and K4s (shard_select.cu) share.
 //
 // K4n, for protocols without a centre-bit LUT (NRZ-S, bench_BPSK): bit i
 // is the (symbol[i], symbol[i+1 mod S]) transition looked up in the (M, 2,
@@ -68,47 +67,21 @@
 // nBits lines of dsp/block.py:318-331. The roll wraps slot S-1 onto slot 0
 // over the padded slots too, as jnp.roll does. Bound: 4 bytes read and 8
 // written per slot (~55 KB per flagship block), so the launch bounds it.
-// Two forms:
-// - fused into K4's row launch (kNrzs, the block graph's NRZ-S step): bit i
-//   needs symbol i+1, which another thread finds, so each CTA also runs
-//   the window search of the slot after its last (slot 0 for the CTA that
-//   holds slot S-1; every thread runs it with its own, so its reads are in
-//   flight with theirs, and the search is deterministic, so it finds the
-//   symbol the owner finds), puts its T * SPT + 1 symbols in shared memory,
-//   syncs once and looks each pair up in the LUT through L1 (any size). One
-//   launch a block where there were two: the second launch and its
-//   wrapper cost more than the kernel (B <= 16: the device idles);
-// - standalone nrzs_bits over a row that K4 or K4s wrote (the generic
-//   step): one thread per slot, the LUT in shared memory (bench_BPSK's is
-//   8 x 2 x 2 words; up to the device's opt-in limit, 227 KB on Hopper),
-//   or read through L1 where it is larger.
-#include "common.cuh"
+// It is fused into K4's row launch (kNrzs, the block graph's NRZ-S step):
+// bit i needs symbol i+1, which another thread finds, so each CTA also runs
+// the window search of the slot after its last (slot 0 for the CTA that
+// holds slot S-1; every thread runs it with its own, so its reads are in
+// flight with theirs, and the search is deterministic, so it finds the
+// symbol the owner finds), puts its T * SPT + 1 symbols in shared memory,
+// syncs once and looks each pair up in the LUT through L1 (any size). One
+// launch a block where there were two: the second launch and its wrapper
+// cost more than the kernel (B <= 16: the device idles). The generic step's
+// NRZ-S bits are in K4s's launch (shard_select.cu).
+#include "detect_window.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 128;  // threads of a K4 CTA: 64 or 128
-constexpr int kMaxChunkW = 9;     // windows up to this wide take 3 chunks at most
-constexpr int kRegWords = 4;      // clip words a slot holds in registers
-constexpr int kNrzsThreads = 256;
-constexpr int8_t kTrustClipped = -2;
-
-// Any bit of [lo, hi] (inclusive sample indices) set in the bitmask w?
-__device__ bool any_hit(const unsigned* __restrict__ w, int lo, int hi) {
-    const int w0 = lo >> 5, w1 = hi >> 5;
-    for (int i = w0; i <= w1; ++i) {
-        unsigned m = __ldg(w + i);
-        if (i == w0) m &= 0xffffffffu << (lo & 31);
-        if (i == w1) m &= 0xffffffffu >> (31 - (hi & 31));
-        if (m) return true;
-    }
-    return false;
-}
-
-// Slot x's x * spc - W / 2 (JAX's separate f32 multiply and add, each
-// rounded), and its unclamped window start A0 = trunc(that + codeOffset).
-__device__ __forceinline__ float slot_xs(int x, float spc, int W) {
-    return __fsub_rn(__fmul_rn((float)x, spc), (float)(W / 2));
-}
 
 // grid (ceil(S / (blockDim.x * SPT)), B); kVec: windows of at most kMaxChunkW
 // samples in 16-byte aligned rows, read as chunks (else sample by sample);
@@ -164,52 +137,8 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
         xs[s] = slot_xs(x, spc, W);
         A0[s] = (int)truncf(__fadd_rn(xs[s], co));
         const int a = A[s] = min(max(A0[s], 0), max(N - W, 0));
-        float bst = -INFINITY;
-        int sy = 0, kk = -1;
-        if (kVec) {  // the (at most 3) 16-byte chunks that cover [a, a + W)
-            const int q0 = a >> 2, q1 = (a + W - 1) >> 2;
-            const float4* v4 = reinterpret_cast<const float4*>(cm);
-            const int4* g4 = reinterpret_cast<const int4*>(ca);
-#pragma unroll
-            for (int qq = 0; qq < 3; ++qq) {
-                const int q = q0 + qq;
-                if (q > q1) break;
-                const float4 f = __ldg(v4 + q);
-                int4 g = make_int4(0, 0, 0, 0);
-                if (kArgWin) g = __ldg(g4 + q);
-                const float fv[4] = {f.x, f.y, f.z, f.w};
-                const int gv[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {  // strict: the earliest sample wins ties
-                    const int i = 4 * q + e - a;
-                    const bool up = i >= 0 && i < W && (kk < 0 || fv[e] > bst);
-                    bst = up ? fv[e] : bst;
-                    sy = up ? gv[e] : sy;
-                    kk = up ? i : kk;
-                }
-            }
-        } else {
-#pragma unroll 4
-            for (int i = 0; i < W; ++i) {
-                const float vi = __ldg(cm + a + i);
-                const int gi = kArgWin ? __ldg(ca + a + i) : 0;
-                const bool up = i == 0 || vi > bst;
-                bst = up ? vi : bst;
-                sy = up ? gi : sy;
-                kk = up ? i : kk;
-            }
-        }
-        best[s] = bst;
-        sym[s] = sy;
-        k[s] = kk;
-        if (hrow && !(kNrzs && s == SPT)) {
-            wlo[s] = max(a - hw, 0) >> 5;
-            const int nw = (min(a + W - 1 + hw, N - 1) >> 5) - wlo[s] + 1;
-#pragma unroll
-            for (int u = 0; u < kRegWords; ++u)
-                wd[s][u] = u < nw && nw <= kRegWords ? __ldg(hrow + wlo[s] + u) : 0u;
-            if (nw > kRegWords) wlo[s] = -1;  // tested in global memory
-        }
+        window_max<kArgWin, kVec>(cm, ca, a, W, best[s], sym[s], k[s]);
+        if (hrow && !(kNrzs && s == SPT)) wlo[s] = clip_words(hrow, a, W, hw, N, wd[s]);
     }
     if (!kArgWin) {  // the symbol at each winning sample, all slots' reads together
 #pragma unroll
@@ -226,19 +155,8 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
 #pragma unroll
         for (int s = 0; s < SPT; ++s) {
             const int x = x0 + s * T + tid;
-            const int next = ssym[x + 1 < S ? x + 1 - x0 : T * SPT], prev = sym[s];
-            bool one = false, zero = false;
-            if (prev >= 0 && prev < lutM) {
-                const int* t = symLUT + (size_t)prev * 2 * lutK;
-                for (int q = 0; q < lutK; ++q) {
-                    one |= __ldg(t + q) == next;
-                    zero |= __ldg(t + lutK + q) == next;
-                }
-            } else {  // JAX's one-hot select gives all-zero tables here
-                one = zero = next == 0;
-            }
-            nerr[s] = !(one || zero);
-            nbit[s] = !nerr[s] && one ? 1.f : 0.f;
+            const int next = ssym[x + 1 < S ? x + 1 - x0 : T * SPT];
+            nerr[s] = !nrzs_pair(symLUT, lutM, lutK, sym[s], next, &nbit[s]);
         }
     }
 
@@ -250,23 +168,7 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
         const int comp = (int)truncf(co) - min(A0[s], 0);
         const int centre = (int)truncf(__fadd_rn(xs[s], (float)k[s])) + comp;
         int8_t tr = (int8_t)trust_normal;
-        if (hrow) {
-            const int lo = max(j - hw, 0), hi = min(j + hw, N - 1);
-            bool hit = false;
-            if (wlo[s] < 0) {
-                hit = any_hit(hrow, lo, hi);
-            } else {
-#pragma unroll
-                for (int u = 0; u < kRegWords; ++u) {
-                    const int wi = wlo[s] + u;
-                    unsigned m = wi < (lo >> 5) || wi > (hi >> 5) ? 0u : wd[s][u];
-                    if (wi == (lo >> 5)) m &= 0xffffffffu << (lo & 31);
-                    if (wi == (hi >> 5)) m &= 0xffffffffu >> (31 - (hi & 31));
-                    hit |= m != 0;
-                }
-            }
-            if (hit) tr = kTrustClipped;
-        }
+        if (hrow && clip_hit(hrow, wd[s], wlo[s], j, hw, N)) tr = kTrustClipped;
         if (kNrzs && nerr[s] && tr != kTrustClipped) tr = -1;
         if (r) {
             r[x] = kNrzs ? nbit[s] : bitLUT ? (float)bitLUT[sym[s]] : 0.f;
@@ -283,36 +185,6 @@ symbol_detect(const float* __restrict__ colmax, const int* __restrict__ colarg,
             trust[o] = tr;
         }
     }
-}
-
-// kShared: the (M, 2, K) LUT staged in shared memory; else read through L1
-template <bool kShared>
-__global__ void __launch_bounds__(kNrzsThreads)
-nrzs_bits(float* __restrict__ row, const int* __restrict__ lut, int L, int S, int M, int K) {
-    extern __shared__ int tab[];  // (M, 2, K)
-    if (kShared) {
-        for (int i = threadIdx.x; i < M * 2 * K; i += kNrzsThreads) tab[i] = lut[i];
-        __syncthreads();
-    }
-    float* r = row + (size_t)blockIdx.y * L;
-    const int x = blockIdx.x * kNrzsThreads + threadIdx.x;
-    if (x == 0) r[5 * (size_t)S + 1] = r[5 * (size_t)S] - 1.f;  // nBits = nSym - 1
-    if (x >= S) return;
-    const int prev = (int)r[2 * (size_t)S + x];
-    const int next = (int)r[2 * (size_t)S + (x + 1 == S ? 0 : x + 1)];
-    bool one = false, zero = false;
-    if (prev >= 0 && prev < M) {
-        const size_t o = (size_t)prev * 2 * K;
-        for (int k = 0; k < K; ++k) {
-            one |= (kShared ? tab[o + k] : __ldg(lut + o + k)) == next;
-            zero |= (kShared ? tab[o + K + k] : __ldg(lut + o + K + k)) == next;
-        }
-    } else {  // JAX's one-hot select gives all-zero tables here
-        one = zero = next == 0;
-    }
-    const bool err = !(one || zero);
-    r[x] = (!err && one) ? 1.f : 0.f;
-    if (err && r[S + x] != (float)kTrustClipped) r[S + x] = -1.f;
 }
 
 }  // namespace
@@ -372,34 +244,5 @@ PYCUSDR_API int pycusdr_symbol_detect(const float* colmax, const int* colargmax,
     }
 #undef K4_LAUNCH
 #undef K4_ARGS
-    return (int)cudaGetLastError();
-}
-
-// row: (B, L) f32 packed rows that K4 wrote (L >= 5 S + 12), updated in
-// place; lut: (M, 2, K) int32. shared 1: the LUT in shared memory (above
-// the 48 KB a launch gets by default, up to the device's opt-in limit);
-// shared 0: read through L1. ops/demod_kernels.py:k4n_form picks by size.
-PYCUSDR_API int pycusdr_nrzs_bits(float* row, const int* lut, int L, int B, int S, int M,
-                                  int K, int shared, cudaStream_t stream) {
-    if (B <= 0 || S <= 0 || M <= 0 || K <= 0 || L < 5 * S + 12 || B > 65535)
-        return (int)cudaErrorInvalidValue;
-    const dim3 grid((S + kNrzsThreads - 1) / kNrzsThreads, B);
-    if (!shared) {
-        nrzs_bits<false><<<grid, kNrzsThreads, 0, stream>>>(row, lut, L, S, M, K);
-        return (int)cudaGetLastError();
-    }
-    const size_t smem = (size_t)M * 2 * K * sizeof(int);
-    if (smem > 48 * 1024) {
-        int dev = 0, optin = 0;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e == cudaSuccess)
-            e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        if (e != cudaSuccess) return (int)e;
-        if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-        e = cudaFuncSetAttribute(nrzs_bits<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    nrzs_bits<true><<<grid, kNrzsThreads, smem, stream>>>(row, lut, L, S, M, K);
     return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Device ops of the port and the hand-written kernels behind them: the
 demodulation path (K1 ``doppler_energy``, K2 ``mf_bank_colreduce``, K3
 ``timing_band``, K4 ``symbol_detect`` (with K4n in the same launch,
-``symbol_detect_nrzs``, on the NRZ-S block graph) and K4n ``nrzs_bits``,
-K5 ``doppler_estimate``, K6 ``threshold_input``), the generic channel x
+``symbol_detect_nrzs``, on the NRZ-S block graph), K5
+``doppler_estimate``, K6 ``threshold_input``), the generic channel x
 dopp step's split detector (K4l ``symbol_detect_local``, K4s
-``shard_select``), the decoder's Viterbi
+``shard_select``, with K4n in the same launch, ``shard_select_nrzs``, on
+an NRZ-S protocol), the decoder's Viterbi
 trellis (K7 ``viterbi``), the channel group's vote (K8 ``vote``,
 ``parallel/vote.py``) and the wideband channelizer (K9 ``channelize``,
 ``parallel/channelizer.py``)."""
@@ -15,8 +16,8 @@ def kernel_wrappers() -> dict:
     its kernel launches in ``.launches``."""
     from pycusdr_tpu_torch.ops.demod_kernels import (
         mf_bank_colreduce,
-        nrzs_bits,
         shard_select,
+        shard_select_nrzs,
         symbol_detect,
         symbol_detect_local,
         symbol_detect_nrzs,
@@ -32,9 +33,9 @@ def kernel_wrappers() -> dict:
             "timing_band": timing_band, "symbol_detect": symbol_detect,
             "symbol_detect_nrzs": symbol_detect_nrzs,
             "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
-            "viterbi": viterbi_sweep, "nrzs_bits": nrzs_bits, "vote": vote_rows,
+            "viterbi": viterbi_sweep, "vote": vote_rows,
             "channelize": channelize, "symbol_detect_local": symbol_detect_local,
-            "shard_select": shard_select}
+            "shard_select": shard_select, "shard_select_nrzs": shard_select_nrzs}
 
 
 def reset_launches() -> None:

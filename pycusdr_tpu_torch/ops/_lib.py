@@ -63,20 +63,20 @@ SIGNATURES = {
     # sym, lengths, dec|NULL, bits|NULL, met, S, Tmax, soft, terminated, invert_g2,
     # decode, stream
     "pycusdr_viterbi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # row, lut, L, B, S, M, K, shared, stream
-    "pycusdr_nrzs_bits": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, out, C, L, S, master_idx, master_weight, mask_pad, stream
     "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, state|NULL, h2, tw, y, carry, T, M, K, stream
     "pycusdr_channelize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, state|NULL, h2, v, T, M, K, stream
     "pycusdr_channelize_fir": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # colmax, colargmax, spSym, codeOffset, val, key, B, N, W, spsymMin, S, M, m0, stream
-    "pycusdr_symbol_detect_local": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # vals, keys, nd, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, row, L, B, N,
-    # W, spsymMin, S, M, trust_normal, hw_max, stream
-    "pycusdr_shard_select": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _P],
+    # colmax, colargmax, spSym, codeOffset, pair, B, N, W, spsymMin, S, M, m0, threads, spt,
+    # argwin, stream
+    "pycusdr_symbol_detect_local": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _P],
+    # pairs, nd, spSym, codeOffset, bitLUT, symLUT, hits, code_val, clipped_any, row, L, B,
+    # N, W, spsymMin, S, M, trust_normal, hw_max, lutM, lutK, threads, spt, shfl, stream
+    "pycusdr_shard_select": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

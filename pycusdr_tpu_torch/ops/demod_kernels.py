@@ -1,9 +1,10 @@
 """Demodulation-stage ops: interference spike clipping (kernel K6), the
 matched-filter bank reduced over masks (K2), the symbol-timing band
 search (K3), symbol detection with bits, trust and the clip window
-(K4), NRZ-S bit extraction over K4's symbols (K4n), and K4 split in two
+(K4; with the NRZ-S bits of K4n in the same launch), and K4 split in two
 for the generic channel x dopp step: the shard-local window maximum (K4l)
-and the cross-shard select that fills the packed row (K4s).
+and the cross-shard select that fills the packed row (K4s; with K4n's
+NRZ-S bits in the same launch).
 
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor
 and launches its hand-written CUDA kernel (``csrc/``) for a CUDA tensor,
@@ -35,9 +36,6 @@ K6_CHUNK = 4096
 #: K6's cluster form: at most this many CTAs in a row's cluster (above 8 a
 #: non-portable size), each taking at most K6_MAX_CHUNKS chunks
 K6_MAX_CLUSTER, K6_MAX_CHUNKS = 16, 4
-#: K4n keeps its symbol LUT in shared memory up to the 227 KB a block may
-#: opt in to on Hopper (above 48 KB by cudaFuncAttributeMaxDynamicSharedMemorySize)
-K4N_SMEM_MAX = 227 * 1024
 
 
 def twiddle_table(N: int, device) -> torch.Tensor:
@@ -491,8 +489,8 @@ def symbol_detect(colmax, colarg, spSym, codeOffset, bitLUT, *, Nfft: int,
 
     ``symbolLUT``: the (M, 2, K) int32 NRZ-S LUT of a protocol without a
     centre-bit LUT (``bitLUT`` None), with ``row`` only: the same launch
-    then writes what ``nrzs_bits`` writes over K4's row (the NRZ-S bits,
-    trust -1 on a transition error, nBits = nSym - 1), and counts in
+    then writes what ``nrzs_rows_plain`` writes over K4's row (the NRZ-S
+    bits, trust -1 on a transition error, nBits = nSym - 1), and counts in
     ``symbol_detect_nrzs.launches`` too. Its plain version is
     ``symbol_detect_plain`` and then ``nrzs_rows_plain``."""
     if symbolLUT is not None:
@@ -582,7 +580,7 @@ def symbol_detect_nrzs(colmax, colarg, spSym, codeOffset, symbolLUT, *, row: tor
 symbol_detect_nrzs.launches = 0
 
 
-# ---------------------------------------------------------------- K4n
+# ------------------------------------------ K4n (in K4's and in K4s's launch)
 
 
 def nrzs_bits_plain(symbols: torch.Tensor, symbolLUT: torch.Tensor):
@@ -613,7 +611,11 @@ def nrzs_trust_plain(trust: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
 
 
 def nrzs_rows_plain(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> torch.Tensor:
-    """The plain version of ``nrzs_bits`` on the packed rows, in place."""
+    """K4n on the packed rows that K4 or K4s wrote, in place: bits from the
+    symbols (``nrzs_bits_plain``), trust -1 on an error
+    (``nrzs_trust_plain``), nBits = nSym - 1. The plain version of the NRZ-S
+    forms of K4 (``symbol_detect_nrzs``) and K4s (``shard_select_nrzs``)
+    after their centre-bit forms with bits 0."""
     S = numSymMax
     tail = len(PACK_ARRAYS) * S
     bits, err = nrzs_bits_plain(row[:, 2 * S:3 * S].to(torch.int32), symbolLUT)
@@ -621,38 +623,6 @@ def nrzs_rows_plain(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) 
     row[:, S:2 * S] = nrzs_trust_plain(row[:, S:2 * S], err)
     row[:, tail + SCALAR["nBits"]] = row[:, tail + SCALAR["nSym"]] - 1
     return row
-
-
-def k4n_form(M: int, K: int) -> str:
-    """Where K4n reads an (M, 2, K) int32 symbol LUT: "shared" (staged in
-    shared memory) up to K4N_SMEM_MAX bytes, else "global" (through L1)."""
-    return "shared" if 4 * M * 2 * K <= K4N_SMEM_MAX else "global"
-
-
-def nrzs_bits(row: torch.Tensor, symbolLUT: torch.Tensor, numSymMax: int) -> torch.Tensor:
-    """K4n: NRZ-S bits over the packed (B, L) f32 rows that K4 wrote, in
-    place: bits from the symbols (``nrzs_bits_plain``), trust -1 on an
-    error (``nrzs_trust_plain``), nBits = nSym - 1. symbolLUT: (M, 2, K)
-    int32 on the rows' device, any size (``k4n_form``). Returns ``row``."""
-    S = numSymMax
-    if row.dim() != 2 or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
-        raise ValueError(f"nrzs_bits: row shape {tuple(row.shape)} too small for S={S}")
-    if symbolLUT.dim() != 3 or symbolLUT.shape[1] != 2:
-        raise ValueError(f"nrzs_bits: symbolLUT must be (M, 2, K), got {tuple(symbolLUT.shape)}")
-    if row.device.type == "cpu":
-        return nrzs_rows_plain(row, symbolLUT, S)
-    if row.device.type != "cuda":
-        raise ValueError(f"nrzs_bits: unsupported device {row.device}")
-    _lib.check(row, "row", torch.float32)
-    _lib.check(symbolLUT, "symbolLUT", torch.int32, None, row.device)
-    M, _, K = symbolLUT.shape
-    _lib.launch("pycusdr_nrzs_bits", _lib.ptr(row), _lib.ptr(symbolLUT), row.shape[1],
-                row.shape[0], S, M, K, int(k4n_form(M, K) == "shared"))
-    nrzs_bits.launches += 1
-    return row
-
-
-nrzs_bits.launches = 0
 
 
 # ---------------------------------------------------------------- K4l, K4s
@@ -677,15 +647,30 @@ def symbol_detect_local_plain(colmax, colarg, spSym, codeOffset, *, m0: int, M: 
     return val, (k[..., 0] * M + m0 + m_l).to(torch.int32)
 
 
+def pack_pairs(vals: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(..., S) f32 values and int32 keys -> one (..., S, 2) int32 buffer of
+    (value bits, key) pairs, K4l's output layout."""
+    return torch.stack([vals.view(torch.int32), keys.to(torch.int32)], dim=-1)
+
+
+def pair_views(pairs: torch.Tensor):
+    """(values f32, keys int32) of a (..., S, 2) int32 pair buffer, as views."""
+    return pairs[..., 0].view(torch.float32), pairs[..., 1]
+
+
 def symbol_detect_local(colmax, colarg, spSym, codeOffset, *, m0: int, M: int, Nfft: int,
-                        windowWidth: int, spsymMin: int, numSymMax: int):
+                        windowWidth: int, spsymMin: int, numSymMax: int, packed: bool = False):
     """K4l: the shard-local half of the symbol detector (see
-    ``symbol_detect_local_plain``), one thread per slot as K4. spSym and
-    codeOffset stay on the device."""
+    ``symbol_detect_local_plain``), on K4's window reader and ``k4_plan``.
+    spSym and codeOffset stay on the device. It writes each slot's (value,
+    key) as one 8-byte word of a (B, S, 2) int32 buffer (``pack_pairs``),
+    which ``packed`` returns, for one all-gather and ``shard_select``;
+    otherwise (val, key) as views of it (``pair_views``)."""
     kw = dict(m0=m0, M=M, Nfft=Nfft, windowWidth=windowWidth, spsymMin=spsymMin,
               numSymMax=numSymMax)
     if colmax.device.type == "cpu":
-        return symbol_detect_local_plain(colmax, colarg, spSym, codeOffset, **kw)
+        val, key = symbol_detect_local_plain(colmax, colarg, spSym, codeOffset, **kw)
+        return pack_pairs(val, key) if packed else (val, key)
     if colmax.device.type != "cuda":
         raise ValueError(f"symbol_detect_local: unsupported device {colmax.device}")
     B, N = colmax.shape
@@ -697,16 +682,24 @@ def symbol_detect_local(colmax, colarg, spSym, codeOffset, *, m0: int, M: int, N
     _lib.check(colarg, "colargmax", torch.int32, (B, N), dev)
     _lib.check(spSym, "spSym", torch.float32, (B,), dev)
     _lib.check(codeOffset, "codeOffset", torch.float32, (B,), dev)
-    val = torch.empty((B, numSymMax), dtype=torch.float32, device=dev)
-    key = torch.empty((B, numSymMax), dtype=torch.int32, device=dev)
+    pair = torch.empty((B, numSymMax, 2), dtype=torch.int32, device=dev)
     _lib.launch("pycusdr_symbol_detect_local", _lib.ptr(colmax), _lib.ptr(colarg),
-                _lib.ptr(spSym), _lib.ptr(codeOffset), _lib.ptr(val), _lib.ptr(key), B, N,
-                windowWidth, spsymMin, numSymMax, M, m0)
+                _lib.ptr(spSym), _lib.ptr(codeOffset), _lib.ptr(pair), B, N, windowWidth,
+                spsymMin, numSymMax, M, m0, *k4_plan(B, numSymMax))
     symbol_detect_local.launches += 1
-    return val, key
+    return pair if packed else pair_views(pair)
 
 
 symbol_detect_local.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def k4s_plan(B: int, S: int):
+    """K4s's launch for B blocks of S slots: (threads a CTA, slots a
+    thread), at ``k4_plan``'s edges. It changes no bit."""
+    if B * S <= K4_LATENCY_SLOTS:
+        return 64, 1
+    return 128, 2 if B * S >= K4_TWO_SLOTS else 1
 
 
 def shard_select_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
@@ -755,35 +748,55 @@ def shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nf
     return row
 
 
-def shard_select(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
-                 windowWidth: int, spsymMin: int, numSymMax: int, trust_normal: int,
-                 row: torch.Tensor, code_val: torch.Tensor, hits: torch.Tensor = None,
-                 clipped_any: torch.Tensor = None) -> torch.Tensor:
-    """K4s: the cross-shard select (see ``shard_select_plain``) written into
-    the (B, L) f32 packed rows: the five arrays and the scalars nSym, nBits
-    = nSym, spSym, codeOffset, ``code_val`` (B,) and ``clipped_any`` (B,)
-    int32 (0 when None). ``hits``: K6's (B, ceil(Nfft/32)) int32 bitmask; a slot
-    whose winning sample has a hit within ``clip_halfwidth`` (clamped to
-    2048) gets trust -2. K4n runs after it for NRZ-S. Returns ``row``."""
+#: K4s's NRZ-S form takes the next slot's key by the thread's own select
+#: ("load") or by a shuffle from the next lane ("shfl")
+K4S_NEXT_FORMS = ("load", "shfl")
+
+
+def shard_select(pairs, spSym, codeOffset, bitLUT, *, M: int, Nfft: int, windowWidth: int,
+                 spsymMin: int, numSymMax: int, trust_normal: int, row: torch.Tensor,
+                 code_val: torch.Tensor, hits: torch.Tensor = None,
+                 clipped_any: torch.Tensor = None, symbolLUT: torch.Tensor = None,
+                 next_form: str = "load") -> torch.Tensor:
+    """K4s: the cross-shard select (see ``shard_select_plain``) of the (nd,
+    B, S, 2) int32 pairs that ``symbol_detect_local(packed=True)`` wrote on
+    every shard (``pack_pairs``; keys >= 0), written into the (B, L) f32
+    packed rows: the five arrays and the scalars nSym, nBits = nSym, spSym,
+    codeOffset, ``code_val`` (B,) and ``clipped_any`` (B,) int32 (0 when
+    None). ``hits``: K6's (B, ceil(Nfft/32)) int32 bitmask; a slot whose
+    winning sample has a hit within ``clip_halfwidth`` (clamped to 2048)
+    gets trust -2. The launch is ``k4s_plan``'s. Returns ``row``.
+
+    ``symbolLUT``: the (M, 2, K) int32 NRZ-S LUT of a protocol without a
+    centre-bit LUT (``bitLUT`` None): the same launch then writes K4n's
+    NRZ-S bits, trust -1 on a transition error and nBits = nSym - 1, and
+    counts in ``shard_select_nrzs.launches`` too. Its plain version is
+    ``shard_select_rows_plain`` and then ``nrzs_rows_plain``."""
     kw = dict(M=M, Nfft=Nfft, windowWidth=windowWidth, spsymMin=spsymMin, numSymMax=numSymMax,
               trust_normal=trust_normal)
     S = numSymMax
-    if vals.dim() != 3 or tuple(keys.shape) != tuple(vals.shape):
-        raise ValueError(f"shard_select: vals {tuple(vals.shape)} and keys "
-                         f"{tuple(keys.shape)} must both be (nd, B, S)")
-    nd, B, _ = vals.shape
+    if pairs.dim() != 4 or pairs.shape[2:] != (S, 2):
+        raise ValueError(f"shard_select: pairs {tuple(pairs.shape)} must be (nd, B, {S}, 2)")
+    nd, B = pairs.shape[:2]
     if row.shape[0] != B or row.shape[1] < len(PACK_ARRAYS) * S + len(PACK_SCALARS):
         raise ValueError(f"shard_select: row shape {tuple(row.shape)} too small")
-    if vals.device.type == "cpu":
-        return shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, **kw, row=row,
-                                       code_val=code_val, hits=hits, clipped_any=clipped_any)
-    if vals.device.type != "cuda":
-        raise ValueError(f"shard_select: unsupported device {vals.device}")
-    dev = vals.device
-    if vals.shape[2] != S or not 0 < windowWidth <= Nfft:
-        raise ValueError(f"shard_select: bad shape {tuple(vals.shape)} S={S} W={windowWidth}")
-    _lib.check(vals, "vals", torch.float32, (nd, B, S))
-    _lib.check(keys, "keys", torch.int32, (nd, B, S), dev)
+    if symbolLUT is not None:
+        if bitLUT is not None:
+            raise ValueError("shard_select: the NRZ-S form takes no centre-bit LUT")
+        if symbolLUT.dim() != 3 or symbolLUT.shape[1] != 2:
+            raise ValueError(f"shard_select: symbolLUT must be (M, 2, K), got "
+                             f"{tuple(symbolLUT.shape)}")
+    if pairs.device.type == "cpu":
+        vals, keys = pair_views(pairs)
+        shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, **kw, row=row,
+                                code_val=code_val, hits=hits, clipped_any=clipped_any)
+        return row if symbolLUT is None else nrzs_rows_plain(row, symbolLUT, S)
+    if pairs.device.type != "cuda":
+        raise ValueError(f"shard_select: unsupported device {pairs.device}")
+    dev = pairs.device
+    if not 0 < windowWidth <= Nfft:
+        raise ValueError(f"shard_select: bad window W={windowWidth} for Nfft={Nfft}")
+    _lib.check(pairs, "pairs", torch.int32, (nd, B, S, 2))
     _lib.check(spSym, "spSym", torch.float32, (B,), dev)
     _lib.check(codeOffset, "codeOffset", torch.float32, (B,), dev)
     _lib.check(code_val, "code_val", torch.float32, (B,), dev)
@@ -794,12 +807,34 @@ def shard_select(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
         _lib.check(hits, "hits", torch.int32, (B, -(-Nfft // 32)), dev)
     if clipped_any is not None:
         _lib.check(clipped_any, "clipped_any", torch.int32, (B,), dev)
-    _lib.launch("pycusdr_shard_select", _lib.ptr(vals), _lib.ptr(keys), nd, _lib.ptr(spSym),
-                _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(hits), _lib.ptr(code_val),
-                _lib.ptr(clipped_any), _lib.ptr(row), row.shape[1], B, Nfft, windowWidth,
-                spsymMin, S, M, trust_normal, CLIP_HW_MAX)
+    lut_mk = (0, 0)
+    if symbolLUT is not None:
+        _lib.check(symbolLUT, "symbolLUT", torch.int32, None, dev)
+        lut_mk = (symbolLUT.shape[0], symbolLUT.shape[2])
+    if next_form not in K4S_NEXT_FORMS:
+        raise ValueError(f"shard_select: next_form {next_form!r} not in {K4S_NEXT_FORMS}")
+    _lib.launch("pycusdr_shard_select", _lib.ptr(pairs), nd, _lib.ptr(spSym),
+                _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(symbolLUT), _lib.ptr(hits),
+                _lib.ptr(code_val), _lib.ptr(clipped_any), _lib.ptr(row), row.shape[1], B, Nfft,
+                windowWidth, spsymMin, S, M, trust_normal, CLIP_HW_MAX, *lut_mk,
+                *k4s_plan(B, S), int(next_form == "shfl"))
     shard_select.launches += 1
+    if symbolLUT is not None:
+        shard_select_nrzs.launches += 1
     return row
 
 
 shard_select.launches = 0
+
+
+def shard_select_nrzs(pairs, spSym, codeOffset, symbolLUT, *, row: torch.Tensor,
+                      code_val: torch.Tensor, **kw) -> torch.Tensor:
+    """K4s and K4n in one launch (the generic step's NRZ-S select):
+    ``shard_select`` with no centre-bit LUT and the (M, 2, K) int32
+    ``symbolLUT``, into the packed rows ``row``, which are returned. Its
+    launches count here and in ``shard_select.launches``."""
+    return shard_select(pairs, spSym, codeOffset, None, row=row, code_val=code_val,
+                        symbolLUT=symbolLUT, **kw)
+
+
+shard_select_nrzs.launches = 0

@@ -18,8 +18,9 @@ Two programs, as in JAX:
   global mask m0. K6, the FFT, K1 on the shard's Q rows, an all-gather
   of E along ``dopp``, K5, K2 on the shard's masks (its part of the
   timing sum), a sum of the timing power along ``dopp``, K3, the
-  shard-local detector K4l, an all-gather of its (value, key) pairs, the
-  cross-shard select K4s [and K4n for NRZ-S]. With ``vote`` the rows are
+  shard-local detector K4l, one all-gather of its (value, key) pairs (one
+  8-byte word a slot), the cross-shard select K4s (with K4n's NRZ-S bits in
+  its launch for an NRZ-S protocol). With ``vote`` the rows are
   all-gathered along ``channel`` and K8 votes the trust as K4s wrote it
   (-1 beyond nSym; no pad mask at nBits, ``:378-379,429-434``).
 
@@ -136,13 +137,13 @@ def _build_generic_rows(spec: DemodSpec, mesh: Mesh, plain: bool):
         colsum = all_reduce(colsum, mesh, "dopp")
         spSym, codeOffset, code_val = dk.timing_band(colsum, spec.code_idx_lo,
                                                      spec.code_idx_hi, tw=c.tw)
-        val, key = dk.symbol_detect_local(colmax, colarg, spSym, codeOffset, **k4l)
-        vals = all_gather(val, mesh, "dopp", tiled=False)
-        keys = all_gather(key, mesh, "dopp", tiled=False)
-        dk.shard_select(vals, keys, spSym, codeOffset, c.bitLUT, M=M, **k4, row=row,
-                        code_val=code_val, hits=hits, clipped_any=clipped_any)
+        pair = dk.symbol_detect_local(colmax, colarg, spSym, codeOffset, **k4l, packed=True)
+        pairs = all_gather(pair, mesh, "dopp", tiled=False)
+        sel = dict(M=M, **k4, row=row, code_val=code_val, hits=hits, clipped_any=clipped_any)
         if c.bitLUT is None:
-            dk.nrzs_bits(row, c.symbolLUT, S_)
+            dk.shard_select_nrzs(pairs, spSym, codeOffset, c.symbolLUT, **sel)
+        else:
+            dk.shard_select(pairs, spSym, codeOffset, c.bitLUT, **sel)
         return row
 
     def rows_plain(x, row):

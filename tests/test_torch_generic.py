@@ -163,7 +163,7 @@ def test_shard_select_matches_jax(nd, clip):
         hits = dk.pack_bits(torch.from_numpy(hit))
     row = torch.zeros((B, len(PACK_ARRAYS) * S + 12))
     code_val = torch.arange(B, dtype=torch.float32)
-    dk.shard_select(vals, keys, torch.from_numpy(sp), torch.from_numpy(co),
+    dk.shard_select(dk.pack_pairs(vals, keys), torch.from_numpy(sp), torch.from_numpy(co),
                     torch.from_numpy(lut), M=M, trust_normal=2, row=row, code_val=code_val,
                     hits=hits, **DET)
     tail = len(PACK_ARRAYS) * S

@@ -1,24 +1,29 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at the test shapes (tiny Nfft 2^9 and the bench_conf 2^13; K7
 on ragged batches at the chunk edges, up to T=2144 and S=129, and the
-ViterbiStream at one launch a feed; K4n at the tiny bench_BPSK shape; K8 on
+ViterbiStream at one launch a feed; the bench_BPSK graph at the tiny
+shape; K8 on
 random rows and in the group graph; K9 at every fused M from 1 to 1024
 at K = 1, 8 and 32 (ragged, T < K - 1 with a carry, T = 2^16), the wide
 form, one launch a fused call; K1 and K5 with
 ``centre_shift``; K8 with ``master_idx``; the channel-parallel step; K4l
 and K4s on one and two shards, K4s with the clip window, K8 without its
-pad mask, and the generic step; K2 at M=16 and 32, B=1 and 64, and K3 at
+pad mask, and the generic step (also on bench_BPSK at the bench_conf
+shape); K2 at M=16 and 32, B=1 and 64, and K3 at
 every N from 2^2 to 2^18 at the band edges, with zero and NaN rows; K1 at
 33, 64 and 128 masks; K5 with planted ties, grids of 2048 and 3000 entries,
 1 to 128 masks and noise alone in its SNR bands; K4 at B=64 on six window
 shapes, each block alone; K6 at every form of its plan, at N not a multiple
 of 32 and above 2^18, equal bit for bit to the numpy model of its order; K4
-and K4s with a partial last clip word; K4n with LUTs of 64 and 256 KB; K2
-and K3 at 2^19 and 2^20; K4's NRZ-S form (K4n in K4's launch) against K4
-followed by K4n and its plain version at the bench_BPSK shape, S from 1 to
-36480, B = 1/16/64, with a clip bitmask, the sample-by-sample form and
-LUTs of 64 and 256 KB; K8 at C = 1 to 256, S = 1/31/4608, with and without
-its pad mask).
+and K4s with a partial last clip word; K2 and K3 at 2^19 and 2^20; K4's
+NRZ-S form (K4n in K4's launch) against its plain version at the
+bench_BPSK shape, S from 1 to 36480, B = 1/16/64, with a clip bitmask, the
+sample-by-sample form and LUTs of 64 and 256 KB; K8 at C = 1 to 256, S =
+1/31/4608, with and without its pad mask; K4l in every plan, on unaligned
+rows and a window wider than 9 samples; K4s in every plan at nd = 1/2/4,
+with and without a clip bitmask, hw near its clamp, with a centre-bit LUT
+and in its NRZ-S form (K4n in K4s's launch) with bench_BPSK's LUT and LUTs
+of 64 and 256 KB).
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -275,7 +280,7 @@ def test_clip_bitmask_partial_last_word(cuda):
     val, key = dk.symbol_detect_local(colmax, colarg, sp, co, m0=0, M=M, **kl)
     rows = [torch.zeros((B, 5 * S + 12), device=cuda) for _ in range(2)]
     k4s = dict(kw, M=M, code_val=torch.zeros(B, device=cuda), hits=hits)
-    dk.shard_select(val[None], key[None], sp, co, lut, row=rows[0], **k4s)
+    dk.shard_select(dk.pack_pairs(val, key)[None], sp, co, lut, row=rows[0], **k4s)
     dk.shard_select_rows_plain(val[None], key[None], sp, co, lut, row=rows[1], **k4s)
     torch.cuda.synchronize()
     assert torch.equal(rows[0], rows[1])
@@ -685,41 +690,6 @@ def bpsk_case(cuda):
     return spec, DeviceConsts.from_spec(spec, cuda), rows
 
 
-@pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
-def test_nrzs_bits_large_lut(cuda, M, K):
-    """K4n with a LUT above 48 KB: in shared memory opted in (64 KB) and
-    read through L1 (256 KB), rows equal to the plain version's."""
-    rng = np.random.RandomState(M)
-    S, B = 4608, 3
-    lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
-    rows = torch.zeros((B, 5 * S + 12))
-    rows[:, 2 * S:3 * S] = torch.from_numpy(rng.randint(-1, M + 1, (B, S)).astype(np.float32))
-    for b in range(B):
-        sym = rows[b, 2 * S:3 * S].long().numpy()
-        for i in range(0, S, 3):
-            if 0 <= sym[i] < M:
-                lut[sym[i], i % 2, i % K] = sym[(i + 1) % S]
-    rows[:, S:2 * S] = 2.0
-    rows[:, S:2 * S:7] = -2.0
-    rows[:, 5 * S] = 4000.0
-    rows = rows.to(cuda)
-    lt = torch.from_numpy(lut).to(cuda)
-    got = dk.nrzs_bits(rows.clone(), lt, S)
-    want = dk.nrzs_rows_plain(rows.clone(), lt, S)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want) and bool((got[:, S:2 * S] == -1).any())
-
-
-def test_nrzs_bits(bpsk_case):
-    spec, c, rows = bpsk_case
-    S = spec.numSymMax
-    got = dk.nrzs_bits(rows.clone(), c.symbolLUT, S)
-    want = dk.nrzs_rows_plain(rows.clone(), c.symbolLUT, S)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert bool((got[:, S:2 * S:5] == -2).all()) and bool((got[:, S:2 * S] == -1).any())
-
-
 def test_bpsk_graph_decisions_match_plain(bpsk_case, cuda):
     spec, c, rows = bpsk_case
     x = torch.from_numpy(np.random.RandomState(2).randn(2, spec.Nfft).astype(np.complex64))
@@ -942,9 +912,9 @@ def test_symbol_detect_local_and_shard_select(case, nd):
     assert torch.equal(vk, vp) and torch.equal(kk, kp)
     kw = dict(M=M, Nfft=spec.Nfft, windowWidth=spec.windowWidth, spsymMin=spec.spsymMin,
               numSymMax=spec.numSymMax, trust_normal=c.trust_normal, code_val=cv)
-    rk = dk.shard_select(vp, kp, sp, co, c.bitLUT, row=torch.zeros((3, L), device=x.device),
-                         **kw)
-    rp = dk.shard_select(vp.cpu(), kp.cpu(), sp.cpu(), co.cpu(), c.bitLUT.cpu(),
+    pairs = dk.pack_pairs(vp, kp)
+    rk = dk.shard_select(pairs, sp, co, c.bitLUT, row=torch.zeros((3, L), device=x.device), **kw)
+    rp = dk.shard_select(pairs.cpu(), sp.cpu(), co.cpu(), c.bitLUT.cpu(),
                          row=torch.zeros((3, L)), **dict(kw, code_val=cv.cpu()))
     torch.cuda.synchronize()
     assert torch.equal(rk.cpu(), rp)
@@ -971,11 +941,11 @@ def test_shard_select_clip(cuda):
     kw = dict(M=M, Nfft=N, windowWidth=7, spsymMin=8, numSymMax=S, trust_normal=2)
     L = 5 * S + 12
     cv, ca = torch.ones(B, device=cuda), torch.tensor([1, 0], dtype=torch.int32, device=cuda)
-    rk = dk.shard_select(vals, keys, sp, co, None, row=torch.zeros((B, L), device=cuda),
+    pairs = dk.pack_pairs(vals, keys)
+    rk = dk.shard_select(pairs, sp, co, None, row=torch.zeros((B, L), device=cuda),
                          code_val=cv, hits=hits, clipped_any=ca, **kw)
-    rp = dk.shard_select(vals.cpu(), keys.cpu(), sp.cpu(), co.cpu(), None,
-                         row=torch.zeros((B, L)), code_val=cv.cpu(), hits=hits.cpu(),
-                         clipped_any=ca.cpu(), **kw)
+    rp = dk.shard_select(pairs.cpu(), sp.cpu(), co.cpu(), None, row=torch.zeros((B, L)),
+                         code_val=cv.cpu(), hits=hits.cpu(), clipped_any=ca.cpu(), **kw)
     torch.cuda.synchronize()
     assert torch.equal(rk.cpu(), rp) and (rp[:, S:2 * S] == -2).any()
 
@@ -1186,39 +1156,36 @@ def _nrzs_inputs(cuda, S, B, M, seed, W=None, unaligned=False):
     return (cm, ca, torch.from_numpy(sp).to(cuda), torch.from_numpy(co).to(cuda)), kw
 
 
-def _nrzs_form_vs_two_launches(args, kw, lut, B):
-    """The fused form's rows, K4 then the standalone K4n's, and the plain
-    version's on the CPU; the fused call counts one K4 launch and one of
-    the NRZ-S form, and launches no standalone K4n."""
+def _nrzs_form_vs_plain(args, kw, lut, B):
+    """The fused form's rows and the plain version's on the CPU; the fused
+    call counts one K4 launch and one of the NRZ-S form, and nothing else."""
+    from pycusdr_tpu_torch import ops
+
     S = kw["numSymMax"]
     L = 5 * S + 12 + 3
     code_val = torch.ones(B, device=lut.device)
-    before = (dk.symbol_detect.launches, dk.symbol_detect_nrzs.launches, dk.nrzs_bits.launches)
+    before = ops.launch_counts()
     fused = dk.symbol_detect_nrzs(*args, lut, **kw, row=torch.zeros((B, L), device=lut.device),
                                   code_val=code_val)
-    after = (dk.symbol_detect.launches, dk.symbol_detect_nrzs.launches, dk.nrzs_bits.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
-    two = dk.symbol_detect(*args, None, **kw, row=torch.zeros((B, L), device=lut.device),
-                           code_val=code_val)
-    dk.nrzs_bits(two, lut, S)
+    moved = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    assert moved == {"symbol_detect": 1, "symbol_detect_nrzs": 1}, moved
     cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
     plain = dk.symbol_detect(*(a.cpu() for a in args), None, **cpu, row=torch.zeros((B, L)),
                              code_val=code_val.cpu(), symbolLUT=lut.cpu())
     torch.cuda.synchronize()
-    return fused, two, plain
+    return fused, plain
 
 
 @pytest.mark.parametrize("B", [1, 16, 64])
 @pytest.mark.parametrize("S", NRZS_S)
 def test_symbol_detect_nrzs_form(cuda, S, B):
     """K4's NRZ-S form (K4n in K4's launch) at the bench_BPSK shape with the
-    (8, 2, 2) LUT and a clip bitmask: rows equal to K4 followed by the
-    standalone K4n and to the plain version, over every ``k4_plan`` form
-    that B x S picks."""
+    (8, 2, 2) LUT and a clip bitmask: rows equal to the plain version's,
+    over every ``k4_plan`` form that B x S picks."""
     lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
     args, kw = _nrzs_inputs(cuda, S, B, lut.shape[0], seed=S + B)
-    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, lut, B)
-    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+    fused, plain = _nrzs_form_vs_plain(args, kw, lut, B)
+    assert torch.equal(fused.cpu(), plain)
     if S >= 4607:
         trust = fused[:, S:2 * S]
         assert bool((trust == -1).any()) and bool((trust == -2).any())
@@ -1228,21 +1195,21 @@ def test_symbol_detect_nrzs_form(cuda, S, B):
 @pytest.mark.parametrize("B", [1, 16])
 def test_symbol_detect_nrzs_form_sample_by_sample(cuda, B, form):
     """The NRZ-S form's sample-by-sample instantiation (a window wider than
-    9 samples, or rows that are not 16-byte aligned) against K4 + K4n and
-    the plain version."""
+    9 samples, or rows that are not 16-byte aligned) against the plain
+    version."""
     lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
     args, kw = _nrzs_inputs(cuda, 4608, B, lut.shape[0], seed=B + 5,
                             W=12 if form == "wide" else None, unaligned=form == "unaligned")
-    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, lut, B)
-    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+    fused, plain = _nrzs_form_vs_plain(args, kw, lut, B)
+    assert torch.equal(fused.cpu(), plain)
 
 
 @pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
 @pytest.mark.parametrize("B", [1, 16])
 def test_symbol_detect_nrzs_form_large_lut(cuda, B, M, K):
     """The NRZ-S form with LUTs of 64 and 256 KB (read through L1), a third
-    of the transitions planted in a table: rows equal to K4 + K4n (which
-    stages the 64 KB LUT in shared memory) and to the plain version."""
+    of the transitions planted in a table: rows equal to the plain
+    version's."""
     S = 4608
     args, kw = _nrzs_inputs(cuda, S, B, M, seed=M + B)
     sym = dk.symbol_detect(*args, None, **kw)[0].cpu().numpy()
@@ -1252,8 +1219,8 @@ def test_symbol_detect_nrzs_form_large_lut(cuda, B, M, K):
         for i in range(0, S, 3):
             if 0 <= sym[b, i] < M:
                 lut[sym[b, i], i % 2, i % K] = sym[b, (i + 1) % S]
-    fused, two, plain = _nrzs_form_vs_two_launches(args, kw, torch.from_numpy(lut).to(cuda), B)
-    assert torch.equal(fused, two) and torch.equal(fused.cpu(), plain)
+    fused, plain = _nrzs_form_vs_plain(args, kw, torch.from_numpy(lut).to(cuda), B)
+    assert torch.equal(fused.cpu(), plain)
     assert bool((fused[:, :S] == 1).any()) and bool((fused[:, S:2 * S] == -1).any())
 
 
@@ -1275,3 +1242,168 @@ def test_vote_tiles(cuda, C, S, mask_pad):
         op = pv.vote_rows_plain(rp, S, 1.2, torch.empty((2, S), device=cuda), master, mask_pad)
         torch.cuda.synchronize()
         assert torch.equal(rk, rp) and torch.equal(ok, op), f"master {master}"
+
+
+# ---- slice 16: K4l and K4s redesigned, K4n in K4s's launch
+
+
+def _split_inputs(cuda, B, S, nd, seed, W=7, M=16, unaligned=False, spc=None):
+    """K4l's and K4s's inputs at the bench_BPSK shape (Nfft 2^16, 16 masks)
+    for S slots and nd shards: each shard's colmax (quantised: tied
+    windows) and colargmax in [0, M / nd), spSym about N / S (or ``spc``),
+    codeOffset in [-20, 20), a sparse clip bitmask; ``unaligned`` rows that
+    are not 16-byte aligned. Returns (cols, sp, co, hits, kw of K4l)."""
+    N = 2 ** 16
+    rng = np.random.RandomState(seed)
+    cols = []
+    for _ in range(nd):
+        colmax = rng.randint(0, 6, (B, N)).astype(np.float32)
+        colarg = rng.randint(0, M // nd, (B, N)).astype(np.int32)
+        if unaligned:
+            cm = torch.zeros(B * N + 1, device=cuda)
+            cm[1:] = torch.from_numpy(colmax.ravel()).to(cuda)
+            ca = torch.zeros(B * N + 1, dtype=torch.int32, device=cuda)
+            ca[1:] = torch.from_numpy(colarg.ravel()).to(cuda)
+            cols.append((cm[1:].view(B, N), ca[1:].view(B, N)))
+        else:
+            cols.append((torch.from_numpy(colmax).to(cuda), torch.from_numpy(colarg).to(cuda)))
+    sp = (spc or N / S) * (1 + 0.01 * rng.randn(B))
+    co = rng.uniform(-20, 20, B)
+    hits = dk.pack_bits(torch.from_numpy(rng.rand(B, N) < 0.0005)).to(cuda)
+    kw = dict(M=M, Nfft=N, windowWidth=W, spsymMin=8, numSymMax=S)
+    return (cols, torch.from_numpy(sp.astype(np.float32)).to(cuda),
+            torch.from_numpy(co.astype(np.float32)).to(cuda), hits, kw)
+
+
+def _k4l_pairs(cols, sp, co, kw):
+    """K4l on every shard, packed, and its plain version's pairs, stacked."""
+    Ml = kw["M"] // len(cols)
+    got = torch.stack([dk.symbol_detect_local(cm, ca, sp, co, m0=d * Ml, packed=True, **kw)
+                       for d, (cm, ca) in enumerate(cols)])
+    want = torch.stack([dk.pack_pairs(*dk.symbol_detect_local_plain(cm, ca, sp, co, m0=d * Ml,
+                                                                   **kw))
+                        for d, (cm, ca) in enumerate(cols)])
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("form", ["chunks", "wide", "unaligned"])
+@pytest.mark.parametrize("B,S", [(1, 4608), (16, 4608), (64, 4608), (1, 36480), (3, 33)])
+def test_symbol_detect_local_plans(cuda, B, S, form):
+    """K4l in every ``k4_plan`` form that B x S picks (64 threads with
+    colargmax read with the windows; 128 threads with one or two slots a
+    thread), on 16-byte chunks, a window wider than 9 samples and rows that
+    are not 16-byte aligned (both sample by sample), with tied windows: the
+    packed pairs equal the plain version's, the views equal its (val, key);
+    one launch a call."""
+    cols, sp, co, _, kw = _split_inputs(cuda, B, S, 2, seed=B + S, W=12 if form == "wide" else 7,
+                                        unaligned=form == "unaligned")
+    before = dk.symbol_detect_local.launches
+    got, want = _k4l_pairs(cols, sp, co, kw)
+    assert dk.symbol_detect_local.launches == before + 2
+    assert torch.equal(got, want)
+    v, k = dk.symbol_detect_local(*cols[1], sp, co, m0=8, **kw)
+    assert torch.equal(v, dk.pair_views(want[1])[0]) and torch.equal(k, want[1, ..., 1])
+
+
+def _k4s_rows(pairs, sp, co, hits, kw, lut=None, form="load", bitLUT=None):
+    """K4s (the NRZ-S form with ``lut``) on the card and its plain version on
+    the CPU: (rows, plain rows)."""
+    B, S = pairs.shape[1], kw["numSymMax"]
+    L = 5 * S + 12 + 5
+    k4s = dict(kw, trust_normal=3, code_val=torch.arange(B, dtype=torch.float32, device=sp.device),
+               hits=hits)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in k4s.items()}
+    if lut is None:
+        got = dk.shard_select(pairs, sp, co, bitLUT, row=torch.zeros((B, L), device=sp.device),
+                              **k4s)
+        want = dk.shard_select(pairs.cpu(), sp.cpu(), co.cpu(),
+                               None if bitLUT is None else bitLUT.cpu(), row=torch.zeros((B, L)),
+                               **cpu)
+    else:
+        got = dk.shard_select_nrzs(pairs, sp, co, lut, row=torch.zeros((B, L), device=sp.device),
+                                   next_form=form, **k4s)
+        want = dk.shard_select_nrzs(pairs.cpu(), sp.cpu(), co.cpu(), lut.cpu(),
+                                    row=torch.zeros((B, L)), **cpu)
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("kind", ["bits", "nrzs_load", "nrzs_shfl"])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("nd", [1, 2, 4])
+@pytest.mark.parametrize("B,S", [(1, 4608), (16, 4608), (64, 4608), (3, 33), (1, 1)])
+def test_shard_select_plans(cuda, B, S, nd, clip, kind):
+    """K4s in every ``k4s_plan`` form that B x S picks, on the pairs K4l
+    finds on nd shards (tied windows), with and without a clip bitmask, with
+    a centre-bit LUT and in the NRZ-S form (K4n in the same launch, each
+    form of the next slot's key; the (8, 2, 2) LUT of bench_BPSK): rows
+    equal to the plain version's; the NRZ-S form counts one K4s launch and
+    one of the form."""
+    cols, sp, co, hits, kw = _split_inputs(cuda, B, S, nd, seed=7 * B + S + nd)
+    pairs, _ = _k4l_pairs(cols, sp, co, kw)
+    if kind == "bits":
+        lut8 = torch.from_numpy((np.arange(16) % 3 == 1).astype(np.int8)).to(cuda)
+        got, want = _k4s_rows(pairs, sp, co, hits if clip else None, kw, bitLUT=lut8)
+    else:
+        lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
+        before = (dk.shard_select.launches, dk.shard_select_nrzs.launches)
+        got, want = _k4s_rows(pairs, sp, co, hits if clip else None, kw, lut=lut,
+                              form=kind.split("_")[1])
+        assert (dk.shard_select.launches, dk.shard_select_nrzs.launches) == (
+            before[0] + 1, before[1] + 1)
+        if S > 1:
+            assert bool((got[:, S:2 * S] == -1).any())
+    assert torch.equal(got, want)
+    if clip and S == 4608:
+        assert bool((got[:, S:2 * S] == -2).any())
+
+
+@pytest.mark.parametrize("kind", ["bits", "nrzs_load", "nrzs_shfl"])
+@pytest.mark.parametrize("B", [1, 16])
+def test_shard_select_clip_at_clamp(cuda, B, kind):
+    """K4s with hw near its clamp (spSym about 1000: hw 2000, far more clip
+    words than a slot holds in registers, tested in global memory): rows
+    equal to the plain version's, some slot -2."""
+    cols, sp, co, hits, kw = _split_inputs(cuda, B, 66, 2, seed=B + 66, spc=1000.0)
+    pairs, _ = _k4l_pairs(cols, sp, co, kw)
+    if kind == "bits":
+        got, want = _k4s_rows(pairs, sp, co, hits, kw,
+                              bitLUT=torch.ones(16, dtype=torch.int8, device=cuda))
+    else:
+        lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
+        got, want = _k4s_rows(pairs, sp, co, hits, kw, lut=lut, form=kind.split("_")[1])
+    assert 2 * int(np.ceil(float(sp.min()))) > 4 * 32
+    assert torch.equal(got, want) and bool((got[:, 66:132] == -2).any())
+
+
+@pytest.mark.parametrize("form", ["load", "shfl"])
+@pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
+@pytest.mark.parametrize("B", [1, 16])
+def test_shard_select_nrzs_large_lut(cuda, B, M, K, form):
+    """K4s's NRZ-S form with LUTs of 64 and 256 KB (read through L1) on a
+    bank of M + 2 masks (symbols past the LUT's rows), a third of the
+    transitions planted in a table: rows equal to the plain version's, some
+    bits 1, some transition errors."""
+    S, nd, W = 4608, 2, 7
+    Mb = M + 2
+    rng = np.random.RandomState(M + B)
+    vals = torch.from_numpy(rng.randint(0, 4, (nd, B, S)).astype(np.float32))
+    keys = torch.from_numpy((rng.randint(0, W, (nd, B, S)) * Mb
+                             + rng.randint(0, Mb, (nd, B, S))).astype(np.int32))
+    pairs = dk.pack_pairs(vals, keys)
+    sp = torch.full((B,), 2 ** 16 / S, device=cuda)
+    co = torch.full((B,), 3.5, device=cuda)
+    kw = dict(M=Mb, Nfft=2 ** 16, windowWidth=W, spsymMin=8, numSymMax=S)
+    base = dk.shard_select(pairs, sp.cpu(), co.cpu(), None, row=torch.zeros((B, 5 * S + 12)),
+                           trust_normal=3, code_val=torch.zeros(B), **kw)
+    sym = base[:, 2 * S:3 * S].long().numpy()
+    lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
+    for b in range(B):
+        for i in range(0, S, 3):
+            if sym[b, i] < M:
+                lut[sym[b, i], i % 2, i % K] = sym[b, (i + 1) % S]
+    got, want = _k4s_rows(pairs.to(cuda), sp, co, None, kw, lut=torch.from_numpy(lut).to(cuda),
+                          form=form)
+    assert torch.equal(got, want)
+    assert bool((got[:, :S] == 1).any()) and bool((got[:, S:2 * S] == -1).any())

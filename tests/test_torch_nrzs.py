@@ -1,5 +1,6 @@
 """NRZ-S (BPSK) in the port against the JAX package: K4n's plain version
-against ``extract_bits_nrzs``, a bench_BPSK block through the port's
+against ``extract_bits_nrzs``, K4s's NRZ-S form on the CPU against its
+centre-bit form and ``nrzs_rows_plain``, a bench_BPSK block through the port's
 block graph against ``build_process_block`` (UHF, and STX with the clip
 window, where -2 must win over -1), and bench_BPSK packets through the
 port's ``Demodulator`` and ``Decoder`` against JAX's (as
@@ -27,7 +28,8 @@ from pycusdr_tpu_torch.decode import Decoder
 from pycusdr_tpu_torch.dsp.block import build_process_batch, packed_len
 from pycusdr_tpu_torch.dsp.signal_gen import get_padded_packet, modulate_bpsk, packet_data
 from pycusdr_tpu_torch.models import UHF
-from pycusdr_tpu_torch.ops.demod_kernels import nrzs_bits, nrzs_bits_plain, nrzs_rows_plain
+from pycusdr_tpu_torch.ops import demod_kernels as dk
+from pycusdr_tpu_torch.ops.demod_kernels import nrzs_bits_plain, nrzs_rows_plain
 from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.protocol.benchmark.bench_bpsk import _reference_lut
 
@@ -61,25 +63,31 @@ def test_nrzs_bits_plain_matches_jax(maskLen, span):
 
 
 def test_nrzs_row_pass_on_cpu_is_the_plain_version():
-    """The K4n wrapper on CPU rows is ``nrzs_rows_plain``: bits from the
-    symbols, trust -1 on an error unless it is -2, nBits = nSym - 1."""
+    """K4s's NRZ-S form (``shard_select_nrzs``) on CPU pairs is its
+    centre-bit form with bits 0, then ``nrzs_rows_plain`` on those rows:
+    bits from the symbols, trust -1 on an error unless the clip window set
+    -2, nBits = nSym - 1. Exact."""
     lut = torch.from_numpy(_reference_lut(4).astype(np.int32))
-    S, L = 64, 5 * 64 + 12 + 4
+    N, S, B, M, W = 1024, 64, 2, 16, 5
     rng = np.random.RandomState(3)
-    row = torch.zeros((2, L))
-    row[:, 2 * S:3 * S] = torch.from_numpy(rng.randint(0, 8, (2, S)).astype(np.float32))
-    row[:, S:2 * S] = 4.0
-    row[:, S:2 * S:5] = -2.0
-    row[:, 5 * S] = 60.0
-    got = nrzs_bits(row.clone(), lut, S)
-    want = nrzs_rows_plain(row.clone(), lut, S)
-    assert torch.equal(got, want)
-    bits, err = nrzs_bits_plain(row[:, 2 * S:3 * S].int(), lut)
+    pairs = dk.pack_pairs(torch.from_numpy(rng.randint(0, 4, (2, B, S)).astype(np.float32)),
+                          torch.from_numpy(rng.randint(0, W * M, (2, B, S)).astype(np.int32)))
+    hit = np.zeros((B, N), bool)
+    hit[:, [100, 700]] = True
+    kw = dict(M=M, Nfft=N, windowWidth=W, spsymMin=8, numSymMax=S, trust_normal=4,
+              code_val=torch.ones(B), hits=dk.pack_bits(torch.from_numpy(hit)))
+    sp, co = torch.tensor([15.7, 16.2]), torch.tensor([3.5, 0.25])
+    L = 5 * S + 12 + 4
+    got = dk.shard_select_nrzs(pairs, sp, co, lut, row=torch.zeros((B, L)), **kw)
+    base = dk.shard_select(pairs, sp, co, None, row=torch.zeros((B, L)), **kw)
+    assert torch.equal(got, nrzs_rows_plain(base.clone(), lut, S))
+    bits, err = nrzs_bits_plain(base[:, 2 * S:3 * S].int(), lut)
     assert torch.equal(got[:, :S], bits.float())
-    trust = got[:, S:2 * S]
-    assert bool((trust[:, ::5] == -2).all())
-    assert torch.equal(trust == -1, err & (row[:, S:2 * S] != -2))
-    assert got[:, 5 * S + 1].tolist() == [59.0, 59.0]
+    trust, before = got[:, S:2 * S], base[:, S:2 * S]
+    assert bool((trust == -2).any()) and bool((trust == -1).any())
+    assert torch.equal(trust == -2, before == -2)
+    assert torch.equal(trust == -1, (err & (before != -2)) | (before == -1))
+    assert got[:, 5 * S + 1].tolist() == (base[:, 5 * S] - 1).tolist()
 
 
 def _bpsk_spec(mode):

@@ -7,9 +7,9 @@
   1e-5 thr, the signal within rtol 1e-5 there. K4's and K4s's clip window
   from such a bitmask (a partial last word) against JAX's ``find_centres``
   on JAX's dilated mask: symbols, centres and trust -2 exact.
-- K4n at any symbol LUT: ``k4n_form`` (shared memory up to 227 KB, read
-  through L1 above) and ``nrzs_bits`` against JAX's ``extract_bits_nrzs``
-  at M x 2 x K above 12288 entries (the 48 KB the kernel took before),
+- K4n at any symbol LUT: its plain version and K4s's NRZ-S form
+  (``shard_select_nrzs``, the LUT read through L1 at any size) against
+  JAX's ``extract_bits_nrzs`` at M x 2 x K above 12288 entries (48 KB),
   bits and errors exact.
 - K2 and K3 at every power of two: ``fft_split``, ``mf_bank_plan`` and
   ``timing_band_plan`` equal the two-pass plans up to 2^18 (frozen copies
@@ -112,8 +112,8 @@ def test_clip_window_partial_last_word_matches_jax(N):
     t = dk.symbol_detect(*args, lut, trust_normal=2, hits=hits, **kw)
     val, key = dk.symbol_detect_local(*args, m0=0, M=4, **kw)
     row = torch.zeros((B, len(PACK_ARRAYS) * S + 12))
-    dk.shard_select(val[None], key[None], args[2], args[3], lut, M=4, trust_normal=2, row=row,
-                    code_val=torch.zeros(B), hits=hits, **kw)
+    dk.shard_select(dk.pack_pairs(val, key)[None], args[2], args[3], lut, M=4, trust_normal=2,
+                    row=row, code_val=torch.zeros(B), hits=hits, **kw)
     for b in range(B):
         spc = jnp.maximum(jnp.float32(sp[b]), float(DET["spsymMin"]))
         clip = dilate_mask_dynamic(jnp.asarray(hit[b]), 2 * jnp.ceil(spc).astype(jnp.int32))
@@ -134,20 +134,13 @@ def test_clip_window_partial_last_word_matches_jax(N):
 # ------------------------------------------------ K4n at any LUT size
 
 
-def test_k4n_form_by_size():
-    assert dk.k4n_form(8, 2) == "shared"  # bench_BPSK's LUT
-    assert dk.k4n_form(1536, 4) == "shared"  # 48 KB: the old limit
-    assert dk.k4n_form(2048, 4) == "shared"  # 64 KB: opted in
-    assert dk.k4n_form(29056, 1) == "shared"  # 227 KB exactly
-    assert dk.k4n_form(29057, 1) == "global"
-    assert dk.k4n_form(8192, 4) == "global"
-
-
 @pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4), (13000, 1)])
 def test_nrzs_large_lut_matches_jax(M, K):
     """NRZ-S over a LUT of M x 2 x K > 12288 entries: the plain version
-    and the row wrapper against JAX's ``extract_bits_nrzs``, symbols
-    outside [0, M) included."""
+    against JAX's ``extract_bits_nrzs``, symbols outside [0, M) included;
+    K4s's NRZ-S form on the CPU (one shard, a bank of M + 2 masks, so its
+    symbols reach past the LUT; -1 taken as M + 1) against JAX on the
+    symbols it selects."""
     rng = np.random.RandomState(M + K)
     S = 700
     lut = rng.randint(0, M, (M, 2, K)).astype(np.int32)
@@ -160,12 +153,17 @@ def test_nrzs_large_lut_matches_jax(M, K):
     bits, err = dk.nrzs_bits_plain(torch.from_numpy(sym), torch.from_numpy(lut))
     assert np.array_equal(bits.numpy(), jb) and np.array_equal(err.numpy(), je)
     assert (~je).sum() > S // 4 and je.any()
+    sym_k = np.where(sym < 0, M + 1, sym).astype(np.int32)  # keys are >= 0
+    jb, je = (np.asarray(v) for v in extract_bits_nrzs(jnp.asarray(sym_k), jnp.asarray(lut)))
+    pairs = dk.pack_pairs(torch.ones((1, 1, S)), torch.from_numpy(sym_k)[None, None])
     row = torch.zeros((1, len(PACK_ARRAYS) * S + 12))
-    row[0, 2 * S:3 * S] = torch.from_numpy(sym).float()
-    row[0, S:2 * S] = 2.0
-    dk.nrzs_bits(row, torch.from_numpy(lut), S)
+    dk.shard_select_nrzs(pairs, torch.tensor([4.0]), torch.tensor([0.5]), torch.from_numpy(lut),
+                         M=M + 2, Nfft=8 * S, windowWidth=3, spsymMin=2, numSymMax=S,
+                         trust_normal=2, row=row, code_val=torch.zeros(1))
+    assert np.array_equal(row[0, 2 * S:3 * S].numpy(), sym_k.astype(np.float32))
     assert np.array_equal(row[0, :S].numpy(), jb.astype(np.float32))
     assert np.array_equal(row[0, S:2 * S].numpy(), np.where(je, -1, 2).astype(np.float32))
+    assert (~je).sum() > S // 4 and je.any()
 
 
 # ------------------------------------------------ K2 and K3 at every power of two
