@@ -84,7 +84,10 @@ root, which builds that tree's kernels and times, on card 0:
   (``force_generic``): ms by CUDA events, device busy ms, the sha256 of
   its outputs; K4's device ms at the flagship and STX shapes (the guard);
   and ptxas's registers and stack of every K4, K4l and K4s instantiation.
-  The turn finds out which API the tree has.
+  Where the tree has ``k4s_plan``, K4s's device ms at B=16 and 64 also at
+  each launch plan (threads, slots a thread) in place of its pick, at the
+  flagship (nd = 1, 2) and in the NRZ-S form (nd = 1). The turn finds out
+  which API the tree has.
 
 The turns run parent, change, change, parent, R times (default 1), so a
 drift of the card or the host shows as a difference between the runs of
@@ -488,14 +491,19 @@ from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
 PACKED = hasattr(dk, "shard_select_nrzs")
 #: the change's forms of the next slot's symbol in K4s's NRZ-S form, where it has two
 NEXT_FORMS = getattr(dk, "K4S_NEXT_FORMS", (None,))
+#: K4s's launch plans (threads, slots a thread) timed at B=16 and 64, where the tree
+#: has ``k4s_plan`` (the wrapper reads it at each call)
+PLANS = ((64, 1), (128, 1), (128, 2)) if hasattr(dk, "k4s_plan") else ()
 out = {}
 _lib.lib()  # ptxas's registers and stack of K4's, K4l's and K4s's instantiations
 log = Path(_lib.build_info["log"]).read_text()
 for src in ("symbol_detect.cu", "shard_select.cu"):
     for part in log.split(f"== {src}", 1)[1].split("\n== ", 1)[0].split(
             "Compiling entry function")[1:]:
-        m = re.search(r"\d(symbol_detect_local|symbol_detect|shard_select)(I\w+?EE)?",
+        m = re.search(r"\d(symbol_detect_local|symbol_detect|shard_select|nrzs_bits)(I\w+?EE)?",
                       part.split("\n")[0])  # the name and its template arguments, mangled
+        if m is None:
+            continue
         out[f"ptxas {m[1]}{m[2] or ''}"] = (
             re.search(r"Used (\d+) registers", part)[1] + " registers, "
             + re.search(r"(\d+) bytes stack frame", part)[1] + " bytes stack")
@@ -537,6 +545,19 @@ def timed(tag, fn, kernel, also=None):
     out[f"{tag} host us"] = host_us(fn)
 
 
+def plans(tag, fn, B):
+    # K4s's device ms at each of PLANS in place of k4s_plan's pick
+    if B == 1:
+        return
+    pick = dk.k4s_plan
+    for t, spt in PLANS:
+        dk.k4s_plan = lambda B_, S_: (t, spt)
+        try:
+            out[f"{tag} plan {t}x{spt} device ms"] = kernel_ms(fn, "shard_select")
+        finally:
+            dk.k4s_plan = pick
+
+
 dev = torch.device("cuda")
 cfg = {p: c.configuration(p)[2] for p in ("flagship", "stx")}
 cfg["bpsk"] = c.bpsk_configuration()[2]
@@ -567,6 +588,8 @@ for p, spec in cfg.items():
                     fn = k4s(spec, consts[p], inp, vals, keys, None, row, lut, form)
                     tag = f"K4s+K4n bpsk nd={nd} B={B}" + (f" ({form})" if form else "")
                     timed(tag, fn, "shard_select", None if PACKED else "nrzs_bits")
+                    if nd == 1:
+                        plans(tag, fn, B)
                     row.zero_()
                     fn()
                     seen.add(digest(row))
@@ -575,6 +598,8 @@ for p, spec in cfg.items():
             else:  # K4s with STX's clip bitmask, and without it at the flagship
                 fn = k4s(spec, consts[p], inp, vals, keys, hits, row)
                 timed(f"K4s {p} nd={nd} B={B}", fn, "shard_select")
+                if p == "flagship" and nd < 4:
+                    plans(f"K4s {p} nd={nd} B={B}", fn, B)
                 row.zero_()
                 fn()
                 out[f"K4s {p} nd={nd} B={B} rows sha256"] = digest(row)

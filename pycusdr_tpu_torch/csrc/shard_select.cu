@@ -50,7 +50,8 @@
 //   key) pair stored as one 8-byte word, so the dopp all-gather moves one
 //   buffer and K4s reads one word a shard.
 // - K4s issues the loads of all nd pairs of each of its slots at once
-//   (kNdChunk shards a round trip; more shards take more), and with a clip
+//   (ND shards a round trip, ND = nd up to 2, else 4: registers only for
+//   the pairs a launch reads; more shards take more), and with a clip
 //   bitmask the words that cover [A - hw, A + W - 1 + hw] with them: A is
 //   known before the select, so they are tested in registers after it
 //   (only a wider range, hw near its clamp, is tested in global memory).
@@ -68,7 +69,6 @@
 namespace {
 
 constexpr int kMaxThreads = 128;  // threads of a CTA: 64 or 128
-constexpr int kNdChunk = 4;       // shards' pairs of a slot loaded in one round trip
 
 // grid (ceil(S / (blockDim.x * SPT)), B); pair: (B, S) (value bits, key)
 template <int SPT, bool kArgWin, bool kVec>
@@ -110,8 +110,9 @@ symbol_detect_local(const float* __restrict__ colmax, const int* __restrict__ co
 // key). kNrzs: the NRZ-S bits from the (lutM, 2, lutK) symLUT; candidate
 // SPT + s of a thread is slot s's next, x + 1 mod S. kShfl: a lane takes
 // the next slot's key from lane + 1 (__shfl_down_sync), and only lane 31 and
-// the owner of slot S - 1 load and select their next slot
-template <int SPT, bool kNrzs, bool kShfl>
+// the owner of slot S - 1 load and select their next slot. ND: the shards'
+// pairs of a slot loaded in one round trip
+template <int SPT, int ND, bool kNrzs, bool kShfl>
 __global__ void __launch_bounds__(kMaxThreads)
 shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ spSym,
              const float* __restrict__ codeOffset, const int8_t* __restrict__ bitLUT,
@@ -123,20 +124,20 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
     const int x0 = blockIdx.x * T * SPT;
     constexpr int NC = kNrzs ? 2 * SPT : SPT;  // slots whose select a thread runs
 
-    // every candidate's first kNdChunk pairs first (they need nothing else),
+    // every candidate's first ND pairs first (they need nothing else),
     // then spSym and codeOffset, then every slot's clip words: two round trips
     const size_t stride = (size_t)B * S;
     const int2* pb = pairs + (size_t)b * S;
     int xc[NC];
     bool own[SPT];  // kShfl: the thread selects slot s's next itself
-    int2 q[NC][kNdChunk];
+    int2 q[NC][ND];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
         const int x = min(x0 + (c % SPT) * T + tid, S - 1);  // a slot past S reads in range
         xc[c] = c < SPT ? x : x + 1 < S ? x + 1 : 0;
         if (c >= SPT) own[c - SPT] = !kShfl || (tid & 31) == 31 || x == S - 1;
 #pragma unroll
-        for (int u = 0; u < kNdChunk; ++u)
+        for (int u = 0; u < ND; ++u)
             if (u < nd)
                 q[c][u] = c < SPT || own[c - SPT] ? __ldg(pb + u * stride + xc[c]) : q[c - SPT][u];
     }
@@ -174,7 +175,7 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
         best[c] = __int_as_float(q[c][0].x);
         gk[c] = q[c][0].y;
 #pragma unroll
-        for (int u = 1; u < kNdChunk; ++u) {
+        for (int u = 1; u < ND; ++u) {
             const float v = __int_as_float(q[c][u].x);
             const int g = q[c][u].y;
             if (u < nd && (v > best[c] || (v == best[c] && g < gk[c]))) {
@@ -183,18 +184,18 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
             }
         }
     }
-    for (int d0 = kNdChunk; d0 < nd; d0 += kNdChunk) {  // nd > kNdChunk: more round trips
+    for (int d0 = ND; d0 < nd; d0 += ND) {  // nd > ND: more round trips
 #pragma unroll
         for (int c = 0; c < NC; ++c)
 #pragma unroll
-            for (int u = 0; u < kNdChunk; ++u)
+            for (int u = 0; u < ND; ++u)
                 if (d0 + u < nd)
                     q[c][u] = c < SPT || own[c - SPT] ? __ldg(pb + (d0 + u) * stride + xc[c])
                                                       : q[c - SPT][u];
 #pragma unroll
         for (int c = 0; c < NC; ++c)
 #pragma unroll
-            for (int u = 0; u < kNdChunk; ++u) {
+            for (int u = 0; u < ND; ++u) {
                 const float v = __int_as_float(q[c][u].x);
                 const int g = q[c][u].y;
                 if (d0 + u < nd && (v > best[c] || (v == best[c] && g < gk[c]))) {
@@ -305,22 +306,28 @@ PYCUSDR_API int pycusdr_shard_select(const int* pairs, int nd, const float* spSy
 #define K4S_ARGS                                                                            \
     p, nd, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, row, L, B, N, W, spsymMin, \
         S, M, trust_normal, hw_max, symLUT, lutM, lutK
-    if (symLUT && shfl) {
-        if (spt == 1)
-            shard_select<1, true, true><<<grid, threads, 0, stream>>>(K4S_ARGS);
-        else
-            shard_select<2, true, true><<<grid, threads, 0, stream>>>(K4S_ARGS);
-    } else if (symLUT) {
-        if (spt == 1)
-            shard_select<1, true, false><<<grid, threads, 0, stream>>>(K4S_ARGS);
-        else
-            shard_select<2, true, false><<<grid, threads, 0, stream>>>(K4S_ARGS);
-    } else {
-        if (spt == 1)
-            shard_select<1, false, false><<<grid, threads, 0, stream>>>(K4S_ARGS);
-        else
-            shard_select<2, false, false><<<grid, threads, 0, stream>>>(K4S_ARGS);
+#define K4S_SPT(ND, NRZS, SHFL)                                                             \
+    if (spt == 1)                                                                           \
+        shard_select<1, ND, NRZS, SHFL><<<grid, threads, 0, stream>>>(K4S_ARGS);           \
+    else                                                                                    \
+        shard_select<2, ND, NRZS, SHFL><<<grid, threads, 0, stream>>>(K4S_ARGS);
+#define K4S_ND(NRZS, SHFL)                                                                  \
+    if (nd == 1) {                                                                          \
+        K4S_SPT(1, NRZS, SHFL)                                                              \
+    } else if (nd == 2) {                                                                   \
+        K4S_SPT(2, NRZS, SHFL)                                                              \
+    } else {                                                                                \
+        K4S_SPT(4, NRZS, SHFL)                                                              \
     }
+    if (symLUT && shfl) {
+        K4S_ND(true, true)
+    } else if (symLUT) {
+        K4S_ND(true, false)
+    } else {
+        K4S_ND(false, false)
+    }
+#undef K4S_ND
+#undef K4S_SPT
 #undef K4S_ARGS
     return (int)cudaGetLastError();
 }
