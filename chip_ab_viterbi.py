@@ -547,7 +547,7 @@ def timed(tag, fn, kernel, also=None):
 
 def plans(tag, fn, B):
     # K4s's device ms at each of PLANS in place of k4s_plan's pick
-    if B == 1:
+    if B == 1 or not PLANS:
         return
     pick = dk.k4s_plan
     for t, spt in PLANS:
