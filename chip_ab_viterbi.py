@@ -79,14 +79,14 @@ root, which builds that tree's kernels and times, on card 0:
   at B=1/16/64: device ms (torch.profiler), ms by CUDA events, host us a
   call and the sha256 of the pairs and the rows; K4s with the NRZ-S bits
   on bench_BPSK at nd = 1 and 2 (one launch of ``shard_select_nrzs`` where
-  the tree has it, in each of its forms of the next slot's symbol, else
-  K4s and then the standalone K4n); the bench_BPSK generic step at C=16
+  the tree has it, else K4s and then the standalone K4n); the bench_BPSK
+  generic step at C=16
   (``force_generic``): ms by CUDA events, device busy ms, the sha256 of
   its outputs; K4's device ms at the flagship and STX shapes (the guard);
   and ptxas's registers and stack of every K4, K4l and K4s instantiation.
   Where the tree has ``k4s_plan``, K4s's device ms at B=16 and 64 also at
   each launch plan (threads, slots a thread) in place of its pick, at the
-  flagship (nd = 1, 2) and in the NRZ-S form (nd = 1). The turn finds out
+  flagship (nd = 1, 2, 4) and in the NRZ-S form (nd = 1). The turn finds out
   which API the tree has.
 
 The turns run parent, change, change, parent, R times (default 1), so a
@@ -223,18 +223,18 @@ def trace(fn, calls):
 
 
 # device ms a call in the __global__ function name, launched once a call; a
-# trace that lost any of the launches is taken again, five times at most
+# trace that lost any of the launches is taken again, ten times at most
 def kernel_ms(fn, name, calls=20):
     pat = re.compile(r"(^|[\\s:])%s[<(]" % name)
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(5):
+    for _ in range(10):
         ev = [e for e in trace(fn, calls) if pat.search(e[0])]
         seen.append(sum(e[1] for e in ev))
         if seen[-1] == calls:
             return sum(e[2] for e in ev) / 1e3 / calls
-    raise AssertionError(f"{name}: five traces held {seen} launches, not {calls}")
+    raise AssertionError(f"{name}: ten traces held {seen} launches, not {calls}")
 
 
 # device busy ms a call: every device event of the trace, once two traces
@@ -489,8 +489,6 @@ from pycusdr_tpu_torch.parallel import build_sharded_demod_step, make_mesh
 """ + PROFILING + r"""
 
 PACKED = hasattr(dk, "shard_select_nrzs")
-#: the change's forms of the next slot's symbol in K4s's NRZ-S form, where it has two
-NEXT_FORMS = getattr(dk, "K4S_NEXT_FORMS", (None,))
 #: K4s's launch plans (threads, slots a thread) timed at B=16 and 64, where the tree
 #: has ``k4s_plan`` (the wrapper reads it at each call)
 PLANS = ((64, 1), (128, 1), (128, 2)) if hasattr(dk, "k4s_plan") else ()
@@ -518,15 +516,13 @@ def pairs_of(spec, consts, inp, nd):
     return torch.stack([p[0] for p in pp]), torch.stack([p[1] for p in pp])
 
 
-def k4s(spec, consts, inp, vals, keys, hits, row, lut=None, form=None):
+def k4s(spec, consts, inp, vals, keys, hits, row, lut=None):
     # one call of K4s (with the NRZ-S bits where lut is given) into row
     a = (inp["spSym"], inp["codeOffset"])
     kw = dict(c.k4_kwargs(spec, consts), M=spec.num_masks, code_val=inp["code_val"], hits=hits,
               row=row)
     if PACKED:
         pairs = dk.pack_pairs(vals, keys)
-        if form is not None:
-            kw["next_form"] = form
         if lut is None:
             return lambda: dk.shard_select(pairs, *a, consts.bitLUT, **kw)
         return lambda: dk.shard_select_nrzs(pairs, *a, lut, **kw)
@@ -551,7 +547,7 @@ def plans(tag, fn, B):
         return
     pick = dk.k4s_plan
     for t, spt in PLANS:
-        dk.k4s_plan = lambda B_, S_: (t, spt)
+        dk.k4s_plan = lambda B_, S_, nd_: (t, spt)
         try:
             out[f"{tag} plan {t}x{spt} device ms"] = kernel_ms(fn, "shard_select")
         finally:
@@ -583,22 +579,18 @@ for p, spec in cfg.items():
             if p == "bpsk":  # K4s with the NRZ-S bits
                 if nd == 4:
                     continue
-                lut, seen = consts[p].symbolLUT, set()
-                for form in NEXT_FORMS:
-                    fn = k4s(spec, consts[p], inp, vals, keys, None, row, lut, form)
-                    tag = f"K4s+K4n bpsk nd={nd} B={B}" + (f" ({form})" if form else "")
-                    timed(tag, fn, "shard_select", None if PACKED else "nrzs_bits")
-                    if nd == 1:
-                        plans(tag, fn, B)
-                    row.zero_()
-                    fn()
-                    seen.add(digest(row))
-                assert len(seen) == 1, f"the forms' rows differ at nd={nd} B={B}"
-                out[f"K4s+K4n bpsk nd={nd} B={B} rows sha256"] = seen.pop()
+                fn = k4s(spec, consts[p], inp, vals, keys, None, row, consts[p].symbolLUT)
+                tag = f"K4s+K4n bpsk nd={nd} B={B}"
+                timed(tag, fn, "shard_select", None if PACKED else "nrzs_bits")
+                if nd == 1:
+                    plans(tag, fn, B)
+                row.zero_()
+                fn()
+                out[f"{tag} rows sha256"] = digest(row)
             else:  # K4s with STX's clip bitmask, and without it at the flagship
                 fn = k4s(spec, consts[p], inp, vals, keys, hits, row)
                 timed(f"K4s {p} nd={nd} B={B}", fn, "shard_select")
-                if p == "flagship" and nd < 4:
+                if p == "flagship":
                     plans(f"K4s {p} nd={nd} B={B}", fn, B)
                 row.zero_()
                 fn()

@@ -135,8 +135,8 @@ and then no result line is printed):
    K1 and K5 with
    centre_shift at B=1/16 against their plain versions, and K4l and K4s
    in every plan (B=1/16/64) at the flagship, STX (clip window) and
-   bench_BPSK (K4s's NRZ-S form, K4n in its launch, in each form of the
-   next slot's key) shapes, on the whole bank, its halves and its quarters;
+   bench_BPSK (K4s's NRZ-S form, K4n in its launch) shapes, on the whole
+   bank, its halves and its quarters;
    no path may launch a standalone K4n;)
 5. times: CUDA-event medians per kernel, its plain version and a
    PyTorch library yardstick (where one call computes the same
@@ -2353,11 +2353,11 @@ def check_split_detector(spec, consts, B):
     gathered pairs, against their plain versions on the card: the packed
     pairs and the rows equal (values, keys, symbols, centres, trust with
     the clip window), one launch a call. Without a centre-bit LUT K4s runs
-    its NRZ-S form (K4n in its launch) in every form of the next slot's
-    key, against K4s's plain version then ``nrzs_rows_plain``. At nd = 1
+    its NRZ-S form (K4n in its launch), against K4s's plain version then
+    ``nrzs_rows_plain``. At nd = 1
     the rows' bits, symbols, centres and mags equal K4's (centre-bit LUT).
     Returns (nd -> slots set to trust -2, slots the upper half won, the K4l
-    and K4s plans)."""
+    plan, nd -> the K4s plan)."""
     inp = kernel_inputs(spec, consts, B)
     kw = k4l_kwargs(spec)
     kw4 = k4_kwargs(spec, consts)
@@ -2381,16 +2381,13 @@ def check_split_detector(spec, consts, B):
                                         row=torch.zeros((B, L), device="cuda"))
         if consts.bitLUT is None:
             rp = dk.nrzs_rows_plain(rp, consts.symbolLUT, S)
-            rows = [dk.shard_select_nrzs(pk, sp, co, consts.symbolLUT, next_form=f, **sel,
-                                         row=torch.zeros((B, L), device="cuda"))
-                    for f in dk.K4S_NEXT_FORMS]
+            rk = dk.shard_select_nrzs(pk, sp, co, consts.symbolLUT, **sel,
+                                      row=torch.zeros((B, L), device="cuda"))
         else:
-            rows = [dk.shard_select(pk, sp, co, consts.bitLUT, **sel,
-                                    row=torch.zeros((B, L), device="cuda"))]
+            rk = dk.shard_select(pk, sp, co, consts.bitLUT, **sel,
+                                 row=torch.zeros((B, L), device="cuda"))
         torch.cuda.synchronize()
-        for rk in rows:
-            assert torch.equal(rk, rp), f"K4s B={B} nd={nd}: rows differ from the plain version's"
-        rk = rows[0]
+        assert torch.equal(rk, rp), f"K4s B={B} nd={nd}: rows differ from the plain version's"
         clipped[nd] = int((rk[:, S:2 * S] == dk.TRUST_CLIPPED).sum())
         if nd == 2:
             split = int((rk[:, 2 * S:3 * S] >= Ml).sum())
@@ -2405,7 +2402,7 @@ def check_split_detector(spec, consts, B):
                 i = PACK_ARRAYS.index(name)
                 assert torch.equal(rk[:, i * S:(i + 1) * S], k4[j].float()), \
                     f"K4l + K4s at nd = 1: {name} differ from K4's"
-    return clipped, split, dk.k4_plan(B, S), dk.k4s_plan(B, S)
+    return clipped, split, dk.k4_plan(B, S), {nd: dk.k4s_plan(B, S, nd) for nd in SPLIT_NDS}
 
 
 def generic_blocks(spec, C, seed=SEED + 60):
@@ -3283,8 +3280,7 @@ def main() -> int:
         for B in BATCHES:
             clipped, split, p4l, p4s = check_split_detector(spec_, consts_, B)
             half = spec_.num_masks // 2
-            nrzs = (f" in its NRZ-S form (K4n in K4s's launch; next-slot forms "
-                    f"{list(dk.K4S_NEXT_FORMS)})" if consts_.bitLUT is None else "")
+            nrzs = " in its NRZ-S form (K4n in K4s's launch)" if consts_.bitLUT is None else ""
             say("kernels", f"K4l (plan {p4l}), K4s{nrzs} (plan {p4s}) vs plain OK at the {label} "
                            f"shape B={B} (M={spec_.num_masks}: the bank split {list(SPLIT_NDS)} "
                            f"ways): packed pairs and rows equal; slots the upper half "

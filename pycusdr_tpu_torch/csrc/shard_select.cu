@@ -64,6 +64,11 @@
 //   L1 or L2): no shared memory, no barrier. The select is deterministic, so
 //   the neighbour's symbol is bit-equal to the one its owner finds. The roll
 //   wraps slot S - 1 onto slot 0 over the padded slots too, as jnp.roll does.
+//   A form that took the next key from lane + 1 by __shfl_down_sync (lane 31
+//   and the owner of slot S - 1 loading their next slot) measured 0.0002-
+//   0.0003 ms slower at every B on one H100 (chip_ab_viterbi.py --turn shard):
+//   the shuffle waits on the whole warp's select, and lane 31's predicated
+//   loads still cost the warp a request; it is not kept.
 #include "detect_window.cuh"
 
 namespace {
@@ -108,11 +113,9 @@ symbol_detect_local(const float* __restrict__ colmax, const int* __restrict__ co
 
 // grid (ceil(S / (blockDim.x * SPT)), B); pairs: (nd, B, S) (value bits,
 // key). kNrzs: the NRZ-S bits from the (lutM, 2, lutK) symLUT; candidate
-// SPT + s of a thread is slot s's next, x + 1 mod S. kShfl: a lane takes
-// the next slot's key from lane + 1 (__shfl_down_sync), and only lane 31 and
-// the owner of slot S - 1 load and select their next slot. ND: the shards'
-// pairs of a slot loaded in one round trip
-template <int SPT, int ND, bool kNrzs, bool kShfl>
+// SPT + s of a thread is slot s's next, x + 1 mod S. ND: the shards' pairs
+// of a slot loaded in one round trip
+template <int SPT, int ND, bool kNrzs>
 __global__ void __launch_bounds__(kMaxThreads)
 shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ spSym,
              const float* __restrict__ codeOffset, const int8_t* __restrict__ bitLUT,
@@ -129,17 +132,14 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
     const size_t stride = (size_t)B * S;
     const int2* pb = pairs + (size_t)b * S;
     int xc[NC];
-    bool own[SPT];  // kShfl: the thread selects slot s's next itself
     int2 q[NC][ND];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
         const int x = min(x0 + (c % SPT) * T + tid, S - 1);  // a slot past S reads in range
         xc[c] = c < SPT ? x : x + 1 < S ? x + 1 : 0;
-        if (c >= SPT) own[c - SPT] = !kShfl || (tid & 31) == 31 || x == S - 1;
 #pragma unroll
         for (int u = 0; u < ND; ++u)
-            if (u < nd)
-                q[c][u] = c < SPT || own[c - SPT] ? __ldg(pb + u * stride + xc[c]) : q[c - SPT][u];
+            if (u < nd) q[c][u] = __ldg(pb + u * stride + xc[c]);
     }
     const float spc = fmaxf(spSym[b], (float)spsymMin);
     const float co = codeOffset[b];
@@ -189,9 +189,7 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
         for (int c = 0; c < NC; ++c)
 #pragma unroll
             for (int u = 0; u < ND; ++u)
-                if (d0 + u < nd)
-                    q[c][u] = c < SPT || own[c - SPT] ? __ldg(pb + (d0 + u) * stride + xc[c])
-                                                      : q[c - SPT][u];
+                if (d0 + u < nd) q[c][u] = __ldg(pb + (d0 + u) * stride + xc[c]);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -203,18 +201,6 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
                     gk[c] = g;
                 }
             }
-    }
-
-    int nxt[SPT];  // kNrzs: the key of slot x + 1 mod S
-    if constexpr (kNrzs) {
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) {
-            nxt[s] = gk[SPT + s];
-            if (kShfl) {  // every lane of the warp takes part
-                const int up = __shfl_down_sync(0xffffffffu, gk[s], 1);
-                if (!own[s]) nxt[s] = up;
-            }
-        }
     }
 
 #pragma unroll
@@ -231,7 +217,8 @@ shard_select(const int2* __restrict__ pairs, int nd, const float* __restrict__ s
             tr = kTrustClipped;
         float bit;
         if constexpr (kNrzs) {
-            if (!nrzs_pair(symLUT, lutM, lutK, sym, nxt[s] % M, &bit) && tr != kTrustClipped)
+            if (!nrzs_pair(symLUT, lutM, lutK, sym, gk[SPT + s] % M, &bit) &&
+                tr != kTrustClipped)
                 tr = -1;
         } else {
             bit = bitLUT ? (float)bitLUT[sym] : 0.f;
@@ -286,16 +273,14 @@ PYCUSDR_API int pycusdr_symbol_detect_local(const float* colmax, const int* cola
 // trust and nBits written in the same launch; hits: (B, ceil(N/32)) u32 or
 // NULL (the bits past N zero); clipped_any: (B,) i32 or NULL (0); row: (B,
 // L) f32 packed rows, L >= 5 S + 12. threads: 64 or 128 a CTA; spt: slots a
-// thread, 1 or 2; both from ops/demod_kernels.py:k4s_plan. shfl (NRZ-S):
-// the next slot's key by a shuffle from lane + 1 (1) or by the thread's own
-// select (0).
+// thread, 1 or 2; both from ops/demod_kernels.py:k4s_plan.
 PYCUSDR_API int pycusdr_shard_select(const int* pairs, int nd, const float* spSym,
                                      const float* codeOffset, const int8_t* bitLUT,
                                      const int* symLUT, const unsigned* hits,
                                      const float* code_val, const int* clipped_any, float* row,
                                      int L, int B, int N, int W, int spsymMin, int S, int M,
                                      int trust_normal, int hw_max, int lutM, int lutK,
-                                     int threads, int spt, int shfl, cudaStream_t stream) {
+                                     int threads, int spt, cudaStream_t stream) {
     if (nd <= 0 || B <= 0 || N <= 0 || W <= 0 || W > N || S <= 0 || M <= 0 ||
         L < 5 * S + 12 || !code_val || !row || !(threads == 64 || threads == kMaxThreads) ||
         !(spt == 1 || spt == 2) || ((uintptr_t)pairs & 7) != 0)
@@ -306,25 +291,23 @@ PYCUSDR_API int pycusdr_shard_select(const int* pairs, int nd, const float* spSy
 #define K4S_ARGS                                                                            \
     p, nd, spSym, codeOffset, bitLUT, hits, code_val, clipped_any, row, L, B, N, W, spsymMin, \
         S, M, trust_normal, hw_max, symLUT, lutM, lutK
-#define K4S_SPT(ND, NRZS, SHFL)                                                             \
+#define K4S_SPT(ND, NRZS)                                                                   \
     if (spt == 1)                                                                           \
-        shard_select<1, ND, NRZS, SHFL><<<grid, threads, 0, stream>>>(K4S_ARGS);           \
+        shard_select<1, ND, NRZS><<<grid, threads, 0, stream>>>(K4S_ARGS);                 \
     else                                                                                    \
-        shard_select<2, ND, NRZS, SHFL><<<grid, threads, 0, stream>>>(K4S_ARGS);
-#define K4S_ND(NRZS, SHFL)                                                                  \
+        shard_select<2, ND, NRZS><<<grid, threads, 0, stream>>>(K4S_ARGS);
+#define K4S_ND(NRZS)                                                                        \
     if (nd == 1) {                                                                          \
-        K4S_SPT(1, NRZS, SHFL)                                                              \
+        K4S_SPT(1, NRZS)                                                                    \
     } else if (nd == 2) {                                                                   \
-        K4S_SPT(2, NRZS, SHFL)                                                              \
+        K4S_SPT(2, NRZS)                                                                    \
     } else {                                                                                \
-        K4S_SPT(4, NRZS, SHFL)                                                              \
+        K4S_SPT(4, NRZS)                                                                    \
     }
-    if (symLUT && shfl) {
-        K4S_ND(true, true)
-    } else if (symLUT) {
-        K4S_ND(true, false)
+    if (symLUT) {
+        K4S_ND(true)
     } else {
-        K4S_ND(false, false)
+        K4S_ND(false)
     }
 #undef K4S_ND
 #undef K4S_SPT

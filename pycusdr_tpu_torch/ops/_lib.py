@@ -74,9 +74,9 @@ SIGNATURES = {
     "pycusdr_symbol_detect_local": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _P],
     # pairs, nd, spSym, codeOffset, bitLUT, symLUT, hits, code_val, clipped_any, row, L, B,
-    # N, W, spsymMin, S, M, trust_normal, hw_max, lutM, lutK, threads, spt, shfl, stream
+    # N, W, spsymMin, S, M, trust_normal, hw_max, lutM, lutK, threads, spt, stream
     "pycusdr_shard_select": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

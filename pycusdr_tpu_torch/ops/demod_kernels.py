@@ -694,12 +694,14 @@ symbol_detect_local.launches = 0
 
 
 @functools.lru_cache(maxsize=256)
-def k4s_plan(B: int, S: int):
-    """K4s's launch for B blocks of S slots: (threads a CTA, slots a
-    thread), at ``k4_plan``'s edges. It changes no bit."""
+def k4s_plan(B: int, S: int, nd: int):
+    """K4s's launch for B blocks of S slots over nd shards: (threads a CTA,
+    slots a thread), at ``k4_plan``'s edges; two slots a thread only for nd
+    <= 2 (at nd = 4 a thread holds twice the pairs, and two slots' worth of
+    registers halve the threads an SM holds). It changes no bit."""
     if B * S <= K4_LATENCY_SLOTS:
         return 64, 1
-    return 128, 2 if B * S >= K4_TWO_SLOTS else 1
+    return 128, 2 if B * S >= K4_TWO_SLOTS and nd <= 2 else 1
 
 
 def shard_select_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nfft: int,
@@ -748,16 +750,11 @@ def shard_select_rows_plain(vals, keys, spSym, codeOffset, bitLUT, *, M: int, Nf
     return row
 
 
-#: K4s's NRZ-S form takes the next slot's key by the thread's own select
-#: ("load") or by a shuffle from the next lane ("shfl")
-K4S_NEXT_FORMS = ("load", "shfl")
-
-
 def shard_select(pairs, spSym, codeOffset, bitLUT, *, M: int, Nfft: int, windowWidth: int,
                  spsymMin: int, numSymMax: int, trust_normal: int, row: torch.Tensor,
                  code_val: torch.Tensor, hits: torch.Tensor = None,
-                 clipped_any: torch.Tensor = None, symbolLUT: torch.Tensor = None,
-                 next_form: str = "load") -> torch.Tensor:
+                 clipped_any: torch.Tensor = None,
+                 symbolLUT: torch.Tensor = None) -> torch.Tensor:
     """K4s: the cross-shard select (see ``shard_select_plain``) of the (nd,
     B, S, 2) int32 pairs that ``symbol_detect_local(packed=True)`` wrote on
     every shard (``pack_pairs``; keys >= 0), written into the (B, L) f32
@@ -811,13 +808,11 @@ def shard_select(pairs, spSym, codeOffset, bitLUT, *, M: int, Nfft: int, windowW
     if symbolLUT is not None:
         _lib.check(symbolLUT, "symbolLUT", torch.int32, None, dev)
         lut_mk = (symbolLUT.shape[0], symbolLUT.shape[2])
-    if next_form not in K4S_NEXT_FORMS:
-        raise ValueError(f"shard_select: next_form {next_form!r} not in {K4S_NEXT_FORMS}")
     _lib.launch("pycusdr_shard_select", _lib.ptr(pairs), nd, _lib.ptr(spSym),
                 _lib.ptr(codeOffset), _lib.ptr(bitLUT), _lib.ptr(symbolLUT), _lib.ptr(hits),
                 _lib.ptr(code_val), _lib.ptr(clipped_any), _lib.ptr(row), row.shape[1], B, Nfft,
                 windowWidth, spsymMin, S, M, trust_normal, CLIP_HW_MAX, *lut_mk,
-                *k4s_plan(B, S), int(next_form == "shfl"))
+                *k4s_plan(B, S, nd))
     shard_select.launches += 1
     if symbolLUT is not None:
         shard_select_nrzs.launches += 1

@@ -1306,7 +1306,7 @@ def test_symbol_detect_local_plans(cuda, B, S, form):
     assert torch.equal(v, dk.pair_views(want[1])[0]) and torch.equal(k, want[1, ..., 1])
 
 
-def _k4s_rows(pairs, sp, co, hits, kw, lut=None, form="load", bitLUT=None):
+def _k4s_rows(pairs, sp, co, hits, kw, lut=None, bitLUT=None):
     """K4s (the NRZ-S form with ``lut``) on the card and its plain version on
     the CPU: (rows, plain rows)."""
     B, S = pairs.shape[1], kw["numSymMax"]
@@ -1322,22 +1322,22 @@ def _k4s_rows(pairs, sp, co, hits, kw, lut=None, form="load", bitLUT=None):
                                **cpu)
     else:
         got = dk.shard_select_nrzs(pairs, sp, co, lut, row=torch.zeros((B, L), device=sp.device),
-                                   next_form=form, **k4s)
+                                   **k4s)
         want = dk.shard_select_nrzs(pairs.cpu(), sp.cpu(), co.cpu(), lut.cpu(),
                                     row=torch.zeros((B, L)), **cpu)
     torch.cuda.synchronize()
     return got.cpu(), want
 
 
-@pytest.mark.parametrize("kind", ["bits", "nrzs_load", "nrzs_shfl"])
+@pytest.mark.parametrize("kind", ["bits", "nrzs"])
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("nd", [1, 2, 4])
 @pytest.mark.parametrize("B,S", [(1, 4608), (16, 4608), (64, 4608), (3, 33), (1, 1)])
 def test_shard_select_plans(cuda, B, S, nd, clip, kind):
     """K4s in every ``k4s_plan`` form that B x S picks, on the pairs K4l
     finds on nd shards (tied windows), with and without a clip bitmask, with
-    a centre-bit LUT and in the NRZ-S form (K4n in the same launch, each
-    form of the next slot's key; the (8, 2, 2) LUT of bench_BPSK): rows
+    a centre-bit LUT and in the NRZ-S form (K4n in the same launch; the (8,
+    2, 2) LUT of bench_BPSK): rows
     equal to the plain version's; the NRZ-S form counts one K4s launch and
     one of the form."""
     cols, sp, co, hits, kw = _split_inputs(cuda, B, S, nd, seed=7 * B + S + nd)
@@ -1348,8 +1348,7 @@ def test_shard_select_plans(cuda, B, S, nd, clip, kind):
     else:
         lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
         before = (dk.shard_select.launches, dk.shard_select_nrzs.launches)
-        got, want = _k4s_rows(pairs, sp, co, hits if clip else None, kw, lut=lut,
-                              form=kind.split("_")[1])
+        got, want = _k4s_rows(pairs, sp, co, hits if clip else None, kw, lut=lut)
         assert (dk.shard_select.launches, dk.shard_select_nrzs.launches) == (
             before[0] + 1, before[1] + 1)
         if S > 1:
@@ -1359,7 +1358,7 @@ def test_shard_select_plans(cuda, B, S, nd, clip, kind):
         assert bool((got[:, S:2 * S] == -2).any())
 
 
-@pytest.mark.parametrize("kind", ["bits", "nrzs_load", "nrzs_shfl"])
+@pytest.mark.parametrize("kind", ["bits", "nrzs"])
 @pytest.mark.parametrize("B", [1, 16])
 def test_shard_select_clip_at_clamp(cuda, B, kind):
     """K4s with hw near its clamp (spSym about 1000: hw 2000, far more clip
@@ -1372,15 +1371,14 @@ def test_shard_select_clip_at_clamp(cuda, B, kind):
                               bitLUT=torch.ones(16, dtype=torch.int8, device=cuda))
     else:
         lut = DeviceConsts.from_spec(smoke.bpsk_configuration()[2], cuda).symbolLUT
-        got, want = _k4s_rows(pairs, sp, co, hits, kw, lut=lut, form=kind.split("_")[1])
+        got, want = _k4s_rows(pairs, sp, co, hits, kw, lut=lut)
     assert 2 * int(np.ceil(float(sp.min()))) > 4 * 32
     assert torch.equal(got, want) and bool((got[:, 66:132] == -2).any())
 
 
-@pytest.mark.parametrize("form", ["load", "shfl"])
 @pytest.mark.parametrize("M,K", [(2048, 4), (8192, 4)])
 @pytest.mark.parametrize("B", [1, 16])
-def test_shard_select_nrzs_large_lut(cuda, B, M, K, form):
+def test_shard_select_nrzs_large_lut(cuda, B, M, K):
     """K4s's NRZ-S form with LUTs of 64 and 256 KB (read through L1) on a
     bank of M + 2 masks (symbols past the LUT's rows), a third of the
     transitions planted in a table: rows equal to the plain version's, some
@@ -1403,7 +1401,6 @@ def test_shard_select_nrzs_large_lut(cuda, B, M, K, form):
         for i in range(0, S, 3):
             if sym[b, i] < M:
                 lut[sym[b, i], i % 2, i % K] = sym[b, (i + 1) % S]
-    got, want = _k4s_rows(pairs.to(cuda), sp, co, None, kw, lut=torch.from_numpy(lut).to(cuda),
-                          form=form)
+    got, want = _k4s_rows(pairs.to(cuda), sp, co, None, kw, lut=torch.from_numpy(lut).to(cuda))
     assert torch.equal(got, want)
     assert bool((got[:, :S] == 1).any()) and bool((got[:, S:2 * S] == -1).any())

@@ -8,10 +8,10 @@
 - ``k4s_plan`` (and ``k4_plan``, which K4l takes) at the edges of
   ``K4_LATENCY_SLOTS`` and ``K4_TWO_SLOTS``.
 - A torch model of the neighbour rule of K4s's NRZ-S form: which thread
-  selects which slot, and the next slot's key, by the thread's own select
-  or by a shuffle from the next lane; equal to the owner's select of slot x
-  + 1 mod S across warp and CTA edges and at the wrap of S - 1 onto 0 when
-  S is not a multiple of a CTA's span. Exact.
+  selects which slot, and each thread's own select of the next slot's
+  pairs; equal to the owner's select of slot x + 1 mod S across warp and
+  CTA edges and at the wrap of S - 1 onto 0 when S is not a multiple of a
+  CTA's span. Exact.
 - K4l's packed pairs: ``symbol_detect_local(packed=True)`` and its views
   equal ``symbol_detect_local_plain``'s (val, key). Exact.
 - The standalone K4n is gone: ``ops.demod_kernels`` has no ``nrzs_bits``
@@ -159,15 +159,17 @@ def test_shard_select_nrzs_matches_jax(nd, clip):
         assert bool((row[:, 2 * S:3 * S] >= Ml).any()) and bool((row[:, 2 * S:3 * S] < Ml).any())
 
 
+@pytest.mark.parametrize("nd", [1, 2, 4])
 @pytest.mark.parametrize("B,S,want", [
     (1, 16384, (64, 1)), (1, 16385, (128, 1)), (4, 4096, (64, 1)), (4, 4097, (128, 1)),
     (1, 2 ** 18 - 1, (128, 1)), (1, 2 ** 18, (128, 2)), (64, 4096, (128, 2)),
     (16, 4608, (128, 1)), (64, 4608, (128, 2)), (1, 4608, (64, 1))])
-def test_k4s_plan_edges(B, S, want):
+def test_k4s_plan_edges(B, S, want, nd):
     """K4s's plan at the edges of K4_LATENCY_SLOTS (16384 slots a launch)
-    and K4_TWO_SLOTS (2^18), and at the flagship's S at B=1/16/64; K4l
-    takes ``k4_plan``, which has the same edges."""
-    assert dk.k4s_plan(B, S) == want
+    and K4_TWO_SLOTS (2^18), and at the flagship's S at B=1/16/64, for nd
+    = 1, 2, 4 (two slots a thread only up to nd = 2); K4l takes
+    ``k4_plan``, which has the same edges."""
+    assert dk.k4s_plan(B, S, nd) == (want if nd <= 2 else (want[0], 1))
     assert dk.k4_plan(B, S)[:2] == want
     assert dk.k4_plan(B, S)[2] == (want[0] == 64)
 
@@ -180,13 +182,11 @@ def _select(pairs):
     return torch.where(v == best, g_, torch.iinfo(torch.int32).max).amin(dim=0)
 
 
-def _next_keys_model(pairs, T, spt, form):
+def _next_keys_model(pairs, T, spt):
     """The key of slot x + 1 mod S that K4s's NRZ-S form gives slot x, as its
     threads find it: the CTA of T threads takes T * spt slots, thread t slot
-    x0 + s T + t (a thread past S reads slot S - 1); "load": each thread
-    selects slot x + 1 mod S from its own loads; "shfl": lane l takes lane l
-    + 1's select of its own slot, and lane 31 and the owner of slot S - 1
-    select their next slot themselves."""
+    x0 + s T + t (a thread past S reads slot S - 1), and each thread
+    selects slot x + 1 mod S from its own loads of that slot's pairs."""
     S = pairs.shape[1]
     out = torch.full((S,), -1, dtype=torch.int32)
     tid = torch.arange(T)
@@ -196,20 +196,14 @@ def _next_keys_model(pairs, T, spt, form):
             x = torch.clamp(xo, max=S - 1)
             xn = torch.where(x + 1 < S, x + 1, 0)
             nxt = _select(pairs[:, xn])
-            if form == "shfl":
-                mine = _select(pairs[:, x]).reshape(T // 32, 32)
-                up = torch.cat([mine[:, 1:], mine[:, -1:]], dim=1).reshape(T)
-                own = (tid % 32 == 31) | (x == S - 1)
-                nxt = torch.where(own, nxt, up)
             keep = xo < S
             out[xo[keep]] = nxt[keep]
     return out
 
 
-@pytest.mark.parametrize("form", dk.K4S_NEXT_FORMS)
 @pytest.mark.parametrize("T,spt", [(64, 1), (128, 1), (128, 2)])
 @pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 63, 64, 65, 127, 129, 255, 256, 257, 4607, 4608])
-def test_nrzs_neighbour_rule(S, T, spt, form):
+def test_nrzs_neighbour_rule(S, T, spt):
     """Every slot's next key, as the model of K4s's threads finds it, equals
     the owner's select of slot x + 1 mod S: across warp and CTA edges and at
     the wrap of S - 1 onto 0 (S not a multiple of the CTA's span included),
@@ -220,7 +214,7 @@ def test_nrzs_neighbour_rule(S, T, spt, form):
     keys = torch.from_numpy(rng.randint(0, 200, (nd, S)).astype(np.int32))
     pairs = dk.pack_pairs(vals, keys)
     owner = _select(pairs)
-    assert torch.equal(_next_keys_model(pairs, T, spt, form), torch.roll(owner, -1))
+    assert torch.equal(_next_keys_model(pairs, T, spt), torch.roll(owner, -1))
 
 
 @pytest.mark.parametrize("B,S", [(1, 40), (3, 40), (2, 1)])
