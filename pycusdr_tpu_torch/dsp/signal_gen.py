@@ -1,6 +1,6 @@
 """Reference waveform generators and the AWGN channel for tests and the
 chip smoke run: copies of ``pycusdr_tpu/dsp/signal_gen.py``'s seeded
-packet bits, BPSK (RRC, NRZ-S), FSK and GFSK modulators, ``awgn``,
+packet bits, BPSK (RRC, NRZ-S), FSK, GFSK and GMSK modulators, ``awgn``,
 zero padding and the IF-offset single-packet signal."""
 
 import numpy as np
@@ -46,7 +46,19 @@ def modulate_gfsk2(raw_bits, spsym: int) -> np.ndarray:
     return np.exp(1j * np.cumsum(phase) / spsym * np.pi).astype(np.complex64)
 
 
-_MODULATORS = {"BPSK": modulate_bpsk, "FSK": modulate_fsk, "GFSK": modulate_gfsk2}
+def modulate_gmsk(raw_bits, spsym: int) -> np.ndarray:
+    """GMSK, BT=0.5, π/2 per symbol."""
+    gaus = gaussian_filter(1, 0.5, spsym, 4 * spsym)
+    phase = np.convolve(gaus, np.repeat(np.asarray(raw_bits) * 2 - 1, spsym))
+    return np.exp(1j * np.cumsum(phase) / spsym * np.pi / 2).astype(np.complex64)
+
+
+_MODULATORS = {
+    "BPSK": modulate_bpsk,
+    "FSK": modulate_fsk,
+    "GFSK": modulate_gfsk2,
+    "GMSK": modulate_gmsk,
+}
 
 
 def awgn(sig, snr_db, measured: bool = True, rng=None):

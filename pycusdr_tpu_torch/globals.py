@@ -1,6 +1,7 @@
 """Global constants and small config helpers (the port's own copy of the
 parts of ``pycusdr_tpu/globals.py`` the demodulation, Tx and runtime paths
-need), and ``torch_device``, the port's counterpart of
+need, the CC11xx protocol's ``json_str_list_to_int_list`` among them),
+and ``torch_device``, the port's counterpart of
 ``apply_platform_override``.
 
 Trust semantics (int8):
@@ -44,6 +45,11 @@ def attr_in_config(cfg: dict, attr: str, defaultVal, warningOnFail: bool = True)
     if warningOnFail:
         log.warning("'%s' not specified in config. Using default value of %s", attr, defaultVal)
     return defaultVal
+
+
+def json_str_list_to_int_list(json_list, base: int = 16):
+    """Convert a list of numeric strings (hex by default) to ints."""
+    return [int(k, base) for k in json_list]
 
 
 def torch_device():

@@ -198,7 +198,7 @@ class Demodulator:
 
         noError = int(np.sum(trust == -1))
         centresWin, bitsWin, trustWin, _ = self.checkSymbolOverlap(
-            noError, centres, r["symbols"][:nBits], bits, trust
+            noError, centres, r["symbols"][:nBits], bits, trust, spSym
         )
         if self._store_bits:
             import os
@@ -317,7 +317,8 @@ class Demodulator:
 
     # ---------------- block-boundary healing ----------------
 
-    def checkSymbolOverlap(self, noError, centres, idxSymbol, dataBits, trustSymbol):
+    def checkSymbolOverlap(self, noError, centres, idxSymbol, dataBits, trustSymbol,
+                           spSym=None):
         """±1-symbol block-boundary alignment; see models/healing.py
         (port of reference demodulator_base.py:863-988)."""
-        return self.healer.heal(noError, centres, idxSymbol, dataBits, trustSymbol)
+        return self.healer.heal(noError, centres, idxSymbol, dataBits, trustSymbol, spSym)

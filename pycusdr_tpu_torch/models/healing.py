@@ -8,6 +8,18 @@ head of the current one under on-time/early/late hypotheses repairs the
 stream. Extracted as a standalone class so both the per-channel
 ``Demodulator`` and the multi-channel group runtime can heal each
 channel independently of how the device graph was dispatched.
+
+Deliberate deviation from the JAX package (``pycusdr_tpu/models/
+healing.py``), taken only where the half overlap holds fewer symbols
+than the bit-match window (``overlapOffset``), as at the CC11xx
+station's 128 samples a symbol (1024 / 2 samples: 4 symbols, so the
+match sees at most 3 bits and never fires): there the window starts at
+the symbol the previous block's clock predicts (its last emitted centre,
+one hop earlier, plus a symbol), which neither repeats nor drops the
+symbol on the blocks' seam. JAX's bit match at those shapes lets the
+seam repeat or drop a symbol, and every packet across it fails its CRC
+(ROADMAP.md Queue 3). At 16 samples a symbol (32 symbols in the half
+overlap) both packages run the same bit match, bit for bit.
 """
 
 import logging
@@ -29,6 +41,7 @@ class BlockHealer:
                  error_threshold: int = SYMBOL_CHECK_ERROR_THRESHOLD,
                  match_num_errors_allowed: int = SYMBOL_CHECK_MATCH_NUM_ERRORS_ALLOWED):
         self.Nfft = Nfft
+        self.hop = Nfft - sigOverlap
         self.sigOverlapWin = sigOverlap // 2
         self.overlapOffset = overlapOffset
         self.error_threshold = error_threshold
@@ -36,15 +49,22 @@ class BlockHealer:
 
         self.poswinP = np.array([], dtype=np.int8)  # post-window bits of prev block
         self.posSymEnd = np.array([], dtype=np.int8)
+        self.lastCentre = None  # the prev block's last emitted centre (its samples)
 
-    def heal(self, noError, centres, idxSymbol, dataBits, trustSymbol):
+    def heal(self, noError, centres, idxSymbol, dataBits, trustSymbol, spSym=None):
         """Select the non-overlap window and repair the boundary.
+        ``spSym``: the block's samples a symbol; where the half overlap
+        holds fewer than ``overlapOffset`` symbols the window starts on the
+        symbol clock (``_clock_start``).
 
         Returns (centresWin, bitsWin, trustWin, idxSymbolWin)."""
         startCand = np.where(centres >= self.sigOverlapWin)[0]
         endCand = np.where(centres > (self.Nfft - self.sigOverlapWin))[0]
         startOverlap = int(startCand[0]) if len(startCand) else 0
         endOverlap = int(endCand[0]) if len(endCand) else len(centres)
+        if spSym and self.sigOverlapWin < self.overlapOffset * spSym:
+            return self._window(self._clock_start(centres, spSym, startOverlap), endOverlap,
+                                centres, dataBits, trustSymbol)
 
         idxSymbolWin = dataBits[startOverlap:endOverlap]
         idxSymbolPreWin = dataBits[:startOverlap]
@@ -104,7 +124,22 @@ class BlockHealer:
         except Exception as e:  # healing must never kill the stream
             log.error("symbol overlap healing failed:")
             log.exception(e)
+        return self._window(startOverlap, endOverlap, centres, dataBits, trustSymbol)
 
+    def _clock_start(self, centres, spSym, startOverlap):
+        """The index of the symbol one symbol after the previous block's
+        last emitted one (its centre moved back one hop), where this block
+        has a symbol within half a symbol of that; else ``startOverlap``."""
+        if self.lastCentre is None or not len(centres):
+            return startOverlap
+        want = self.lastCentre - self.hop + spSym
+        k = int(np.argmin(np.abs(centres - want)))
+        return k if abs(float(centres[k]) - want) <= spSym / 2 else startOverlap
+
+    def _window(self, startOverlap, endOverlap, centres, dataBits, trustSymbol):
+        """Emit [startOverlap, endOverlap) and keep the state the next
+        block's healing reads."""
+        off = self.overlapOffset
         startOverlap = max(startOverlap, 0)
         dataBitsWin = dataBits[startOverlap:endOverlap]
         trustSymbolWin = trustSymbol[startOverlap:endOverlap]
@@ -119,5 +154,6 @@ class BlockHealer:
         # refresh unconditionally (reference demodulator_base.py:978):
         # a short window must not leave a stale tail for the next vote
         self.posSymEnd = dataBitsWin[-off - 1 :]
+        self.lastCentre = float(centresWin[-1]) if len(centresWin) else None
 
         return centresWin, dataBitsWin, trustSymbolWin, idxSymbolWin

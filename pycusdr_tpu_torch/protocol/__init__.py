@@ -1,10 +1,8 @@
 """Protocol registry: maps protocol names (config ``Main.protocols``) to
-classes. Ported so far: the benchmark FSK/GFSK/BPSK protocols and CCSDS
-(plain and concatenated with the convolutional inner code).
-
-A name the JAX package's registry (``pycusdr_tpu/protocol/__init__.py``)
-knows but the port lacks raises ``NotImplementedError``; any other name
-raises ``ValueError``, as JAX's does."""
+classes, as the JAX package's registry (``pycusdr_tpu/protocol/__init__.py``)
+does: CC11xx, the benchmark FSK/GFSK/GMSK/BPSK protocols ("bench" is
+bench_GMSK), AX.25 and CCSDS (plain and concatenated with the
+convolutional inner code). Any other name raises ``ValueError``."""
 
 from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
     Packet,
@@ -13,13 +11,19 @@ from pycusdr_tpu_torch.protocol.base import (  # noqa: F401
     ProtocolBase,
 )
 
-#: names the JAX registry resolves that the port does not have yet
-NOT_PORTED = ("cc11xx", "ax25", "bench_gmsk", "bench")
-
 
 def loadProtocol(name: str):
     """Resolve a protocol name to its class."""
     key = name.lower()
+    if key == "cc11xx":
+        from pycusdr_tpu_torch.protocol.cc11xx import CC11xx
+
+        return CC11xx
+    if key in ("bench", "bench_gmsk"):
+        # "bench" is the default bench modulation, as in the reference
+        from pycusdr_tpu_torch.protocol.benchmark import BenchGMSK
+
+        return BenchGMSK
     if key == "bench_fsk":
         from pycusdr_tpu_torch.protocol.benchmark import BenchFSK
 
@@ -32,6 +36,10 @@ def loadProtocol(name: str):
         from pycusdr_tpu_torch.protocol.benchmark import BenchBPSK
 
         return BenchBPSK
+    if key == "ax25":
+        from pycusdr_tpu_torch.protocol.ax25 import AX25
+
+        return AX25
     if key == "ccsds":
         from pycusdr_tpu_torch.protocol.ccsds import CCSDS
 
@@ -40,7 +48,4 @@ def loadProtocol(name: str):
         from pycusdr_tpu_torch.protocol.ccsds import CCSDSConv
 
         return CCSDSConv
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"protocol '{name}' is not yet ported (ROADMAP.md Queue 1 item 23)")
     raise ValueError(f"Unknown protocol '{name}'")

@@ -250,7 +250,7 @@ class ChannelGroup_process(Process):
                 _, bits, trust, _ = healers[c].heal(
                     int(np.sum(r["trust"][:nBits] == -1)),
                     r["centres"][:nBits], r["symbols"][:nBits],
-                    r["bits"][:nBits], r["trust"][:nBits],
+                    r["bits"][:nBits], r["trust"][:nBits], float(r["spSym"]),
                 )
                 snrs.append(float(r["snr_db"]))
                 ship({
@@ -275,7 +275,7 @@ class ChannelGroup_process(Process):
             vtrust8 = np.clip(trust_voted[:nBits], -2, 127).astype(np.int8)
             _, vbits, vtrust, _ = healers[-1].heal(
                 0, r0["centres"][:nBits], r0["symbols"][:nBits],
-                bits_voted[:nBits].astype(np.int8), vtrust8,
+                bits_voted[:nBits].astype(np.int8), vtrust8, float(r0["spSym"]),
             )
             ship({
                 "workerId": self.workerIds[0] + "-voted", "count": cnt,

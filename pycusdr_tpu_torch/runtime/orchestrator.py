@@ -9,16 +9,18 @@ process dies or every demodulator lost its sample feed (or, with
 ``Main.restartDeadProcesses``, rebuilds the dead process), and an
 ordered shutdown that collects the decoder's stats for post-pass plots.
 
-Rx radios get one ``Demodulator_process`` each, or, with
-``Main.channelGroup_enabled`` and several homogeneous radios, ONE
-lockstep ``ChannelGroup_process`` that demodulates them in one dispatch
-and votes on the device. Every child runs on ``globals.torch_device``:
-the card unless ``PYCUSDR_TORCH_DEVICE`` says "cpu".
+Tx radios get one ``Modulator_process`` each (host numpy: framing, LUT
+modulation, Doppler pre-compensation; no device). Rx radios get one
+``Demodulator_process`` each, or, with ``Main.channelGroup_enabled`` and
+several homogeneous radios, ONE lockstep ``ChannelGroup_process`` that
+demodulates them in one dispatch and votes on the device. Every Rx child
+runs on ``globals.torch_device``: the card unless
+``PYCUSDR_TORCH_DEVICE`` says "cpu".
 
 Not yet ported, refused with ``NotImplementedError`` (ROADMAP.md Queue
-1): ``Radios.Tx`` (``Modulator_process``), ``softCombiner_enabled`` with
-more than one radio, ``Main.maxWorkerRssMb`` (planned restarts) and
-telegraf metrics (``Main.telegraf_ip``).
+1): ``softCombiner_enabled`` with more than one radio,
+``Main.maxWorkerRssMb`` (planned restarts) and telegraf metrics
+(``Main.telegraf_ip``).
 """
 
 import logging
@@ -42,8 +44,6 @@ def check_supported(conf) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
     main, radios = conf["Main"], conf["Radios"]
     refused = []
-    if radios.get("Tx"):
-        refused.append("Radios.Tx (the Modulator_process, ROADMAP.md Queue 1 item 19)")
     if main.get("softCombiner_enabled", False) and len(radios["Rx"]) > 1:
         refused.append("Main.softCombiner_enabled with more than one radio (the softCombiner, "
                        "ROADMAP.md Queue 1 item 18; Main.channelGroup_enabled votes clock-shared "
@@ -121,9 +121,10 @@ class PyCuSDR:
 
     def _replace_task(self, i, old, new):
         self.tasks[i] = new
-        for j, x in enumerate(self._demodulators):
-            if x is old:
-                self._demodulators[j] = new
+        for coll in (self._demodulators, self._modulators):
+            for j, x in enumerate(coll):
+                if x is old:
+                    coll[j] = new
         if old is self.dec:
             self.dec = new
         # keep the RPC thread pointed at live processes
@@ -131,6 +132,9 @@ class PyCuSDR:
             for j, x in enumerate(self.rpcInt.demodulator):
                 if x is old:
                     self.rpcInt.demodulator[j] = new
+            for k, v in list(self.rpcInt.modulator.items()):
+                if v is old:
+                    self.rpcInt.modulator[k] = new
 
     def run(self):
         try:
@@ -195,6 +199,7 @@ class PyCuSDR:
     def _init_SDR(self):
         from pycusdr_tpu_torch.runtime.decoder_process import Decoder
         from pycusdr_tpu_torch.runtime.demodulator_process import Demodulator_process
+        from pycusdr_tpu_torch.runtime.modulator_process import Modulator_process
 
         log.info("Utilizing %d channels: %s", len(self.radios), ", ".join(self.radios))
         self.tasks = tasks = []
@@ -212,6 +217,17 @@ class PyCuSDR:
         self.dec = Decoder(self.configFile, self.protocols)
         tasks.append(self.dec)
         factories.append(lambda: Decoder(self.configFile, self.protocols))
+
+        # Tx modulators: one process per Tx radio, protocol from config
+        self._modulators = []
+        for m, confTx in self.configFile["Radios"].get("Tx", {}).items():
+            mk = (lambda name=m, prot=confTx["Protocol"]:
+                  Modulator_process(self.configFile, self.protocols[prot], name))
+            self._modulators.append(mk())
+            factories.append(mk)
+        tasks.extend(self._modulators)
+        if not self._modulators:
+            log.warning("Modulator not initialized ('Tx' not in config)")
 
         # Rx demodulators: one process per channel (reference model),
         # or one lockstep channel-group process demodulating every
@@ -252,7 +268,8 @@ class PyCuSDR:
         if self.configFile.get("RPC", {}).get("enabled", True):
             from pycusdr_tpu_torch.control.rpc import RpcInterface
 
-            self.rpcInt = RpcInterface(self.configFile, None, self._demodulators, None)
+            self.rpcInt = RpcInterface(self.configFile, self._modulators, self._demodulators,
+                                       None)
         else:
             self.rpcInt = None
 
@@ -284,3 +301,7 @@ class PyCuSDR:
     @property
     def demodulators(self):
         return self._demodulators
+
+    @property
+    def modulators(self):
+        return self._modulators

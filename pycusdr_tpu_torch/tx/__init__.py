@@ -1,5 +1,5 @@
 from pycusdr_tpu_torch.tx.modulator import Modulator
-from pycusdr_tpu_torch.tx.encoders import Encoder, RawEncoder
+from pycusdr_tpu_torch.tx.encoders import AX25Encoder, CC11xxEncoder, Encoder, RawEncoder
 from pycusdr_tpu_torch.tx.luts import BaseLUT, FSKmod, GFSK2mod, GMSKmod
 
 
@@ -11,6 +11,8 @@ __all__ = [
     "Modulator",
     "Encoder",
     "RawEncoder",
+    "CC11xxEncoder",
+    "AX25Encoder",
     "BaseLUT",
     "FSKmod",
     "GFSK2mod",

@@ -113,7 +113,12 @@ def test_port_imports_no_jax():
                  "pycusdr_tpu_torch.parallel.sharded_demod", "pycusdr_tpu_torch.parallel.halo",
                  "pycusdr_tpu_torch.models.tracking", "pycusdr_tpu_torch.parallel.collectives",
                  "pycusdr_tpu_torch.parallel.multihost", "pycusdr_tpu_torch.utils.xcorr",
-                 "pycusdr_tpu_torch.utils.device_info", "pycusdr_tpu_torch.obs.profiling"):
+                 "pycusdr_tpu_torch.utils.device_info", "pycusdr_tpu_torch.obs.profiling",
+                 "pycusdr_tpu_torch.protocol.cc11xx", "pycusdr_tpu_torch.protocol.ax25",
+                 "pycusdr_tpu_torch.protocol.gfsk2",
+                 "pycusdr_tpu_torch.protocol.benchmark.bench_gmsk",
+                 "pycusdr_tpu_torch.runtime.modulator_process", "pycusdr_tpu_torch.utils.gmsk",
+                 "pycusdr_tpu_torch.utils.binops", "pycusdr_tpu_torch.utils.doppler"):
         assert name in res["modules"]
 
 
@@ -136,3 +141,13 @@ def test_cli_raises_without_a_card():
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
 
+
+
+def test_cc11xx_cli_raises_without_a_card():
+    """The station's operational entry point (``CC11xx.json``, a Tx and an
+    Rx radio) stops with the same error before any child starts."""
+    conf = REPO / "pycusdr_tpu_torch" / "config" / "configs" / "CC11xx.json"
+    out = subprocess.run([sys.executable, "-m", "pycusdr_tpu_torch", "-c", str(conf)],
+                         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr

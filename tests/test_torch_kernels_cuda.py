@@ -23,7 +23,8 @@ sample-by-sample form and LUTs of 64 and 256 KB; K8 at C = 1 to 256, S =
 rows and a window wider than 9 samples; K4s in every plan at nd = 1/2/4,
 with and without a clip bitmask, hw near its clamp, with a centre-bit LUT
 and in its NRZ-S form (K4n in K4s's launch) with bench_BPSK's LUT and LUTs
-of 64 and 256 KB).
+of 64 and 256 KB); K1-K5 at the CC11xx station's shape (Nfft 2^16, 128
+samples a symbol) at B = 1/16/64, each block alone.
 Marked ``cuda``: they skip on a machine without a card. ``chip_smoke.py``
 holds the same kernels against the same plain versions at the flagship
 shape. Run on a card (which needs no JAX) with
@@ -1404,3 +1405,23 @@ def test_shard_select_nrzs_large_lut(cuda, B, M, K):
     got, want = _k4s_rows(pairs.to(cuda), sp, co, None, kw, lut=torch.from_numpy(lut).to(cuda))
     assert torch.equal(got, want)
     assert bool((got[:, :S] == 1).any()) and bool((got[:, S:2 * S] == -1).any())
+
+
+@pytest.fixture(scope="module")
+def cc11xx_case(cuda):
+    conf, protocol, spec, _ = smoke.cc11xx_configuration()
+    return spec, DeviceConsts.from_spec(spec, cuda)
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+def test_cc11xx_shape_kernels(cc11xx_case, B):
+    """K1-K5 at the station's CC11xx shape (Nfft 2^16, 128 samples a
+    symbol, S=640, K3's band of 103 bins, 64 shifts about the IF bin
+    10240) against their plain versions (``smoke.check_cc11xx_kernels``:
+    the flagship's contracts, K1 within 1e-4 of max|E|, every block alone
+    equal to its row of the batch)."""
+    spec, consts = cc11xx_case
+    assert (spec.Nfft, spec.spsym, spec.numSymMax) == (2 ** 16, 128.0, 640)
+    assert (spec.code_idx_lo, spec.code_idx_hi, spec.dopp_offset_idx) == (465, 568, 10240)
+    _, (nwin, nglob), rel = smoke.check_cc11xx_kernels(spec, consts, B)
+    assert rel <= smoke.K1_REL and nwin + nglob >= 1
