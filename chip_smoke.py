@@ -16,14 +16,18 @@ and then no result line is printed):
    K1-K5 at the flagship shape (Nfft 2^16, D=64, M=8), and K6 with K2-K4
    (K4 with the clip window) at the STX shape (Nfft 2^17, M=8, W=3), K2
    and K3 also at B=64 (and each block alone equal to its row of the
-   batch); K1 (3xTF32 on the tensor cores): ptxas's registers, stack and
+   batch); K1-K5 at the station shapes of ``CC11xx.json`` (Nfft 2^16, 128
+   samples a symbol) and ``bench_3_chan_rx.json`` (Nfft 2^15, the shape of
+   n's three children) at B=1, 16 and 64, each block alone equal to its
+   row; K1 (3xTF32 on the tensor cores): ptxas's registers, stack and
    spills of its eight instantiations (none may spill) and the TF32 HMMA instructions cuobjdump finds in its SASS,
    then the kernel within 1e-4 of max|E| on the main paths' grids
    (flagship, ccsds, bpsk M=16, the tracker's 16 bins recentred, a generic
-   shard's M=4, tiny) and on random, compact and mixed grids (M = 1, 5,
-   8, 16, 32; D = 1, 3, 100, 129; N from 512 to 2^18), each printed with
-   the window and global-read groups it ran, every block alone equal to
-   its row of the batch, two runs equal, and at the flagship grid at B=64;
+   shard's M=4, tiny, cc11xx, combiner) and on random, compact and mixed
+   grids (M = 1, 5, 8, 16, 32; D = 1, 3, 100, 129; N from 512 to 2^18),
+   each printed with the window and global-read groups it ran, every
+   block alone equal to its row of the batch, two runs equal, and at the
+   flagship grid at B=64;
    K9: ptxas's registers, stack and spills of the fused kernel's 22
    instantiations (none may spill; each at its row of ``k9_layouts``), the
    path shapes, then every form of ``k9_plan`` (M = 1 to 1024 at K = 1, 8 and
@@ -126,6 +130,34 @@ and then no result line is printed):
       processes of one gloo world, all on cuda:0 (NCCL refuses two ranks on
       one card), C=4 with the vote: each rank within the golden table of
       the one-process step, the voted pair equal on every rank;
+   n. three-station Rx: ``PyCuSDR`` from ``bench_3_chan_rx.json`` as
+      shipped (softCombiner on, channel group off, bench_FSK at blockSize
+      15; only its ports moved): three ``Demodulator_process`` children on
+      the card and the ``SoftCombiner`` child; one seeded packet fed to the
+      three RxInPorts at delays of 0, 1117 and 2403 samples with AWGN of
+      its own each: the payload comes out of decodeBytesOut, XML-RPC
+      ``get_active_workers`` names the three channels, a container reached
+      the decoder voted by three (``numSlaves`` 2), every child launched
+      K1-K5 (the counts each child publishes from its warm point on); then
+      the diversity check: 40 blocks of seeded FSK received three times at
+      -4.5 dB a sample, demodulated by the port's ``Demodulator`` on the
+      card, voted in this process by ``SoftCombiner.compareWorkers`` (each
+      round timed), the first channel's blocks also through the plain
+      path (decisions and trust equal on every block): every channel's raw
+      BER in [1e-3, 3e-2], every master's voted BER at or below the best
+      channel's;
+   o. hamlib: ``hamlib_daemon.serve_all`` as its ``main`` runs it, on a
+      copy of ``hamlib_sockets.json`` (listener moved) and of
+      ``CC11xx.json`` (sockets moved as in f) written under build/: a TCP
+      client connects and the daemon's own modem factory boots the modem
+      (Tx and Rx) from that file;
+      ``\\chk_vfo``, ``\\dump_state``, ``I``/``i`` on the wire; the
+      ``Modulator_process``'s rangerate within 1e-6 of
+      ``rangerate_from_freq``; a 200-byte payload into TxDataIn after the
+      steer comes out of the Rx equal to itself, the Rx's Doppler within
+      half a baud of the shift the steer implies; K1-K5 in the Rx child;
+      the client leaves and every child exits within ``JOIN_TIMEOUT``; a
+      second client boots a second modem that answers;
    (phase 3 also holds K4's NRZ-S form (K4n in K4's launch) at the
    bench_BPSK shape at B=1/16/64 (with a clip bitmask) against its plain
    version, K8 at C=3/16/64/256, S=4608, with pinned
@@ -150,6 +182,9 @@ and then no result line is printed):
    C=3/16/64; the group graph at C=3 against
    the block graph at B=3; the decoder's host ms per block
    beside the graph's and the runtime's demod child host ms per block;
+   phase 4n's seconds to the first packet through the combiner and the
+   combiner's host ms a ``compareWorkers`` round, phase 4o's boot, warm-up
+   and teardown seconds;
    K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
    yardstick (grouped conv1d + torch.fft.fft), its wide form at the
    three wide shapes, and its direct form at (1024, 8) and (512, 16)
@@ -370,6 +405,12 @@ PATH_KERNELS = {
                "symbol_detect"),
     "gmsk": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
              "symbol_detect"),
+    # the three Rx children of bench_3_chan_rx.json behind the softCombiner
+    # (phase 4n), and the Rx child of the modem the hamlib daemon boots (4o)
+    "combiner": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                 "symbol_detect"),
+    "hamlib": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+               "symbol_detect"),
 }
 
 
@@ -1551,42 +1592,54 @@ def main_path_group(spec, C=GROUP_C):
     return dict(C=C, channel_ber=bers, voted_ber=voted_ber, launches=launches)
 
 
-def runtime_conf(name, port0, group):
-    """A shipped config with blockSize 16, no softCombiner, its Rx radios
-    on ports port0.. and the internal and external sockets above them."""
-    conf = load_modular_json(config_path("benchmark", name))
-    conf["Main"].update(workerId="smoke", softCombiner_enabled=False,
-                        channelGroup_enabled=group, statsFolder="build/runtime_stats")
-    conf["GPU"]["UHF"]["blockSize"] = 16
+def move_sockets(conf, port0):
+    """``conf`` with its Rx radios on ports port0.. and its internal and
+    external sockets on port0 + 10 to port0 + 14; nothing else changed."""
     for i, r in enumerate(conf["Radios"]["Rx"].values()):
         r["Interfaces"] = {"RxInPort": f"tcp://127.0.0.1:{port0 + i}",
                            "demodOut": f"tcp://localhost:{port0 + 10}"}
-    conf["Demodulator"] = {"timeoutSeconds": 60}
     conf["Interfaces"]["Internal"].update({
         "demodIn": f"tcp://*:{port0 + 10}", "demodOut": f"tcp://localhost:{port0 + 10}",
         "decodeOut": f"tcp://localhost:{port0 + 11}", "decodeIn": f"tcp://*:{port0 + 11}"})
-    conf["Interfaces"]["External"]["decodeBytesOut_ZMQ"] = {"UHF": f"tcp://*:{port0 + 12}"}
-    conf["Interfaces"]["External"]["XMLRpcIn"] = f"127.0.0.1:{port0 + 13}"
+    conf["Interfaces"]["External"].update({
+        "decodeBytesOut_ZMQ": {"UHF": f"tcp://*:{port0 + 12}"},
+        "XMLRpcIn": f"127.0.0.1:{port0 + 13}"})
     conf["decoder"] = dict(conf.get("decoder", {}), statsPort=port0 + 14)
     return conf
 
 
-def run_runtime(name, port0, group):
-    """``PyCuSDR`` from a shipped config: waits (bounded) for every Rx
-    child to be warm, then PUBlishes one seeded bench_FSK packet with AWGN
-    at 14 dB, independent per antenna, in hops, until the decoded bytes
-    arrive on the external PULL socket. Returns (payload == expected, the
-    Rx children's devices, their host ms per block where they keep it,
-    seconds to the first packet)."""
+def runtime_conf(name, port0, group):
+    """A shipped config with blockSize 16, no softCombiner, a 60 s feed
+    timeout and its sockets moved (``move_sockets``)."""
+    conf = load_modular_json(config_path("benchmark", name))
+    conf["Main"].update(workerId="smoke", softCombiner_enabled=False,
+                        channelGroup_enabled=group, statsFolder="build/runtime_stats")
+    conf["GPU"]["UHF"]["blockSize"] = 16
+    conf["Demodulator"] = {"timeoutSeconds": 60}
+    return move_sockets(conf, port0)
+
+
+def run_runtime(conf, port0, delays=None, seed=SEED, check=None):
+    """``PyCuSDR`` from ``conf`` (sockets from ``port0`` on, as
+    ``move_sockets`` puts them): waits (bounded) for every Rx child to be
+    warm, the decoder to bind and the combiner, where there is one, to be
+    ready; then PUBlishes one seeded bench_FSK packet with AWGN at 14 dB,
+    independent per antenna and fed to antenna c after ``delays[c]``
+    samples, in hops, until the decoded bytes arrive on the external PULL
+    socket (bounded again). ``check(sdr)``, where given, runs once the
+    payload is in, before the teardown. Returns a dict: payload ==
+    expected, the Rx children's devices, their host ms per block where they
+    keep it, seconds to warm and to the first packet, feeds, what ``check``
+    returned, and the terminated ``PyCuSDR``."""
     import zmq
 
     from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
 
-    conf = runtime_conf(name, port0, group)
     n_rx = len(conf["Radios"]["Rx"])
+    delays = delays or (0,) * n_rx
     bits = packet_data(conf["Main"]["PacketLen"], conf["Main"]["RandSeed"])
     sig, _ = get_padded_packet("FSK", 16, 9600 * 16, offset_freq=38400, raw_bits=bits, pad=6000)
-    hop = 2 ** 16 - 2 ** 10
+    hop = 2 ** conf["GPU"]["UHF"]["blockSize"] - 2 ** conf["GPU"]["UHF"]["overlap"]
     stream = np.r_[sig, np.zeros(4 * hop, np.complex64)]
     ctx = zmq.Context()
     pubs = []
@@ -1598,25 +1651,32 @@ def run_runtime(name, port0, group):
     sink = ctx.socket(zmq.PULL)
     sink.setsockopt(zmq.LINGER, 0)
     sink.setsockopt(zmq.RCVTIMEO, 2000)
+    t_boot = time.time()
     sdr = PyCuSDR(conf, args=None)
+    group = conf["Main"].get("channelGroup_enabled", False)
     assert len(sdr.demodulators) == (1 if group else n_rx)
     sdr.start()
     try:
         deadline = time.time() + RUNTIME_WAIT_S
-        flags = [d.warmedFlag for d in sdr.demodulators] + [sdr.dec.boundFlag]
+        flags = [d.warmedFlag for d in sdr.demodulators] + [sdr.dec.boundFlag] + (
+            [] if sdr.combiner is None else [sdr.combiner.ready])
         while time.time() < deadline and not all(f.is_set() for f in flags):
             assert all(t.is_alive() for t in sdr.tasks), "a runtime child died while warming"
             time.sleep(0.2)
         assert all(f.is_set() for f in flags), "runtime children not warm"
+        warm_s = time.time() - t_boot
         # connect once the decoder listens: a connect retried against a
         # port in the ephemeral range can connect the socket to itself
         sink.connect(f"tcp://localhost:{port0 + 12}")
         time.sleep(1.0)  # let the SUB sockets connect
         t0 = time.time()
-        rng = np.random.RandomState(SEED)
-        payload = None
+        deadline = t0 + RUNTIME_WAIT_S
+        rng = np.random.RandomState(seed)
+        payload, feeds = None, 0
         while payload is None and time.time() < deadline:
-            chans = [awgn(stream, 14.0, rng=rng).astype(np.complex64) for _ in pubs]
+            feeds += 1
+            chans = [awgn(np.r_[np.zeros(d, np.complex64), stream], 14.0,
+                          rng=rng).astype(np.complex64) for d in delays]
             for pos in range(0, len(stream) - hop + 1, hop):
                 for sock, c in zip(pubs, chans):
                     sock.send(c[pos:pos + hop].tobytes())
@@ -1625,11 +1685,14 @@ def run_runtime(name, port0, group):
                 payload = sink.recv()
             except zmq.error.Again:
                 continue
+        first_s = time.time() - t0
+        name = conf["Main"]["workerId"]
         assert payload is not None, f"{name}: no packet decoded within {RUNTIME_WAIT_S} s"
         expected = bytes(bytearray(sdr.protocols["UHF"].Packet(bits).getBinaryData()[0]))
-        return (payload == expected, [d.device for d in sdr.demodulators],
-                [1e3 * d.timeMA for d in sdr.demodulators if hasattr(d, "timeMA")],
-                time.time() - t0)
+        return dict(equal=payload == expected, devices=[d.device for d in sdr.demodulators],
+                    host_ms=[1e3 * d.timeMA for d in sdr.demodulators if hasattr(d, "timeMA")],
+                    warm_s=warm_s, first_s=first_s, feeds=feeds,
+                    checked=None if check is None else check(sdr), sdr=sdr)
     finally:
         sdr.terminate()
         for sock in pubs + [sink]:
@@ -1648,9 +1711,11 @@ def main_path_runtime():
                                     ("single", "bench_FSK.json", RUNTIME_PORT + 20, False),
                                     ("cc11xx", "CC11xx.json", CC11XX_RUNTIME_PORT, False)):
         t0 = time.time()
-        run = run_cc11xx_runtime if key == "cc11xx" else (
-            lambda port0, name=name, group=group: run_runtime(name, port0, group))
-        equal, devices, host_ms, first_s = run(port0)
+        if key == "cc11xx":
+            equal, devices, host_ms, first_s = run_cc11xx_runtime(port0)
+        else:
+            r = run_runtime(runtime_conf(name, port0, group), port0)
+            equal, devices, host_ms, first_s = r["equal"], r["devices"], r["host_ms"], r["first_s"]
         assert equal, f"runtime {key}: decoded bytes differ from the payload"
         assert devices and all(d == "cuda" for d in devices), f"runtime {key}: devices {devices}"
         out[key] = dict(config=name, devices=devices, host_ms_per_block=host_ms,
@@ -1673,6 +1738,8 @@ CC11XX_PACKETS, CC11XX_RR0, CC11XX_RR_STEP, CC11XX_SNR_DB = 10, -18000.0, 40.0, 
 CC11XX_TAIL_HOPS = 5
 #: phase 4f's CC11xx station: its 23 sockets from this port on
 CC11XX_RUNTIME_PORT = 17500
+#: the stations whose K1-K5 shape phase 3 holds against the plain versions
+STATION_CONFIGS = {"cc11xx": "CC11xx.json", "combiner": "bench_3_chan_rx.json"}
 #: bench_GMSK (phase 4m) at the flagship's blockSize
 GMSK_BLOCK_SIZE = 16
 
@@ -1687,8 +1754,8 @@ def cc11xx_configuration():
     return conf, protocol, build_spec(conf, protocol, RADIO), UHF.Demodulator
 
 
-def check_cc11xx_kernels(spec, consts, B):
-    """K1-K5 at the cc11xx shape against their plain versions on B seeded
+def check_station_kernels(spec, consts, B, label):
+    """K1-K5 at a station's shape (``label``: cc11xx, combiner) against their plain versions on B seeded
     blocks: ``check_kernels`` (K1 within 1e-4 of max|E| with and without a
     recentre, K5 to ``k5_contract``, K2 and K3 as ``check_bank_band``, K4
     every output equal), and each block alone equal to its row of the
@@ -1697,7 +1764,7 @@ def check_cc11xx_kernels(spec, consts, B):
     window and global-read groups, K1's max err / max|E|)."""
     inp = kernel_inputs(spec, consts, B)
     errs = check_kernels(spec, consts, B, inp)
-    rel = max(check_k1(inp["P"], consts.Q, consts.shifts, cs, f"cc11xx B={B} centre={cs is not None}")
+    rel = max(check_k1(inp["P"], consts.Q, consts.shifts, cs, f"{label} B={B} centre={cs is not None}")
               for cs in (None, recentres(spec.Nfft, B)))
     kw = k4_kwargs(spec, consts)
     a4 = (inp["colmax"], inp["colarg"], inp["spSym"], inp["codeOffset"])
@@ -1711,9 +1778,9 @@ def check_cc11xx_kernels(spec, consts, B):
         one5 = ds.doppler_estimate(*a5, **k5)
         torch.cuda.synchronize()
         assert all(torch.equal(u[0], v[b]) for u, v in zip(one4, got4)), \
-            f"K4 cc11xx: block {b} alone != its row of the batch"
+            f"K4 {label}: block {b} alone != its row of the batch"
         assert all(torch.equal(u[0].nan_to_num(), v[b].nan_to_num()) for u, v in zip(one5, got5)), \
-            f"K5 cc11xx: block {b} alone != its row of the batch"
+            f"K5 {label}: block {b} alone != its row of the batch"
     sh = consts.shifts.cpu().numpy()
     plan = ds.doppler_energy_plan(sh, spec.Nfft, spec.num_masks)
     nwin = plan.window_groups(sh)
@@ -1888,44 +1955,72 @@ def main_path_gmsk():
 
 def cc11xx_runtime_conf(port0):
     """CC11xx.json as shipped but for its sockets, all from ``port0`` on
-    (the RPC among them, off 8051), the stats folder and a 60 s feed
-    timeout."""
-    conf = load_modular_json(config_path("CC11xx.json"))
+    (``move_sockets``, the RPC among them, off 8051; the Tx radio's from
+    port0 + 20), the stats folder and a 60 s feed timeout."""
+    conf = move_sockets(load_modular_json(config_path("CC11xx.json")), port0)
     conf["Main"].update(workerId="smoke", statsFolder="build/runtime_stats")
-    conf["Radios"]["Rx"]["UHF-H"]["Interfaces"] = {
-        "RxInPort": f"tcp://127.0.0.1:{port0}", "demodOut": f"tcp://localhost:{port0 + 10}"}
     conf["Radios"]["Tx"]["UHF"]["Interfaces"] = {
         "TxModToUSRPPort": f"tcp://127.0.0.1:{port0 + 20}",
         "TxDataIn": f"tcp://127.0.0.1:{port0 + 21}",
         "TxManualIn": f"tcp://127.0.0.1:{port0 + 22}"}
     conf["Demodulator"] = {"timeoutSeconds": 60}
-    conf["Interfaces"]["Internal"].update({
-        "demodIn": f"tcp://*:{port0 + 10}", "demodOut": f"tcp://localhost:{port0 + 10}",
-        "decodeOut": f"tcp://localhost:{port0 + 11}", "decodeIn": f"tcp://*:{port0 + 11}"})
-    conf["Interfaces"]["External"].update({
-        "decodeBytesOut_ZMQ": {"UHF": f"tcp://*:{port0 + 12}"},
-        "XMLRpcIn": f"127.0.0.1:{port0 + 13}", "TxManualIn": f"tcp://127.0.0.1:{port0 + 22}"})
-    conf["decoder"] = dict(conf.get("decoder", {}), statsPort=port0 + 14)
+    conf["Interfaces"]["External"]["TxManualIn"] = f"tcp://127.0.0.1:{port0 + 22}"
     return conf
 
 
+def wait_station(sdr, what):
+    """Waits (bounded) until the CC11xx station's Rx child is warm and its
+    decoder and ``Modulator_process`` are bound; a child that dies first
+    fails."""
+    deadline = time.time() + RUNTIME_WAIT_S
+    flags = [sdr.demodulators[0].warmedFlag, sdr.dec.boundFlag, sdr.modulators[0].boundFlag]
+    while time.time() < deadline and not all(f.is_set() for f in flags):
+        assert all(t.is_alive() for t in sdr.tasks), f"{what}: a child died while warming"
+        time.sleep(0.2)
+    assert all(f.is_set() for f in flags), f"{what}: the children are not warm"
+
+
+def tx_to_rx(tx_in, wave_out, rx_in, sink, payload, rng):
+    """The CC11xx station's loop back: pushes ``payload`` into TxDataIn,
+    PULLs the waveform from TxModToUSRPPort, adds CC11XX_TAIL_HOPS hops of
+    silence and AWGN at CC11XX_SNR_DB, PUBlishes it in half hops to
+    RxInPort, and again, until bytes arrive on decodeBytesOut_ZMQ or
+    RUNTIME_WAIT_S pass. Returns (the bytes or None, seconds)."""
+    import zmq
+
+    hop = 2 ** 16 - 2 ** 10
+    t0 = time.time()
+    while time.time() < t0 + RUNTIME_WAIT_S:
+        tx_in.send(payload.tobytes())
+        try:
+            wave = np.frombuffer(wave_out.recv(), np.complex64)
+        except zmq.error.Again:
+            continue
+        chan = awgn(np.r_[wave, np.zeros(CC11XX_TAIL_HOPS * hop, np.complex64)],
+                    CC11XX_SNR_DB, measured=False, rng=rng).astype(np.complex64)
+        for pos in range(0, len(chan), hop // 2):
+            rx_in.send(chan[pos:pos + hop // 2].tobytes())
+            time.sleep(0.02)
+        try:
+            return sink.recv(), time.time() - t0
+        except zmq.error.Again:
+            continue
+    return None, time.time() - t0
+
+
 def run_cc11xx_runtime(port0):
-    """``PyCuSDR`` from CC11xx.json (``cc11xx_runtime_conf``): waits
-    (bounded) for the Rx child to be warm and the decoder and the
-    ``Modulator_process`` to bind, then pushes a seeded 200-byte payload
-    into TxDataIn, PULLs the waveform from TxModToUSRPPort, adds
-    CC11XX_TAIL_HOPS hops of silence and AWGN at CC11XX_SNR_DB, and
-    PUBlishes it in half hops to RxInPort, until bytes arrive on
-    decodeBytesOut_ZMQ. The modulator child is host numpy and touches no
-    device. Returns (bytes == payload, the Rx child's device, its host ms
-    per block, seconds to the first packet)."""
+    """``PyCuSDR`` from CC11xx.json (``cc11xx_runtime_conf``): once the
+    station is up (``wait_station``), a seeded 200-byte payload goes
+    through the Tx and back into the Rx (``tx_to_rx``). The modulator
+    child is host numpy and touches no device. Returns (bytes ==
+    payload, the Rx child's device, its host ms per block, seconds to the
+    first packet)."""
     import zmq
 
     from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
 
     conf = cc11xx_runtime_conf(port0)
     payload = np.random.RandomState(SEED + 20).randint(0, 256, 200).astype(np.uint8)
-    hop = 2 ** 16 - 2 ** 10
     ctx = zmq.Context()
     socks = []
 
@@ -1943,43 +2038,392 @@ def run_cc11xx_runtime(port0):
     assert len(sdr.modulators) == 1 and len(sdr.demodulators) == 1
     sdr.start()
     try:
-        deadline = time.time() + RUNTIME_WAIT_S
-        flags = [sdr.demodulators[0].warmedFlag, sdr.dec.boundFlag, sdr.modulators[0].boundFlag]
-        while time.time() < deadline and not all(f.is_set() for f in flags):
-            assert all(t.is_alive() for t in sdr.tasks), "a CC11xx child died while warming"
-            time.sleep(0.2)
-        assert all(f.is_set() for f in flags), "CC11xx children not warm"
+        wait_station(sdr, "CC11xx.json")
         tx_in = sock(zmq.PUSH, f"tcp://127.0.0.1:{port0 + 21}")
         wave_out = sock(zmq.PULL, f"tcp://127.0.0.1:{port0 + 20}", timeout_ms=5000)
         sink = sock(zmq.PULL, f"tcp://localhost:{port0 + 12}", timeout_ms=2000)
         time.sleep(1.0)  # let the SUB and PULL sockets connect
-        t0 = time.time()
-        rng = np.random.RandomState(SEED + 21)
-        got = None
-        while got is None and time.time() < deadline:
-            tx_in.send(payload.tobytes())
-            try:
-                wave = np.frombuffer(wave_out.recv(), np.complex64)
-            except zmq.error.Again:
-                continue
-            chan = awgn(np.r_[wave, np.zeros(CC11XX_TAIL_HOPS * hop, np.complex64)],
-                        CC11XX_SNR_DB, measured=False, rng=rng).astype(np.complex64)
-            for pos in range(0, len(chan), hop // 2):
-                rx_in.send(chan[pos:pos + hop // 2].tobytes())
-                time.sleep(0.02)
-            try:
-                got = sink.recv()
-            except zmq.error.Again:
-                continue
+        got, first_s = tx_to_rx(tx_in, wave_out, rx_in, sink, payload,
+                                np.random.RandomState(SEED + 21))
         assert got is not None, f"CC11xx.json: no packet decoded within {RUNTIME_WAIT_S} s"
         assert sdr.modulators[0].is_alive(), "the modulator child died"
         d = sdr.demodulators[0]
-        return got == payload.tobytes(), [d.device], [1e3 * d.timeMA], time.time() - t0
+        return got == payload.tobytes(), [d.device], [1e3 * d.timeMA], first_s
     finally:
         sdr.terminate()
         for s in socks:
             s.close()
         ctx.term()
+
+
+# --------------- slice 18: the three-station Rx through the softCombiner, hamlib
+
+#: phase 4n: bench_3_chan_rx.json's sockets from this port on (15 of them),
+#: and each channel's delay (samples) of the one packet fed to it
+COMBINER_PORT = 17540
+COMBINER_DELAYS = (0, 1117, 2403)
+#: phase 4n's diversity check: DIVERSITY_HOPS hops of seeded FSK at the IF
+#: offset plus DOPPLER_HZ, received three times with independent AWGN at
+#: DIVERSITY_SNR_DB a sample (unit-power FSK; Es/N0 is 12.04 dB higher at 16
+#: samples a symbol), where each channel alone has a raw BER of 1e-3 to 3e-2
+DIVERSITY_HOPS, DIVERSITY_SNR_DB = 40, -4.5
+#: the BER of a stream is counted in segments of this many bits, each at its
+#: own best lag, so one bit slip costs at most one segment
+BER_SEGMENT = 2048
+#: phase 4o: the hamlib daemon's listener (hamlib_sockets.json's 4532 moved
+#: here), the booted CC11xx modem's sockets from the next port on (as in phase
+#: 4f), and the range rate (m/s) the client's ``I`` steers the Tx to
+HAMLIB_PORT = 17560
+HAMLIB_RANGERATE = 12000.0
+
+
+def three_station_configuration():
+    """bench_3_chan_rx.json as shipped: bench_FSK at blockSize 15 (Nfft
+    2^15, overlap 2^10, 16 samples a symbol), D=64, 8 masks, three Rx
+    radios: (conf, protocol, spec of its first radio, Demodulator class)."""
+    conf = load_modular_json(config_path("benchmark", "bench_3_chan_rx.json"))
+    protocol = loadProtocol("bench_FSK")(conf=conf)
+    return conf, protocol, build_spec(conf, protocol, RADIO), UHF.Demodulator
+
+
+def child_launches(children, path):
+    """The Rx children's kernel launches since they were warm, summed, after
+    each child launched every kernel of ``path`` and no other."""
+    per_child = [d.launches for d in children]
+    for i, launches in enumerate(per_child):
+        check_launches(path, launches)
+        assert launches["threshold_input"] == 0, f"{path}: child {i} launched K6"
+    total = {k: sum(c[k] for c in per_child) for k in per_child[0]}
+    return total, [d.blocks for d in children], per_child
+
+
+def run_three_station(port0):
+    """Phase 4n's process run: ``run_runtime`` on bench_3_chan_rx.json as
+    shipped with its sockets moved to port0..port0 + 14 (three
+    ``Demodulator_process`` children on the card, the ``SoftCombiner``
+    child, the decoder), channel c fed after COMBINER_DELAYS[c] samples.
+    XML-RPC ``get_active_workers`` must name the three channels, each child
+    must launch K1-K5, every child must be gone after the teardown, and a
+    container must reach the decoder voted by three (``numSlaves`` 2, read
+    from the decoder's stats). Returns a dict."""
+    import xmlrpc.client
+
+    conf = move_sockets(three_station_configuration()[0], port0)
+
+    def check(sdr):
+        assert type(sdr.combiner).__name__ == "SoftCombiner" and sdr.combiner in sdr.tasks
+        assert sdr.rpcInt.softCombiner is sdr.combiner
+        proxy = xmlrpc.client.ServerProxy(f"http://127.0.0.1:{port0 + 13}/RPC2")
+        names = sorted(proxy.get_active_workers(2.0))
+        want = sorted(d.workerId for d in sdr.demodulators)
+        assert names == want, f"three-station: get_active_workers {names}, want {want}"
+        launches, blocks, per_child = child_launches(sdr.demodulators, "combiner")
+        return dict(workers=names, launches=launches, blocks=blocks, launches_by_child=per_child)
+
+    r = run_runtime(conf, port0, COMBINER_DELAYS, SEED + 40, check)
+    sdr = r["sdr"]
+    assert r["equal"], "three-station: decoded bytes differ from the payload"
+    assert r["devices"] == ["cuda"] * 3, f"three-station: children on {r['devices']}"
+    assert not any(t.is_alive() for t in sdr.tasks), "three-station: a child outlived terminate()"
+    slaves = [int(n) for w in sdr.passStats for n in w["numSlaves"]]
+    assert 2 in slaves, f"three-station: no container voted by three: {sorted(set(slaves))}"
+    return dict(config="bench_3_chan_rx.json", devices=r["devices"], warm_s=r["warm_s"],
+                first_packet_s=r["first_s"], feeds=r["feeds"], host_ms_per_block=r["host_ms"],
+                containers=len(slaves), voted_by_three=slaves.count(2),
+                voted_by_two=slaves.count(1), **r["checked"])
+
+
+class _Feed:
+    """The combiner's ``demodIn`` and ``decodeOut`` in one process: queued
+    dicts out of ``recv_pyobj``, every sent dict kept."""
+
+    def __init__(self):
+        self.queue, self.sent = [], []
+
+    def recv_pyobj(self, flags=0):
+        return self.queue.pop(0)
+
+    def send_pyobj(self, data, flags=0):
+        self.sent.append(data)
+
+
+def segment_ber(rx, tx, seg=BER_SEGMENT):
+    """BER of ``rx`` against ``tx``, each segment of ``seg`` bits at its own
+    best lag (FFT cross-correlation of +-1 bits)."""
+    rx, tx = np.asarray(rx, np.int64), np.asarray(tx, np.int64)
+    L = 1 << int(np.ceil(np.log2(len(tx) + seg)))
+    TX = np.fft.rfft(tx * 2.0 - 1.0, L)
+    errs = n = 0
+    for a in range(0, len(rx) - seg // 4, seg):
+        s = rx[a:a + seg]
+        corr = np.fft.irfft(TX * np.conj(np.fft.rfft(s * 2.0 - 1.0, L)), L)
+        lag = int(np.argmax(corr[:len(tx) - len(s) + 1]))
+        errs += int(np.sum(tx[lag:lag + len(s)] != s))
+        n += len(s)
+    return errs / n
+
+
+def diversity_check():
+    """Phase 4n's diversity check: DIVERSITY_HOPS hops of seeded FSK,
+    received three times with independent AWGN at DIVERSITY_SNR_DB, each
+    demodulated by the port's ``Demodulator`` on the card (``processMany``,
+    bench_3_chan_rx.json's spec), then voted block by block by the port's
+    ``SoftCombiner.compareWorkers`` in this process (not started; its
+    ``decodeOut`` records), each round timed on the host. The first
+    channel's hops also go through the plain path on the card: decisions
+    and trust equal on every block. Every channel's raw BER must lie in
+    [1e-3, 3e-2] and every master's voted BER at or below the best
+    channel's."""
+    from pycusdr_tpu_torch.combine import SoftCombiner
+
+    conf, protocol, spec, make = three_station_configuration()
+    radios = list(conf["Radios"]["Rx"])
+    assert radios[0] == RADIO
+    ov, hop, sps = spec.sigOverlap, spec.Nfft - spec.sigOverlap, int(spec.spsym)
+    n = ov + DIVERSITY_HOPS * hop
+    rng = np.random.RandomState(SEED + 30)
+    tx = rng.randint(0, 2, n // sps + 8)
+    f = (spec.centreFreqOffset + DOPPLER_HZ) / spec.sampleRate
+    clean = modulate_fsk(tx, sps)[:n] * np.exp(2j * np.pi * f * np.arange(n))
+    seqs = []
+    for c, radio in enumerate(radios):
+        x = awgn(clean, DIVERSITY_SNR_DB, measured=False,
+                 rng=np.random.RandomState(SEED + 31 + c)).astype(np.complex64)
+        hops = x[ov:].reshape(DIVERSITY_HOPS, hop)
+
+        def demodulate(d):
+            d.get_signalBufferHostPointer()[:ov] = x[:ov]
+            return [r for i in range(0, DIVERSITY_HOPS, LINE_BATCH)
+                    for r in d.processMany(hops[i:i + LINE_BATCH])]
+
+        seqs.append(demodulate(make(conf, protocol, radio)))
+        if c == 0:
+            ref = demodulate(plain_demodulator(make, conf, protocol))
+            assert len(ref) == len(seqs[0]) == DIVERSITY_HOPS
+            for i, (a, b) in enumerate(zip(seqs[0], ref)):
+                for k in ("bits", "trust"):
+                    assert np.array_equal(a[k], b[k]), \
+                        f"diversity: kernels != plain path at block {i} ({k})"
+    channel_ber = [segment_ber(np.concatenate([r["bits"] for r in s]), tx) for s in seqs]
+    assert all(1e-3 <= b <= 3e-2 for b in channel_ber), \
+        f"diversity: channel BERs {channel_ber} outside [1e-3, 3e-2] at {DIVERSITY_SNR_DB} dB"
+
+    comb = SoftCombiner(conf)
+    feed = _Feed()
+    comb.decodeOut, comb.workers, comb.workersSubmitted = feed, [], []
+    ids = [f"div-{conf['Radios']['Rx'][r]['name']}" for r in radios]
+    round_ms, buffered = [], []
+    for i in range(DIVERSITY_HOPS):
+        for c, s in enumerate(seqs):
+            r = s[i]
+            feed.queue.append({
+                "workerId": ids[c], "count": i, "timestamp": time.time(), "voteGroup": 0,
+                "doppler": r["doppler"], "doppler_std": r["doppler_std"],
+                "spSymEst": r["spSymEst"], "SNR": r["SNR"], "baudRate": spec.baudRate,
+                "protocol": "UHF", "data": r["bits"], "trust": r["trust"]})
+            comb.receiveData(feed)
+        t0 = time.perf_counter()
+        comb.compareWorkers()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        buffered.append(max(len(w.data["data"]) for w in comb.workers))
+    voted = {w: np.concatenate([np.asarray(d["data"]) for d in feed.sent if d["workerId"] == w])
+             for w in ids}
+    voted_ber = [segment_ber(voted[w], tx) for w in ids]
+    slaves = [d["numSlaves"] for d in feed.sent]
+    assert max(voted_ber) <= min(channel_ber), \
+        f"diversity: voted BERs {voted_ber} above the best channel's {min(channel_ber)}"
+    bits_in = [sum(len(r["bits"]) for r in s) for s in seqs]
+    return dict(snr_db_per_sample=DIVERSITY_SNR_DB, blocks=DIVERSITY_HOPS,
+                plain_channel=radios[0], channel_ber=channel_ber, voted_ber=voted_ber, bits_in=bits_in,
+                bits_voted=[len(voted[w]) for w in ids], containers=len(slaves),
+                voted_by_three=slaves.count(2), round_ms=round_ms, buffered_bits=buffered,
+                round_ms_median=statistics.median(round_ms), round_ms_max=max(round_ms),
+                block_ms=1e3 * hop / spec.sampleRate)
+
+
+def _rig_cmd(f, cmd: bytes, n_bytes=None) -> bytes:
+    f.write(cmd + b"\n")
+    f.flush()
+    return f.read(n_bytes) if n_bytes else f.readline().rstrip(b"\n")
+
+
+def run_hamlib(port0):
+    """Phase 4o: the daemon as ``hamlib_daemon.main`` runs it, from
+    hamlib_sockets.json as shipped with its listener moved to ``port0`` and
+    its entry pointed at CC11xx.json with the sockets moved from port0 + 1
+    on (``cc11xx_runtime_conf``), both written under build/; the daemon's
+    own modem factory boots the modem (Tx and Rx) from that file when a TCP
+    client connects. The client checks the wire and steers the Tx with
+    ``I``; a 200-byte payload pushed into TxDataIn after the steer comes
+    out of the Rx equal to itself, its Doppler estimate (the decoder's
+    stats, the block of highest SNR) within half a baud of the shift the
+    steer implies; then the client leaves, every child of that modem must
+    exit within ``JOIN_TIMEOUT``, and a second connection must boot a
+    second modem that answers. Returns a dict."""
+    import argparse
+    import os
+    import threading
+
+    import zmq
+
+    from pycusdr_tpu_torch.control import hamlib_daemon
+    from pycusdr_tpu_torch.control.rig_server import DUMP_STATE
+    from pycusdr_tpu_torch.runtime.orchestrator import JOIN_TIMEOUT, STOP_TIMEOUT
+    from pycusdr_tpu_torch.utils.doppler import freq_from_rangerate, rangerate_from_freq
+
+    home = Path(__file__).resolve().parent / "build" / "smoke_hamlib"
+    home.mkdir(parents=True, exist_ok=True)
+    sockets = load_modular_json(config_path("hamlib_sockets.json"))
+    sockets["CC11xx"]["port"] = port0
+    (home / sockets["CC11xx"]["config"]).write_text(json.dumps(cc11xx_runtime_conf(port0 + 1)))
+    sockets_file = home / "hamlib_sockets.json"
+    sockets_file.write_text(json.dumps(sockets))
+    booted = []
+
+    def rig_factory(sock, client, sdr):
+        """The daemon's own rig factory; keeps the modem it steers."""
+        booted.append(sdr)
+        return hamlib_daemon._default_rig_factory(sock, client, sdr)
+
+    def wait_gone(sdr, t_left):
+        """Seconds from the client's leaving until every child exited, and
+        until the daemon finished the teardown."""
+        limit = STOP_TIMEOUT + 2 * JOIN_TIMEOUT + 10
+        while time.time() < t_left + limit and any(t.is_alive() for t in sdr.tasks):
+            time.sleep(0.05)
+        children_s = time.time() - t_left
+        assert children_s <= JOIN_TIMEOUT, \
+            f"hamlib: the modem's children exited {children_s:.1f} s after the client left"
+        while time.time() < t_left + limit and sdr.rpcInt.is_alive():
+            time.sleep(0.05)
+        assert not sdr.rpcInt.is_alive(), "hamlib: the teardown did not finish"
+        return children_s
+
+    # as main() reads its -c file and the arguments
+    args = argparse.Namespace(configFile=str(sockets_file), radio=None, v=0)
+    stop, ready = threading.Event(), {}
+    threads = hamlib_daemon.serve_all(
+        load_modular_json(args.configFile), os.path.dirname(os.path.abspath(args.configFile)),
+        args, rig_factory=rig_factory, stop=stop, ready_events=ready)
+    ctx = zmq.Context()
+    socks = []
+
+    def zsock(kind, addr, bind=False, timeout_ms=None):
+        s = ctx.socket(kind)
+        s.setsockopt(zmq.LINGER, 0)
+        if timeout_ms is not None:
+            s.setsockopt(zmq.RCVTIMEO, timeout_ms)
+        (s.bind if bind else s.connect)(addr)
+        socks.append(s)
+        return s
+
+    try:
+        assert ready["CC11xx"].wait(10), "hamlib: the listener did not come up"
+        rx_in = zsock(zmq.PUB, f"tcp://127.0.0.1:{port0 + 1}", bind=True)
+        t_boot = time.time()
+        client = socket.create_connection(("localhost", port0), timeout=RUNTIME_WAIT_S)
+        f = client.makefile("rwb")
+        assert _rig_cmd(f, b"\\chk_vfo") == b"CHKVFO 0"
+        boot_s = time.time() - t_boot
+        dump = (DUMP_STATE + "\n").encode()
+        assert _rig_cmd(f, b"\\dump_state", len(dump)) == dump, "hamlib: dump_state differs"
+        assert len(booted) == 1
+        sdr = booted[0]
+        assert sdr.configFile["Interfaces"]["External"]["XMLRpcIn"] == f"127.0.0.1:{port0 + 14}", \
+            "hamlib: the modem did not boot from the written config"
+        wait_station(sdr, "hamlib")
+        assert sdr.demodulators[0].device == "cuda", "hamlib: the Rx child is not on the card"
+        warm_s = time.time() - t_boot
+        mod = sdr.modulators[0]
+        fc_hl = sdr.configFile["Radios"]["Tx"]["UHF"].get(
+            "frequency_hamlib_Hz", sdr.configFile["Radios"]["Tx"]["UHF"]["frequency_Hz"])
+        freq = round(freq_from_rangerate(HAMLIB_RANGERATE, fc_hl), 1)
+        assert _rig_cmd(f, b"I %.1f" % freq) == b"RPRT 0"
+        read_back = float(_rig_cmd(f, b"i"))
+        assert abs(read_back - freq) < 1.0, f"hamlib: i read {read_back} after I {freq}"
+        rr_want = rangerate_from_freq(freq, fc_hl)
+        rr_err = abs(mod.rangerate - rr_want) / abs(rr_want)
+        assert rr_err <= 1e-6, f"hamlib: the modulator's rangerate {mod.rangerate}, want {rr_want}"
+        # the shift the steer implies on the waveform: the port's Modulator
+        # for the same Tx radio at the steered rangerate
+        conf = sdr.configFile
+        tx_mod = Modulator(conf, conf["Radios"]["Tx"]["UHF"], sdr.protocols["UHF"])
+        tx_mod.set_rangerate(mod.rangerate)
+        shift_hz = tx_mod.getDoppler() / (2 * np.pi)
+        time.sleep(0.5)  # the child applies the rangerate at its next poll (100 ms)
+
+        payload = np.random.RandomState(SEED + 41).randint(0, 256, 200).astype(np.uint8)
+        tx_in = zsock(zmq.PUSH, f"tcp://127.0.0.1:{port0 + 22}")
+        wave_out = zsock(zmq.PULL, f"tcp://127.0.0.1:{port0 + 21}", timeout_ms=5000)
+        sink = zsock(zmq.PULL, f"tcp://localhost:{port0 + 13}", timeout_ms=2000)
+        time.sleep(1.0)  # let the SUB and PULL sockets connect
+        got, first_s = tx_to_rx(tx_in, wave_out, rx_in, sink, payload,
+                                np.random.RandomState(SEED + 42))
+        assert got == payload.tobytes(), "hamlib: the Rx did not return the payload"
+        d = sdr.demodulators[0]
+        launches, blocks, _ = child_launches([d], "hamlib")
+        host_ms = 1e3 * d.timeMA
+
+        f.close()
+        client.close()
+        t_left = time.time()
+        children_s = wait_gone(sdr, t_left)
+        stats = [w for w in sdr.passStats if len(w["SNR"])]
+        assert stats, "hamlib: the decoder kept no stats"
+        snr = np.asarray(stats[0]["SNR"], float)
+        best = int(np.argmax(np.where(np.isfinite(snr), snr, -np.inf)))
+        doppler = float(stats[0]["doppler"][best])
+        dop_err = abs(doppler - shift_hz)
+        half_baud = conf["Radios"]["Rx"]["UHF-H"]["baud"] / 2
+        assert dop_err < half_baud, \
+            f"hamlib: Doppler {doppler} Hz, {dop_err} Hz from the steer's {shift_hz} Hz"
+
+        # a second client: a second modem boots on the same listener
+        t_boot2 = time.time()
+        client = socket.create_connection(("localhost", port0), timeout=RUNTIME_WAIT_S)
+        f = client.makefile("rwb")
+        assert _rig_cmd(f, b"\\chk_vfo") == b"CHKVFO 0"
+        assert len(booted) == 2 and booted[1] is not sdr
+        wait_station(booted[1], "hamlib, second modem")
+        warm2_s = time.time() - t_boot2
+        f.close()
+        client.close()
+        children2_s = wait_gone(booted[1], time.time())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=STOP_TIMEOUT + 2 * JOIN_TIMEOUT + 10)
+        for s in socks:
+            s.close()
+        ctx.term()
+        for b in booted:
+            if any(t.is_alive() for t in b.tasks):
+                b.terminate()
+    assert not any(t.is_alive() for t in threads), "hamlib: the daemon's listener did not stop"
+    return dict(config=f"{sockets_file.name} -> {sockets['CC11xx']['config']} (default modem "
+                       f"factory)", boot_s=boot_s, warm_s=warm_s,
+                steer_hz=freq, read_back_hz=read_back, rangerate=mod.rangerate,
+                rangerate_rel_err=rr_err, shift_hz=shift_hz, doppler_hz=doppler,
+                doppler_err_hz=dop_err, snr_db=float(snr[best]), first_packet_s=first_s,
+                launches=launches, blocks=blocks, host_ms_per_block=host_ms,
+                children_exit_s=children_s, second_warm_s=warm2_s,
+                second_children_exit_s=children2_s)
+
+
+def main_path_slice18():
+    """Phases 4n (``run_three_station``, then ``diversity_check``) and 4o
+    (``run_hamlib``), each timed."""
+    out = {}
+    t0 = time.time()
+    out["combiner"] = run_three_station(COMBINER_PORT)
+    out["combiner"]["seconds"] = time.time() - t0
+    t0 = time.time()
+    out["diversity"] = diversity_check()
+    out["diversity"]["seconds"] = time.time() - t0
+    t0 = time.time()
+    out["hamlib"] = run_hamlib(HAMLIB_PORT)
+    out["hamlib"]["seconds"] = time.time() - t0
+    return out
 
 
 # ------------------------------------------- slice 5: wideband front end, tracking
@@ -2268,11 +2712,12 @@ def k1_grid(N, D, kind, rng):
     return np.r_[7 * np.arange(h), N // 8 + (N // 2 // (D - h)) * np.arange(D - h)]
 
 
-def k1_specs(fspec, fconsts, bconsts, ccconsts):
+def k1_specs(fspec, fconsts, bconsts, ccconsts, cmbconsts):
     """The grids the main paths give K1: label -> (DeviceConsts, recentre
     of K1_BATCH blocks or None): flagship, ccsds, bpsk (M=16), the tracker's
     16-bin grid recentred, a generic shard's masks (M=4), tiny (wraps at N),
-    cc11xx (64 shifts about 80.7 bins apart about the IF bin 10240)."""
+    cc11xx (64 shifts about 80.7 bins apart about the IF bin 10240),
+    combiner (bench_3_chan_rx.json's 64 shifts at Nfft 2^15)."""
     dev = torch.device("cuda")
     tc = tracking_conf()
     track = narrow_spec(fspec, tc["track_bins"], tc["track_span_bins"])
@@ -2282,7 +2727,8 @@ def k1_specs(fspec, fconsts, bconsts, ccconsts):
             "tracking": (DeviceConsts.from_spec(track, dev), recentres(fspec.Nfft, K1_BATCH)),
             "generic shard": (DeviceConsts.from_spec(fspec, dev, mask_range=(0, 4)), None),
             "tiny": (DeviceConsts.from_spec(tiny_spec(), dev), recentres(512, K1_BATCH)),
-            "cc11xx": (ccconsts, recentres(fspec.Nfft, K1_BATCH))}
+            "cc11xx": (ccconsts, recentres(fspec.Nfft, K1_BATCH)),
+            "combiner": (cmbconsts, recentres(cmbconsts.Q.shape[1], K1_BATCH))}
 
 
 def check_k1(P, Q, sh, cs, tag):
@@ -3064,7 +3510,9 @@ def time_slice5(wb, spec, tracker, xb):
                               cuda_ms(lambda: pch.channelize_wide(xd, chd.h2, std)),
                               device_ms(lambda: pch.channelize_wide(xd, chd.h2, std),
                                         "channelize_wide"),
-                              k9_bound(wbd, Td))
+                              k9_bound(wbd, Td),
+                              cuda_ms(lambda: pch.channelize_plain(xd, chd.h2, std), iters=5,
+                                      reps=5))
     return dict(out, k9_wide=wide, k9_direct=direct, chain_ms=chain_ms, step_ms=step_ms,
                 acquire_ms=acq_ms, track_ms=trk_ms)
 
@@ -3505,22 +3953,24 @@ def main() -> int:
         say("kernels", f"{p} B=64 K2, K3 vs plain OK (the last block alone equal to its row "
                        f"in the batch), max abs err " + json.dumps(e))
     cfg["cc11xx"] = cc11xx_configuration()
-    ccspec = cfg["cc11xx"][2]
-    consts["cc11xx"] = DeviceConsts.from_spec(ccspec, torch.device("cuda"))
-    for line in plan_lines(ccspec):
-        say("kernels", f"cc11xx geometry: {line}")
-    sh = ccspec.dopp_shifts
-    for B in BATCHES:
-        e, (nwin, nglob), rel = check_cc11xx_kernels(ccspec, consts["cc11xx"], B)
-        errs.update({k: max(errs[k], v) for k, v in e.items()})
-        say("kernels", f"cc11xx B={B} (CC11xx.json: Nfft {ccspec.Nfft}, spsym {ccspec.spsym:g}, "
-                       f"S {ccspec.numSymMax}, K3's band [{ccspec.code_idx_lo}, "
-                       f"{ccspec.code_idx_hi}), D={ccspec.D} shifts {int(sh.min())}-{int(sh.max())} "
-                       f"about bin {ccspec.dopp_offset_idx}, M={ccspec.num_masks}) K1-K5 vs plain "
-                       f"OK: K1 {nwin} window group(s), {nglob} global-read group(s), max err "
-                       f"{rel:.3e} of max|E| (bar {K1_REL}); K4 plan {dk.k4_plan(B, ccspec.numSymMax)}; "
-                       f"every block alone == its row (K1, K4, K5; K2, K3 the last); max abs err "
-                       + json.dumps(e))
+    # the three Rx children of phase 4n run bench_3_chan_rx.json's shape
+    station = {"cc11xx": cfg["cc11xx"], "combiner": three_station_configuration()}
+    for p, (_, _, sspec, _) in station.items():
+        consts[p] = DeviceConsts.from_spec(sspec, torch.device("cuda"))
+        for line in plan_lines(sspec):
+            say("kernels", f"{p} geometry: {line}")
+        sh = sspec.dopp_shifts
+        for B in BATCHES:
+            e, (nwin, nglob), rel = check_station_kernels(sspec, consts[p], B, p)
+            errs.update({k: max(errs[k], v) for k, v in e.items()})
+            say("kernels", f"{p} B={B} ({STATION_CONFIGS[p]}: Nfft {sspec.Nfft}, spsym "
+                           f"{sspec.spsym:g}, S {sspec.numSymMax}, K3's band [{sspec.code_idx_lo}, "
+                           f"{sspec.code_idx_hi}), D={sspec.D} shifts {int(sh.min())}-"
+                           f"{int(sh.max())} about bin {sspec.dopp_offset_idx}, M={sspec.num_masks}) "
+                           f"K1-K5 vs plain OK: K1 {nwin} window group(s), {nglob} global-read "
+                           f"group(s), max err {rel:.3e} of max|E| (bar {K1_REL}); K4 plan "
+                           f"{dk.k4_plan(B, sspec.numSymMax)}; every block alone == its row (K1, "
+                           f"K4, K5; K2, K3 the last); max abs err " + json.dumps(e))
     for soft, decode, regs, stack, st, ld in viterbi_ptxas():
         say("kernels", f"K7 viterbi<soft={soft}, decode={decode}> ptxas: {regs} registers, "
                        f"{stack} bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads")
@@ -3600,7 +4050,7 @@ def main() -> int:
         say("kernels", f"K1, K5 with centre_shift {recentres(fspec.Nfft, B).tolist()} vs plain "
                        f"OK at B={B}: K1 max abs err {e1:.4g}, K5 {e5:.4g}")
     for label, N, D, M, nw, ng, rel in check_doppler_energy_grids(
-            k1_specs(fspec, consts["flagship"], bconsts, consts["cc11xx"])):
+            k1_specs(fspec, consts["flagship"], bconsts, consts["cc11xx"], consts["combiner"])):
         say("kernels", f"K1 {label} grid N={N} D={D} M={M}: {nw} window group(s), {ng} "
                        f"global-read group(s); vs plain OK at B={K1_BATCH} (with and without a "
                        f"recentre where the path has one), max err {rel:.3e} of max|E| (bar "
@@ -3727,6 +4177,28 @@ def main() -> int:
                 f"bench_FSK.json (one demodulator child) and CC11xx.json (TxDataIn -> "
                 f"Modulator_process -> AWGN -> RxInPort: Tx through Rx), Rx children on the card, in "
                 f"{time.perf_counter() - t_rt:.1f} s; " + json.dumps(runtime))
+    t_s18 = time.perf_counter()
+    s18 = main_path_slice18()
+    for key in ("combiner", "hamlib"):
+        res[key] = {"launches": s18[key]["launches"]}
+    c18, d18, h18 = s18["combiner"], s18["diversity"], s18["hamlib"]
+    say("main", f"4n three-station Rx: PyCuSDR from bench_3_chan_rx.json as shipped (softCombiner "
+                f"on, blockSize 15, three Demodulator_process children on the card) decoded the "
+                f"payload fed at delays {list(COMBINER_DELAYS)} samples; get_active_workers "
+                f"{c18['workers']}; {c18['voted_by_three']} of {c18['containers']} containers "
+                f"voted by three; K1-K5 in every child; {c18['seconds']:.1f} s; " + json.dumps(c18))
+    say("main", f"4n diversity: {DIVERSITY_HOPS} blocks at {DIVERSITY_SNR_DB} dB a sample "
+                f"(Es/N0 {DIVERSITY_SNR_DB + 10 * math.log10(16):.2f} dB), channel BERs "
+                f"{d18['channel_ber']}, voted BERs (each master) {d18['voted_ber']}: voted <= the "
+                f"best channel's; {d18['seconds']:.1f} s; "
+                + json.dumps({k: v for k, v in d18.items() if k not in ("round_ms", "buffered_bits")}))
+    say("main", f"4o hamlib: serve_all booted CC11xx.json's modem on connect; chk_vfo, dump_state, "
+                f"I/i; the modulator's rangerate within {h18['rangerate_rel_err']:.2e} of "
+                f"rangerate_from_freq; the payload returned, Doppler {h18['doppler_hz']:.1f} Hz, "
+                f"{h18['doppler_err_hz']:.1f} Hz from the steer's {h18['shift_hz']:.1f} Hz; children "
+                f"gone {h18['children_exit_s']:.2f} s after the client left; a second modem "
+                f"booted; {h18['seconds']:.1f} s; " + json.dumps(h18))
+    say("main", f"slice-18 paths took {time.perf_counter() - t_s18:.1f} s")
 
     times = {}
     for p in cfg:
@@ -3824,9 +4296,11 @@ def main() -> int:
                      f"plain_ms={pms:.5f} library_ms=null bound_ms={bms:.4g} ({by}) "
                      f"device_ms={dms:.5f} (the FIR kernel alone; ms includes cuFFT and the "
                      f"transpose)")
-    for (Md, Kd, Td), (ms, dms, wms, wdms, (bms, by)) in t5["k9_direct"].items():
-        assert min(ms, dms, wms, wdms) >= bms, f"K9 direct ({Md}, {Kd}): a time is below {bms}"
+    for (Md, Kd, Td), (ms, dms, wms, wdms, (bms, by), pms) in t5["k9_direct"].items():
+        assert min(ms, dms, wms, wdms, pms) >= bms, \
+            f"K9 direct ({Md}, {Kd}): a time is below {bms}"
         say("times", f"{card} | channelize direct form M={Md} K={Kd} T={Td}: ms={ms:.5f} "
+                     f"plain_ms={pms:.5f} "
                      f"device_ms={dms:.5f}; the wide form at the same shape ms={wms:.5f} (its "
                      f"FIR kernel {wdms:.5f} device ms, then cuFFT and the transpose); "
                      f"bound_ms={bms:.4g} ({by})")
@@ -3858,6 +4332,20 @@ def main() -> int:
                 if r["host_ms_per_block"] else "")
         say("times", f"{card} | runtime {key} ({r['config']}): {host}first packet after "
                      f"{r['first_packet_s']:.2f} s of feed")
+    say("times", f"{card} | 4n three-station Rx: first packet through the combiner after "
+                 f"{c18['first_packet_s']:.2f} s of feed ({c18['warm_s']:.1f} s to warm); Rx "
+                 f"children host ms per block (timeMA) {c18['host_ms_per_block']}; blocks "
+                 f"{c18['blocks']}")
+    say("times", f"{card} | 4n combiner host ms a compareWorkers round (three channels, one block "
+                 f"of {d18['block_ms']:.2f} ms of signal each): median "
+                 f"{d18['round_ms_median']:.3f}, max {d18['round_ms_max']:.3f} over "
+                 f"{d18['blocks']} rounds, buffers up to {max(d18['buffered_bits'])} bits; "
+                 f"rounds {[round(x, 3) for x in d18['round_ms']]}")
+    say("times", f"{card} | 4o hamlib: modem up {h18['boot_s']:.2f} s after connect, warm "
+                 f"{h18['warm_s']:.1f} s, second modem warm {h18['second_warm_s']:.1f} s; first "
+                 f"packet {h18['first_packet_s']:.2f} s into the feed; Rx child host ms per block "
+                 f"{h18['host_ms_per_block']:.3f}; children gone {h18['children_exit_s']:.2f} / "
+                 f"{h18['second_children_exit_s']:.2f} s after the client left")
 
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
                  ("stx", 64), ("cc11xx", 1), ("cc11xx", LINE_BATCH), ("cc11xx", 64),
@@ -3946,7 +4434,8 @@ def main() -> int:
                     "device_ms": v[3]} for (Mw, Kw, Tw), v in t5["k9_wide"].items()},
                 "direct_form": {f"M={Md} K={Kd} T={Td}": {
                     "ms": v[0], "device_ms": v[1], "wide_form_ms": v[2],
-                    "wide_form_fir_device_ms": v[3], "bound_ms": v[4][0], "bound_by": v[4][1]}
+                    "wide_form_fir_device_ms": v[3], "bound_ms": v[4][0], "bound_by": v[4][1],
+                    "plain_ms": v[5]}
                     for (Md, Kd, Td), v in t5["k9_direct"].items()}})
             continue
         if k == "viterbi":

@@ -26,6 +26,7 @@ SAVETX_DATA = False  # Tx: snapshot the last modulated waveform to .npy
 STORE_BITS_IN_FILE = False  # Rx: dump demodulated bits (slow, debug only)
 
 TRUSTTYPE = np.int8
+DATATYPE = np.int8
 MODULATORDTYPE = np.complex64
 
 TRUST_NORMAL_SCALE = 2

@@ -13,6 +13,7 @@ a machine without ``nvcc`` or a card.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -128,7 +129,12 @@ def _digest() -> str:
 def build() -> Path:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` each, all started
     together) and link one shared library; reuse it when the sources are
-    unchanged. Returns the library path."""
+    unchanged. Returns the library path.
+
+    Safe across processes: the station's Rx children each build at their
+    first launch, so the build runs under an exclusive ``flock`` on a lock
+    file in ``BUILD_DIR``, and a process that waited on the lock finds
+    the library the first one linked and reuses it."""
     nvcc = _nvcc()
     tag = _digest()
     out = BUILD_DIR / f"libpycusdr_kernels_{tag}.so"
@@ -137,6 +143,15 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True, log=str(log_path))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"build_{tag}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():
+            build_info.update(path=str(out), seconds=0.0, cached=True, log=str(log_path))
+            return out
+        return _compile_and_link(nvcc, tag, out, log_path)
+
+
+def _compile_and_link(nvcc: str, tag: str, out: Path, log_path: Path) -> Path:
     t0 = time.perf_counter()
     objs, procs = [], []
     for src in _sources():

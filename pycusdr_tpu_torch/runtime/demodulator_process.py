@@ -12,7 +12,9 @@ signalling via an Event. The CUDA context and the kernels are created
 INSIDE the child process, as the reference's per-process CUDA context
 (``demodulator_process.py:242``); the child runs on the device
 ``globals.torch_device`` names (the card unless ``PYCUSDR_TORCH_DEVICE``
-says "cpu") and reports it in ``device``.
+says "cpu") and reports it in ``device``, and its kernel launches since
+it was warm in ``launches`` (``ops.launch_counts``, published after every
+block it ships, with the count of those blocks in ``blocks``).
 """
 
 import logging
@@ -23,6 +25,8 @@ import time
 
 import numpy as np
 import scipy.constants
+
+from pycusdr_tpu_torch import ops
 
 # The demodulator child owns a CUDA context, which a forked child cannot
 # inherit, so this process uses the spawn start method.
@@ -149,6 +153,9 @@ class Demodulator_process(Process):
         self.subscribeGate = Event()
         self.subscribeGate.set()
         self._device = Array("c", 16)  # the child's torch device type
+        # the child's kernel launches since it was warm, then its blocks shipped
+        self._kernels = tuple(ops.kernel_wrappers())
+        self._launches = Array("q", len(self._kernels) + 1)
         self.logLevel = log.getEffectiveLevel()
         log.info("[%s]: Demodulator process initialized", radio)
 
@@ -164,6 +171,23 @@ class Demodulator_process(Process):
         """The child's torch device type ("cuda" or "cpu"); "" until it
         has started."""
         return self._device.value.decode()
+
+    @property
+    def launches(self) -> dict:
+        """Kernel name -> the child's launches since it was warm (its
+        warm-up's launches are not counted)."""
+        return dict(zip(self._kernels, self._launches[:len(self._kernels)]))
+
+    @property
+    def blocks(self) -> int:
+        """Blocks the child has shipped since it was warm."""
+        return self._launches[len(self._kernels)]
+
+    def _publish_launches(self, counts: dict) -> None:
+        with self._launches.get_lock():
+            for i, name in enumerate(self._kernels):
+                self._launches[i] = counts[name]
+            self._launches[len(self._kernels)] += 1
 
     @property
     def timeMA(self):
@@ -219,6 +243,8 @@ class Demodulator_process(Process):
             log.exception(e)
             raise
 
+        # the launches counted from here on are the feed's
+        ops.reset_launches()
         # hold point: graphs are warm, nothing is subscribed yet (a caller
         # may clear subscribeGate before start() to hold the child here)
         self.warmedFlag.set()
@@ -316,6 +342,7 @@ class Demodulator_process(Process):
             )
             self.SNRStats(res["SNR"], res["spSymEst"])
             ship(data)
+            self._publish_launches(ops.launch_counts())
             return TxFreqOffset
 
         def emit(handle, timeStamp, cnt):

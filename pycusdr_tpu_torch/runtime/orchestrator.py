@@ -3,11 +3,11 @@
 The port of ``pycusdr_tpu/runtime/orchestrator.py`` (capability parity
 with the reference ``PyCuSDR`` class, ``pyCuSDR/pyCuSDR.py:44-346``):
 modular-JSON config load, per-name protocol instantiation, demodulators
-/ decoder / RPC construction with ``decodeIn = demodIn`` (no
-softCombiner), a watchdog ``is_alive`` that ends the run when any
-process dies or every demodulator lost its sample feed (or, with
-``Main.restartDeadProcesses``, rebuilds the dead process), and an
-ordered shutdown that collects the decoder's stats for post-pass plots.
+/ softCombiner / decoder / RPC construction, a watchdog ``is_alive``
+that ends the run when any process dies or every demodulator lost its
+sample feed (or, with ``Main.restartDeadProcesses``, rebuilds the dead
+process), and an ordered shutdown that collects the decoder's stats for
+post-pass plots.
 
 Tx radios get one ``Modulator_process`` each (host numpy: framing, LUT
 modulation, Doppler pre-compensation; no device). Rx radios get one
@@ -17,9 +17,15 @@ demodulates them in one dispatch and votes on the device. Every Rx child
 runs on ``globals.torch_device``: the card unless
 ``PYCUSDR_TORCH_DEVICE`` says "cpu".
 
+With ``Main.softCombiner_enabled`` and more than one Rx radio, the
+demodulators send to a ``SoftCombiner`` child (``combine/``, host numpy),
+which aligns and votes the channels' bits and forwards them to the
+decoder; otherwise they send straight to the decoder (``decodeIn =
+demodIn``). The combiner is ``self.combiner``, and the RPC server's
+``get_active_workers`` asks it.
+
 Not yet ported, refused with ``NotImplementedError`` (ROADMAP.md Queue
-1): ``softCombiner_enabled`` with more than one radio,
-``Main.maxWorkerRssMb`` (planned restarts) and telegraf metrics
+1): ``Main.maxWorkerRssMb`` (planned restarts) and telegraf metrics
 (``Main.telegraf_ip``).
 """
 
@@ -42,12 +48,8 @@ JOIN_TIMEOUT = 10.0
 
 def check_supported(conf) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    main, radios = conf["Main"], conf["Radios"]
+    main = conf["Main"]
     refused = []
-    if main.get("softCombiner_enabled", False) and len(radios["Rx"]) > 1:
-        refused.append("Main.softCombiner_enabled with more than one radio (the softCombiner, "
-                       "ROADMAP.md Queue 1 item 18; Main.channelGroup_enabled votes clock-shared "
-                       "antennas on the device)")
     if main.get("maxWorkerRssMb", 0):
         refused.append("Main.maxWorkerRssMb (planned restarts, ROADMAP.md Queue 1 item 20)")
     if "telegraf_ip" in main:
@@ -80,6 +82,7 @@ class PyCuSDR:
         self._restart_enabled = self.configFile["Main"].get("restartDeadProcesses", False)
         self._max_restarts = self.configFile["Main"].get("maxProcessRestarts", 3)
         self._restarts = 0
+        self.passStats = []
         self._init_SDR()
         self._running = False
         self.killer = None
@@ -127,6 +130,10 @@ class PyCuSDR:
                     coll[j] = new
         if old is self.dec:
             self.dec = new
+        if old is self.combiner:
+            self.combiner = new
+            if self.rpcInt is not None:
+                self.rpcInt.softCombiner = new
         # keep the RPC thread pointed at live processes
         if self.rpcInt is not None:
             for j, x in enumerate(self.rpcInt.demodulator):
@@ -154,10 +161,11 @@ class PyCuSDR:
 
     def shutdown_tasks(self):
         """Hook run during shutdown, before force-terminating: collect
-        the decoder stats and write post-pass analytics."""
+        the decoder stats (kept in ``passStats``: one dict of per-block
+        lists for each worker) and write post-pass analytics."""
         self._running = False
         try:
-            plotData = self.dec.getVisualData()
+            plotData = self.passStats = self.dec.getVisualData()
             if plotData:
                 from pycusdr_tpu_torch.obs import stats
 
@@ -197,6 +205,7 @@ class PyCuSDR:
     # ---------------- construction ----------------
 
     def _init_SDR(self):
+        from pycusdr_tpu_torch.combine import SoftCombiner
         from pycusdr_tpu_torch.runtime.decoder_process import Decoder
         from pycusdr_tpu_torch.runtime.demodulator_process import Demodulator_process
         from pycusdr_tpu_torch.runtime.modulator_process import Modulator_process
@@ -207,16 +216,26 @@ class PyCuSDR:
         # be rebuilt when restartDeadProcesses is enabled
         self._task_factories = factories = []
 
-        # no softCombiner: the demodulators send straight to the decoder
-        self.configFile["Interfaces"]["Internal"]["decodeIn"] = \
-            self.configFile["Interfaces"]["Internal"]["demodIn"]
-        log.info("Sending bits directly to decoder")
+        # the softCombiner binds demodIn and sends to the decoder's
+        # decodeIn; without it the demodulators send straight to the decoder
+        if self.configFile["Main"].get("softCombiner_enabled", False) and len(self.radios) > 1:
+            self.combiner = SoftCombiner(self.configFile)
+            log.info("SoftCombiner initialized.")
+        else:
+            self.configFile["Interfaces"]["Internal"]["decodeIn"] = \
+                self.configFile["Interfaces"]["Internal"]["demodIn"]
+            self.combiner = None
+            log.info("SoftCombiner not started. Sending bits directly to decoder")
 
-        # the decoder starts first: it binds the socket the demodulators
-        # connect to (kept as attribute: stats are fetched at shutdown)
+        # the decoder starts first: it binds the socket the combiner or the
+        # demodulators connect to (kept as attribute: stats are fetched at
+        # shutdown)
         self.dec = Decoder(self.configFile, self.protocols)
         tasks.append(self.dec)
         factories.append(lambda: Decoder(self.configFile, self.protocols))
+        if self.combiner is not None:
+            tasks.append(self.combiner)
+            factories.append(lambda: SoftCombiner(self.configFile))
 
         # Tx modulators: one process per Tx radio, protocol from config
         self._modulators = []
@@ -269,7 +288,7 @@ class PyCuSDR:
             from pycusdr_tpu_torch.control.rpc import RpcInterface
 
             self.rpcInt = RpcInterface(self.configFile, self._modulators, self._demodulators,
-                                       None)
+                                       self.combiner)
         else:
             self.rpcInt = None
 

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``pycusdr_tpu_torch`` (the runtime, the RPC server and the config loader
 among them), the module-level code of ``chip_smoke.py`` and running
-``python -m pycusdr_tpu_torch --help`` load neither ``jax`` nor the JAX
-package, and its CUDA entry points, the CLI included, raise without a
+``python -m pycusdr_tpu_torch --help`` and ``python -m
+pycusdr_tpu_torch.control.hamlib_daemon --help`` load neither ``jax`` nor
+the JAX package, and its CUDA entry points, the CLI included, raise without a
 card instead of running on the CPU. Each check runs in a fresh
 interpreter (this test process has JAX loaded already)."""
 
@@ -39,6 +40,19 @@ bad = sorted(n for n in sys.modules
              or n == "pycusdr_tpu" or n.startswith("pycusdr_tpu."))
 cli = "pycusdr_tpu_torch.runtime.cli" in sys.modules
 print(json.dumps({"code": code, "bad": bad, "runtime": cli}))
+"""
+
+DAEMON_HELP = r"""
+import json, runpy, sys
+sys.argv = ["hamlib_daemon", "--help"]
+try:
+    runpy.run_module("pycusdr_tpu_torch.control.hamlib_daemon", run_name="__main__")
+except SystemExit as e:
+    code = e.code
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib" or n.startswith("jaxlib.")
+             or n == "pycusdr_tpu" or n.startswith("pycusdr_tpu."))
+print(json.dumps({"code": code, "bad": bad}))
 """
 
 NO_CARD = r"""
@@ -118,7 +132,12 @@ def test_port_imports_no_jax():
                  "pycusdr_tpu_torch.protocol.gfsk2",
                  "pycusdr_tpu_torch.protocol.benchmark.bench_gmsk",
                  "pycusdr_tpu_torch.runtime.modulator_process", "pycusdr_tpu_torch.utils.gmsk",
-                 "pycusdr_tpu_torch.utils.binops", "pycusdr_tpu_torch.utils.doppler"):
+                 "pycusdr_tpu_torch.utils.binops", "pycusdr_tpu_torch.utils.doppler",
+                 "pycusdr_tpu_torch.combine", "pycusdr_tpu_torch.combine.votes",
+                 "pycusdr_tpu_torch.combine.aligner", "pycusdr_tpu_torch.combine.worker",
+                 "pycusdr_tpu_torch.combine.combiner", "pycusdr_tpu_torch.control.rig_server",
+                 "pycusdr_tpu_torch.control.dummy_radios",
+                 "pycusdr_tpu_torch.control.hamlib_daemon"):
         assert name in res["modules"]
 
 
@@ -129,6 +148,13 @@ def test_cuda_entry_points_raise_without_a_card():
 def test_cli_help_imports_no_jax():
     res = _run(CLI_HELP)
     assert res == {"code": 0, "bad": [], "runtime": True}
+
+
+def test_hamlib_daemon_entry_imports_no_jax():
+    """``python -m pycusdr_tpu_torch.control.hamlib_daemon`` (the hamlib
+    daemon that boots the port's modem per gpredict connection) loads
+    neither ``jax`` nor the JAX package."""
+    assert _run(DAEMON_HELP) == {"code": 0, "bad": []}
 
 
 def test_cli_raises_without_a_card():

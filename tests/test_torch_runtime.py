@@ -1,21 +1,23 @@
 """The port's process pipeline (``pycusdr_tpu_torch.runtime``) on the CPU:
 the ring buffer, the SigFIFO's re-blocking, the in-flight queue and the
 config loader against the JAX package's copies on the same inputs, the
-refused configs (a Tx radio is accepted), and ``PyCuSDR`` end to end over real ZMQ with
-``PYCUSDR_TORCH_DEVICE=cpu``: one radio through a ``Demodulator_process``,
-and two clock-shared radios through the lockstep channel group at
-pipeline depths 1 and 2 (cf. ``tests/test_runtime.py`` and
+refused configs (a Tx radio and the softCombiner are accepted), and
+``PyCuSDR`` end to end over real ZMQ with ``PYCUSDR_TORCH_DEVICE=cpu``:
+one radio through a ``Demodulator_process``, and two clock-shared radios
+through the lockstep channel group at pipeline depths 1 and 2 (cf. ``tests/test_runtime.py`` and
 ``tests/test_channel_group.py``).
 
 Every socket lives on ports 16000-16499: below the kernel's ephemeral
 range (Linux's default, 32768-60999), so no outgoing connection of a
 concurrent test can hold one of them as its local port, and apart from
 the ports of the JAX package's tests (20003-37560) and of
-``tests/test_torch_multihost.py`` (16500-16999). Warming the children
-and decoding have deadlines of their own, a failure names the flag or
-socket that failed, the children are daemons that ``PyCuSDR.terminate``
-stops, terminates and joins with timeouts, and sockets close with
-LINGER 0."""
+``tests/test_torch_multihost.py`` (16500-16999); the built, unstarted
+softCombiner station's RPC server binds 18800, in the range of the
+combiner's and the hamlib daemon's tests (18500-18999). Warming the
+children and decoding have deadlines of their own, a failure names the
+flag or socket that failed, the children are daemons that
+``PyCuSDR.terminate`` stops, terminates and joins with timeouts, and
+sockets close with LINGER 0."""
 
 import os
 import time
@@ -34,6 +36,7 @@ from pycusdr_tpu_torch.dsp.signal_gen import awgn, get_padded_packet, packet_dat
 from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR, check_supported
 from pycusdr_tpu_torch.runtime.pipeline import InflightPipeline
 from pycusdr_tpu_torch.runtime.sigfifo import RingBuffer, SigFIFO
+from pycusdr_tpu_torch.utils.logger import shutdown_logging
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CONF_DIR = os.path.join(REPO, "pycusdr_tpu_torch", "config", "configs")
@@ -138,15 +141,34 @@ def test_configs_load_as_in_jax(name):
     ("maxWorkerRssMb", 2000),
     ("telegraf_ip", "127.0.0.1"),
 ])
-def test_unported_config_is_refused(key, value):
-    """The three configs the port does not run yet are refused; a Tx radio
-    (``Modulator_process``) is accepted."""
+def test_unported_config_is_refused(key, value, monkeypatch):
+    """The two configs the port does not run yet are refused; a Tx radio
+    (``Modulator_process``) is accepted, and so is ``bench_3_chan_rx.json``
+    as shipped (``softCombiner_enabled`` with three radios), for which
+    ``PyCuSDR`` builds a ``SoftCombiner`` task that the RPC server asks."""
     conf = load_modular_json(os.path.join(CONF_DIR, "benchmark", "bench_3_chan_rx.json"))
     conf["Main"]["softCombiner_enabled"] = False
     check_supported(conf)
     (conf["Radios"] if key == "Tx" else conf["Main"])[key] = value
     if key == "Tx":
         check_supported(conf)
+        return
+    if key == "softCombiner_enabled":
+        check_supported(conf)
+        monkeypatch.setenv("PYCUSDR_TORCH_DEVICE", "cpu")
+        conf["Interfaces"]["External"]["XMLRpcIn"] = "127.0.0.1:18800"
+        sdr = PyCuSDR(conf, args=None)  # built, not started
+        assert type(sdr.combiner).__name__ == "SoftCombiner"
+        assert sdr.combiner in sdr.tasks and sdr.rpcInt.softCombiner is sdr.combiner
+        assert len(sdr.demodulators) == 3
+        # a restart rebuilds the combiner from its factory and swaps it in
+        i = sdr.tasks.index(sdr.combiner)
+        new = sdr._task_factories[i]()
+        sdr._replace_task(i, sdr.combiner, new)
+        assert sdr.tasks[i] is new and sdr.combiner is new and sdr.rpcInt.softCombiner is new
+        sdr.rpcInt.terminate()
+        sdr.rpcInt.join(timeout=10)
+        shutdown_logging()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         check_supported(conf)
