@@ -158,6 +158,21 @@ and then no result line is printed):
       half a baud of the shift the steer implies; K1-K5 in the Rx child;
       the client leaves and every child exits within ``JOIN_TIMEOUT``; a
       second client boots a second modem that answers;
+   p. planned restart: ``PyCuSDR`` from ``CC11xx.json`` (sockets moved as
+      in f) with ``Main.maxWorkerRssMb``; CC11xx packets of 2-253 bytes
+      from the port's ``Modulator`` paced into the Rx at -3 dB a sample for
+      40 s or more; every child's RSS read and printed, the cap set
+      between the Rx child's and the largest other's (no gap fails), so
+      the orchestrator restarts the Rx child make-before-break: the
+      replacement ``...~r1`` warms (a second CUDA context on the card),
+      both decode through the overlap, the old child goes; K1-K5 in both
+      children while both lived and once a block in the replacement,
+      every payload out of decodeBytesOut exactly once, the old child gone
+      within the teardown's limits, ``native.AVAILABLE`` and the native
+      ring and correlator in both Rx children and the decoder, no numpy
+      form; printed: the replacement's warm-up, the overlap, the decode
+      gap, the old child's exit, each child's card memory in the overlap
+      and the Rx children's RSS warm and after their last blocks;
    (phase 3 also holds K4's NRZ-S form (K4n in K4's launch) at the
    bench_BPSK shape at B=1/16/64 (with a clip bitmask) against its plain
    version, K8 at C=3/16/64/256, S=4608, with pinned
@@ -184,7 +199,8 @@ and then no result line is printed):
    beside the graph's and the runtime's demod child host ms per block;
    phase 4n's seconds to the first packet through the combiner and the
    combiner's host ms a ``compareWorkers`` round, phase 4o's boot, warm-up
-   and teardown seconds;
+   and teardown seconds; phase 4p's replacement warm-up, overlap, decode
+   gap, the old child's exit, the Rx children's RSS and card memory;
    K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
    yardstick (grouped conv1d + torch.fft.fft), its wide form at the
    three wide shapes, and its direct form at (1024, 8) and (512, 16)
@@ -206,6 +222,7 @@ and as its last line ``{"ok": true, "device": {...}}``. It imports
 nothing of JAX.
 """
 
+import collections
 import json
 import math
 import multiprocessing
@@ -215,6 +232,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -411,6 +429,9 @@ PATH_KERNELS = {
                  "symbol_detect"),
     "hamlib": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                "symbol_detect"),
+    # CC11xx.json's Rx child and its planned-restart replacement (phase 4p)
+    "restart": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                "symbol_detect"),
 }
 
 
@@ -2426,6 +2447,279 @@ def main_path_slice18():
     return out
 
 
+# ------------------------- slice 19: a planned restart of the Rx child on the card
+
+#: phase 4p: the CC11xx station's sockets from this port on (as 4f moves
+#: them); a feed of paced CC11xx packets, one at the start of each slot of
+#: RESTART_SLOT_S seconds (the first slot silent), for RESTART_FEED_S seconds
+#: and at least RESTART_AFTER_S after the swap (RESTART_MAX_FEED_S at most);
+#: the children's RSS read RESTART_CAP_AT_S into the feed; the cap while no
+#: restart is wanted (MB: the maintenance thread runs and restarts nothing)
+RESTART_PORT = 17600
+RESTART_SLOT_S, RESTART_FEED_S, RESTART_AFTER_S, RESTART_MAX_FEED_S = 0.8, 40.0, 8.0, 120.0
+RESTART_CAP_AT_S = 5.0
+RESTART_CAP_OFF = 10 ** 6
+#: the range rate (m/s) of every packet of 4p: at 4l's -18 km/s the link
+#: loses a packet at some offsets to the hop grid (the JAX demodulator too)
+RESTART_RANGERATE = 0.0
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` lines, or what
+    it said instead."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+        return [line.strip() for line in (out.stdout or out.stderr).splitlines() if line.strip()]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return [f"nvidia-smi failed: {e}"]
+
+
+class RestartFeed:
+    """Phase 4p's feed, in a thread of its own: slot k of RESTART_SLOT_S
+    seconds holds packet k (none in slot 0): a seeded payload of 2 to 253
+    bytes through the port's ``Modulator`` for CC11xx.json's Tx radio at
+    range rate RESTART_RANGERATE, then silence; AWGN at
+    CC11XX_SNR_DB a sample (``measured=False``) over all of it. Each slot
+    is PUBlished to the Rx in half hops, paced at the sample rate, while
+    ``more()`` says so; then CC11XX_TAIL_HOPS hops of noise, so the last
+    packet's FIXED window reaches the decoder. ``sent`` holds the payloads
+    of the slots sent whole, ``sent_at`` the seconds into the feed at which
+    each slot began."""
+
+    def __init__(self, conf, pub, more):
+        radio = conf["Radios"]["Tx"]["UHF"]
+        self.mod = Modulator(conf, radio, loadProtocol("CC11xx")(conf=conf))
+        self.mod.set_rangerate(RESTART_RANGERATE)
+        self.fs = radio["baud"] * radio["samplesPerSym"]
+        self.slot = int(RESTART_SLOT_S * self.fs)
+        self.hop = 2 ** conf["GPU"]["UHF"]["blockSize"] - 2 ** conf["GPU"]["UHF"]["overlap"]
+        self.pub, self.more = pub, more
+        self.rng = np.random.RandomState(SEED + 50)
+        self.noise_rng = np.random.RandomState(SEED + 51)
+        self.sent, self.sent_at, self.error = [], [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _send(self, x):
+        chunk = self.hop // 2
+        for pos in range(0, len(x), chunk):
+            delay = self.t0 + (self.n + pos) / self.fs - time.time()
+            if delay > 0:
+                time.sleep(delay)
+            self.pub.send(x[pos:pos + chunk].tobytes())
+        self.n += len(x)
+
+    def _run(self):
+        try:
+            self.t0, self.n, k = time.time(), 0, 0
+            while self.more() or k == 0:
+                clean = np.zeros(self.slot, np.complex64)
+                payload = None
+                if k:
+                    payload = self.rng.randint(0, 256, int(self.rng.randint(2, 254))).astype(
+                        np.uint8)
+                    w = self.mod.encodeAndModulate(payload)
+                    clean[:len(w)] = w
+                t_slot = self.n / self.fs
+                self._send(awgn(clean, CC11XX_SNR_DB, measured=False,
+                                rng=self.noise_rng).astype(np.complex64))
+                if payload is not None:
+                    self.sent.append(payload.tobytes())
+                    self.sent_at.append(t_slot)
+                k += 1
+            self._send(awgn(np.zeros(CC11XX_TAIL_HOPS * self.hop, np.complex64), CC11XX_SNR_DB,
+                            measured=False, rng=self.noise_rng).astype(np.complex64))
+        except Exception as e:  # reported by run_restart
+            self.error = e
+
+
+def run_restart(port0, card):
+    """Phase 4p: ``PyCuSDR`` from CC11xx.json (``cc11xx_runtime_conf``) with
+    ``Main.maxWorkerRssMb`` at RESTART_CAP_OFF, so that the maintenance
+    thread runs. Once the station is up, ``RestartFeed`` paces packets into
+    the Rx; RESTART_CAP_AT_S into the feed every child's RSS is read and
+    printed, and the cap set half-way between the demodulator child's and
+    the largest of the others' (no such gap fails); once the planned
+    restart has begun the cap goes back to RESTART_CAP_OFF. The replacement
+    must be ``...~r1``; K1-K5 must launch in both children, the old one's
+    blocks going on after the replacement shipped its first; the
+    replacement must launch each of K1-K5 once for every block it shipped;
+    every payload sent must come out of decodeBytesOut exactly once, and
+    nothing else; the old child must be gone within the teardown's stop,
+    join and kill limits; ``native.AVAILABLE`` in both Rx children and the
+    decoder, the SigFIFO rings native, the decoder's correlations native,
+    no numpy form taken. Returns a dict."""
+    import zmq
+
+    from pycusdr_tpu_torch.runtime import orchestrator
+    from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
+
+    conf = cc11xx_runtime_conf(port0)
+    conf["Main"]["maxWorkerRssMb"] = RESTART_CAP_OFF
+    overlap = float(conf["Main"].get("restartOverlapSeconds", 5.0))
+    ctx = zmq.Context()
+    rx_in = ctx.socket(zmq.PUB)
+    rx_in.setsockopt(zmq.LINGER, 0)
+    rx_in.bind(f"tcp://127.0.0.1:{port0}")
+    sink = ctx.socket(zmq.PULL)
+    sink.setsockopt(zmq.LINGER, 0)
+    sink.setsockopt(zmq.RCVTIMEO, 200)
+    sdr = PyCuSDR(conf, args=None)
+    old = sdr.demodulators[0]
+    i = sdr.tasks.index(old)
+    made, factory = [], sdr._task_factories[i]
+
+    def recording_factory():
+        child = factory()
+        made.append((child, time.time()))
+        return child
+
+    sdr._task_factories[i] = recording_factory
+    st = dict(t_swap=None)
+    received, done = [], threading.Event()
+
+    def collect():
+        while not done.is_set():
+            try:
+                received.append(sink.recv())
+            except zmq.error.Again:
+                pass
+
+    def more():
+        now = time.time()
+        return now < st["t_feed"] + RESTART_MAX_FEED_S and (
+            now < st["t_feed"] + RESTART_FEED_S or st["t_swap"] is None
+            or now < st["t_swap"] + RESTART_AFTER_S)
+
+    t_boot = time.time()
+    sdr.start()
+    collector = threading.Thread(target=collect, daemon=True)
+    try:
+        wait_station(sdr, "4p")
+        warm_s = time.time() - t_boot
+        rss_warm = orchestrator.rss_mb(old.pid)
+        sink.connect(f"tcp://localhost:{port0 + 12}")
+        time.sleep(1.0)  # let the SUB and PULL sockets connect
+        feed = RestartFeed(conf, rx_in, more)
+        collector.start()
+        st["t_feed"] = t0 = time.time()
+        feed.thread.start()
+        rss_at_cap, cap, t_begin, t_new_warm, t_old_gone = None, None, None, None, None
+        samples, rss_old, smi, rss_new_warm, next_rss = [], [], None, None, 0.0
+        while feed.thread.is_alive():
+            now = time.time() - t0
+            new = made[0][0] if made else None
+            if cap is None and now > RESTART_CAP_AT_S:
+                rss_at_cap = {t.name: orchestrator.rss_mb(t.pid) for t in sdr.tasks}
+                for name, mb in rss_at_cap.items():
+                    say("main", f"{card} | 4p RSS {name} {mb:.1f} MB ({now:.1f} s into the feed)")
+                others = max(mb for name, mb in rss_at_cap.items() if name != old.name)
+                assert rss_at_cap[old.name] > others, (
+                    f"4p: no RSS gap: the demodulator child {rss_at_cap[old.name]:.1f} MB, "
+                    f"another child {others:.1f} MB: {rss_at_cap}")
+                cap = (rss_at_cap[old.name] + others) / 2
+                sdr._max_rss_mb = cap
+            if t_begin is None and sdr._maint_restarting:
+                t_begin = now
+                sdr._max_rss_mb = RESTART_CAP_OFF  # one planned restart
+            alive = old.is_alive()
+            samples.append((now, alive, old.blocks, new.blocks if new else 0))
+            if alive and now >= next_rss:
+                try:
+                    rss_old.append((now, orchestrator.rss_mb(old.pid), old.blocks))
+                except OSError:
+                    pass
+                next_rss = now + 1.0
+            if new is not None and t_new_warm is None and new.warmedFlag.is_set():
+                t_new_warm = now
+                rss_new_warm = orchestrator.rss_mb(new.pid)
+            if smi is None and t_new_warm is not None and now > t_new_warm + 2.0 and alive:
+                smi = dict(t=now, pids={"old": old.pid, "new": new.pid,
+                                        "decoder": sdr.dec.pid}, apps=compute_apps())
+            if st["t_swap"] is None and sdr.demodulators[0] is not old:
+                st["t_swap"] = time.time()
+            if t_old_gone is None and t_begin is not None and not alive:
+                t_old_gone = now
+            time.sleep(0.1)
+        feed_s = time.time() - t0
+        assert feed.error is None, f"4p: the feed failed: {feed.error!r}"
+        time.sleep(3.0)  # the last packet's decode
+        assert len(made) == 1, f"4p: {len(made)} replacements made"
+        new, t_made = made[0]
+        assert st["t_swap"] is not None and sdr.demodulators[0] is new, "4p: no swap"
+        assert new.workerId == old.workerId + "~r1", f"4p: replacement workerId {new.workerId}"
+        assert not old.is_alive() and new.is_alive(), "4p: the old child lives on"
+        rss_new_end = orchestrator.rss_mb(new.pid)
+        launches_old, blocks_old = old.launches, old.blocks
+        launches_new, blocks_new = new.launches, new.blocks
+        native_counts = {"old": old.native_counts, "new": new.native_counts,
+                         "decoder": sdr.dec.native_counts}
+        devices = [old.device, new.device]
+    finally:
+        done.set()
+        sdr.terminate()
+        collector.join(timeout=5)
+        rx_in.close()
+        sink.close()
+        ctx.term()
+    assert not any(t.is_alive() for t in sdr.tasks), "4p: a child outlived terminate()"
+    assert devices == ["cuda", "cuda"], f"4p: children on {devices}"
+
+    check_launches("restart", launches_old)
+    check_launches("restart", launches_new)
+    five = PATH_KERNELS["restart"]
+    assert all(launches_new[k] == blocks_new for k in five) and blocks_new > 0, \
+        f"4p: the replacement shipped {blocks_new} blocks, launched {launches_new}"
+    both = [s for s in samples if s[1] and s[3] > 0]
+    assert both and both[-1][2] > both[0][2], \
+        "4p: the old child shipped no block once the replacement had shipped one"
+    assert t_old_gone is not None and t_new_warm is not None, "4p: no overlap seen"
+    gone_s = t_old_gone - (t_new_warm + overlap)
+    limit = orchestrator.RESTART_STOP_S + orchestrator.RESTART_JOIN_S + orchestrator.RESTART_KILL_S
+    assert gone_s <= limit + 1.0, f"4p: the old child went {gone_s:.1f} s after the overlap"
+
+    sent = dict(zip(feed.sent, feed.sent_at))
+    got = collections.Counter(received)
+    assert len(sent) == len(feed.sent), "4p: a payload was sent twice"
+    lost = [(len(p), round(t, 2)) for p, t in sent.items() if got[p] == 0]
+    twice = [(len(p), round(t, 2), got[p]) for p, t in sent.items() if got[p] > 1]
+    foreign = sum(n for p, n in got.items() if p not in sent)
+    assert not lost and not twice and not foreign, (
+        f"4p: {len(sent)} payloads sent: lost (bytes, s into the feed) {lost}, more than once "
+        f"{twice}, {foreign} never sent; restart began {t_begin:.2f} s, replacement warm "
+        f"{t_new_warm:.2f} s, swap {st['t_swap'] - t0:.2f} s, old gone {t_old_gone:.2f} s")
+    for who in ("old", "new"):
+        nc = native_counts[who]
+        assert nc["available"] and nc["ring"]["native"] > 0 and nc["ring"]["numpy"] == 0, \
+            f"4p: the {who} Rx child's native counts {nc}"
+    nc = native_counts["decoder"]
+    assert nc["available"] and nc["bit_correlate"]["native"] > 0, f"4p: decoder native {nc}"
+    assert not any(nc[k]["numpy"] for k in nc if k != "available"), f"4p: decoder numpy {nc}"
+
+    stats = {w["workerId"]: w for w in sdr.passStats}
+    def packet_times(wid):
+        w = stats[wid]
+        return [float(t) for t, n in zip(w["timestamp"], w["packetSuc"]) if n > 0]
+    old_t, new_t = packet_times(old.workerId), packet_times(new.workerId)
+    assert old_t and new_t, "4p: a stream decoded no packet"
+    return dict(
+        config="CC11xx.json", packets_sent=len(sent), delivered_once=len(sent),
+        worker_ids=[old.workerId, new.workerId], warm_s=warm_s, cap_mb=cap,
+        rss_at_cap_mb=rss_at_cap, restart_began_s=t_begin,
+        replacement_warm_s=t_new_warm + t0 - t_made, overlap_s=overlap,
+        old_gone_after_overlap_s=gone_s, old_exitcode=old.exitcode,
+        decode_gap_s=new_t[0] - old_t[-1],
+        packets_old_stream=len(old_t), packets_new_stream=len(new_t),
+        blocks_old=blocks_old, blocks_new=blocks_new,
+        launches_old=launches_old, launches_new=launches_new,
+        launches={k: launches_old[k] + launches_new[k] for k in launches_old},
+        rss_old_warm_mb=rss_warm, rss_old_last_mb=rss_old[-1][1], rss_old_blocks=rss_old[-1][2],
+        rss_old_growth_kb_per_block=1e3 * (rss_old[-1][1] - rss_warm) / max(rss_old[-1][2], 1),
+        rss_new_warm_mb=rss_new_warm, rss_new_end_mb=rss_new_end, card_memory=smi,
+        native=native_counts, feed_s=feed_s)
+
+
 # ------------------------------------------- slice 5: wideband front end, tracking
 
 def recentres(N, B):
@@ -4199,6 +4493,18 @@ def main() -> int:
                 f"gone {h18['children_exit_s']:.2f} s after the client left; a second modem "
                 f"booted; {h18['seconds']:.1f} s; " + json.dumps(h18))
     say("main", f"slice-18 paths took {time.perf_counter() - t_s18:.1f} s")
+    t_s19 = time.perf_counter()
+    r19 = run_restart(RESTART_PORT, card)
+    res["restart"] = {"launches": r19["launches"]}
+    say("main", f"4p planned restart: PyCuSDR from CC11xx.json with maxWorkerRssMb, "
+                f"{r19['packets_sent']} packets paced over {r19['feed_s']:.1f} s at "
+                f"{CC11XX_SNR_DB} dB a sample; the cap set to {r19['cap_mb']:.1f} MB between the "
+                f"Rx child's RSS and the others'; one planned restart to {r19['worker_ids'][1]}, "
+                f"K1-K5 in both children while both lived and once a block in the replacement "
+                f"({r19['blocks_new']} blocks); every packet delivered exactly once; the old "
+                f"child gone (exit code {r19['old_exitcode']}); native forms in both Rx children "
+                f"and the decoder, no numpy form; {time.perf_counter() - t_s19:.1f} s; "
+                + json.dumps(r19))
 
     times = {}
     for p in cfg:
@@ -4347,6 +4653,16 @@ def main() -> int:
                  f"{h18['host_ms_per_block']:.3f}; children gone {h18['children_exit_s']:.2f} / "
                  f"{h18['second_children_exit_s']:.2f} s after the client left")
 
+    say("times", f"{card} | 4p planned restart: the replacement warm {r19['replacement_warm_s']:.2f}"
+                 f" s after it was made; overlap {r19['overlap_s']:.1f} s; decode gap "
+                 f"{r19['decode_gap_s']:.3f} s (the replacement's first packet after the old "
+                 f"stream's last; negative: the streams overlapped); the old child gone "
+                 f"{r19['old_gone_after_overlap_s']:.2f} s after the overlap; Rx child RSS "
+                 f"{r19['rss_old_warm_mb']:.1f} MB warm, {r19['rss_old_last_mb']:.1f} MB after "
+                 f"{r19['rss_old_blocks']} blocks ({r19['rss_old_growth_kb_per_block']:.2f} KB a "
+                 f"block); the replacement {r19['rss_new_warm_mb']:.1f} MB warm, "
+                 f"{r19['rss_new_end_mb']:.1f} MB after {r19['blocks_new']} blocks; card memory "
+                 f"in the overlap {r19['card_memory']}")
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
                  ("stx", 64), ("cc11xx", 1), ("cc11xx", LINE_BATCH), ("cc11xx", 64),
                  ("bpsk", 1), ("bpsk", LINE_BATCH), ("bpsk", 64), ("wideband", 64),

@@ -11,8 +11,10 @@ Capability parity with ``pyCuSDR/decoder.py:16-293``:
 * ``numBitsOverlap`` bits chained between consecutive blocks (``:89-90``).
 
 The port of ``pycusdr_tpu/decode/frame_finder.py``. The header/sync
-correlations are ``np.convolve`` (the JAX package's fallback form; its
-native popcount scanner gives the same integer-valued scores).
+correlations run the native C++ scanner (``native.bit_correlate``) when
+the library is there and fall back to ``np.convolve``; both give the same
+float64 scores, so no decision depends on which ran (the JAX package's
+native form returns int32, its fallback float64).
 """
 
 import logging
@@ -20,6 +22,7 @@ import time
 
 import numpy as np
 
+from pycusdr_tpu_torch import native
 from pycusdr_tpu_torch.protocol.base import PacketEndDetect
 
 log = logging.getLogger(__name__)
@@ -27,7 +30,7 @@ log = logging.getLogger(__name__)
 
 def _correlate_pm1(bits: np.ndarray, mask_pm1: np.ndarray) -> np.ndarray:
     """np.convolve(bits, mask) — mask is ±1 and already flipped."""
-    return np.convolve(bits.astype(np.float64), mask_pm1)
+    return native.bit_correlate(bits, mask_pm1)
 
 
 class Decoder:

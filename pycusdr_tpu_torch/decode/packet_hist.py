@@ -5,6 +5,8 @@ Capability parity with ``pyCuSDR/decoder_process.py:516-558``
 (``PacketHist``): with N diversity channels (and the softCombiner
 emitting every master/slave combination) the same packet arrives up to
 N times; an MD5-over-payload history with a timeout drops duplicates.
+``maxLen=None`` keeps every hash within the timeout (the decoder's
+history while planned restarts are armed).
 """
 
 import hashlib
@@ -19,7 +21,7 @@ class PacketHist:
 
     def _prune(self, now):
         self._hashes = [(h, t) for (h, t) in self._hashes if now - t <= self.timeout]
-        if len(self._hashes) > self.maxLen:
+        if self.maxLen is not None and len(self._hashes) > self.maxLen:
             self._hashes = self._hashes[-self.maxLen :]
 
     def checkHash(self, payload, numWorkers: int = 1) -> bool:

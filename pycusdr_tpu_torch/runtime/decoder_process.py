@@ -5,12 +5,25 @@ with the reference ``Decoder(Process)``, ``pyCuSDR/decoder_process.py``):
 PULLs worker dicts, lazily creates one frame finder per workerId (keyed
 to that worker's protocol), MD5-dedups packets across diversity
 channels, PUSHes payload bytes to per-protocol external ZMQ sockets,
-accumulates ``VisualizerData`` ring buffers, and ships the stats to the
-parent over a one-shot ZMQ pair at shutdown. For ``ccsds_conv`` the
-frame finder's streaming Viterbi runs kernel K7 on the protocol's device.
+accumulates ``VisualizerData`` ring buffers, optionally exports telegraf
+metrics (``Main.telegraf_ip``/``telegraf_port``, the ``mon.modem``
+metric, when the ``telegraf`` package is installed), and ships the stats
+to the parent over a one-shot ZMQ pair at shutdown. For ``ccsds_conv``
+the frame finder's streaming Viterbi runs kernel K7 on the protocol's
+device; its correlations run the native scanner (``native.bit_correlate``),
+whose calls the child publishes (``native_counts``).
 
-Not carried over: telegraf metrics and the restart-generation stream
-eviction of RSS-cap restarts (the orchestrator refuses both configs).
+With ``Main.maxWorkerRssMb`` armed, a planned restart makes the
+replacement demodulator's stream ``base~rN``: the dedup window widens to
+``Main.restartOverlapSeconds`` + 3 s, older generations of a base are
+marked stale, their silence clock refreshes while they talk, and their
+frame finder is evicted 60 s after their last message (their stats stay,
+as in the JAX package). Departures from the JAX package: a stream is
+marked stale only when a newer generation of its base is registered (the
+JAX decoder marks every other generation, so a straggler of an evicted
+one would mark the live one stale), and the armed dedup history is pruned
+by its timeout alone (the JAX decoder keeps at most 40 hashes, fewer than
+the widened window holds at more than 5 packets a second).
 """
 
 import logging
@@ -19,9 +32,16 @@ import signal
 import sys
 import time
 
+from pycusdr_tpu_torch import native
 from pycusdr_tpu_torch.decode import frame_finder
 from pycusdr_tpu_torch.decode.packet_hist import PacketHist
 from pycusdr_tpu_torch.obs.visualizer import VisualizerData
+
+try:
+    from telegraf.client import TelegrafClient
+    TELEGRAF_AVAILABLE = True
+except ModuleNotFoundError:
+    TELEGRAF_AVAILABLE = False
 
 # spawn, never fork: the orchestrator's parent process is multi-threaded
 # (torch, zmq, logging); a forked child can deadlock on inherited locks
@@ -31,6 +51,27 @@ Event, Process = _mp.Event, _mp.Process
 log = logging.getLogger(__name__)
 
 STATS_PORT = 11001  # one-shot stats hand-off channel (reference :83-86)
+#: a superseded stream's frame finder goes this long after its last message
+EVICT_S = 60.0
+
+
+def generation(workerId):
+    """(base, N) of a planned restart's ``base~rN`` workerId (N = 0 for
+    the first generation), as the combiner parses it."""
+    base, _, suf = workerId.partition("~r")
+    try:
+        return base, int(suf) if suf else 0
+    except ValueError:
+        return workerId, 0
+
+
+def superseded(workerIds, workerId):
+    """The workerIds of ``workerIds`` (with ``workerId`` among them) of
+    ``workerId``'s base with a generation below the newest there."""
+    base = generation(workerId)[0]
+    gens = {w: generation(w)[1] for w in workerIds if generation(w)[0] == base}
+    newest = max(gens.values())
+    return [w for w, g in gens.items() if g < newest]
 
 
 class Decoder(Process):
@@ -67,7 +108,14 @@ class Decoder(Process):
         self.boundFlag = Event()  # set once the input and output sockets are bound
         self.showWarnings = log.getEffectiveLevel() < 20
         self.workerData = {}
+        self._native = native.shared_counts(_mp)
         log.debug("Decoder configured")
+
+    @property
+    def native_counts(self) -> dict:
+        """The child's ``native.AVAILABLE`` and its native and numpy calls
+        of each binding (``native.read``), published after every message."""
+        return native.read(self._native)
 
     def stop(self):
         log.info("PID %s -- received request to stop", self.pid)
@@ -108,15 +156,38 @@ class Decoder(Process):
         decoders = {}
         dconf = self.conf.get("decoder", {})
         timeout = dconf.get("packetCheckHistTimeout", 0)
-        hashHist = PacketHist(
-            maxLen=dconf.get("packetCheckHist", 40) if timeout else 0,
-            timeout=timeout,
-        )
+        maxLen = dconf.get("packetCheckHist", 40)
+        main_conf = self.conf.get("Main", {})
+        if main_conf.get("maxWorkerRssMb"):
+            # a planned restart decodes the overlap in both the outgoing and
+            # the replacement child; their copies arrive up to the overlap
+            # plus the replacement's catch-up apart. Widen (never narrow)
+            # the window, and keep every hash in it
+            floor_s = float(main_conf.get("restartOverlapSeconds", 5.0)) + 3.0
+            if timeout < floor_s:
+                log.info("RSS-cap restarts armed: widening packet dedup window "
+                         "%.1f s -> %.1f s (restart overlap + catch-up skew)",
+                         timeout, floor_s)
+                timeout = floor_s
+            maxLen = None
+        hashHist = PacketHist(maxLen=maxLen if timeout else 0, timeout=timeout)
+
+        telegraf = None
+        if TELEGRAF_AVAILABLE and "telegraf_ip" in main_conf:
+            try:
+                telegraf = TelegrafClient(host=main_conf["telegraf_ip"],
+                                          port=int(main_conf["telegraf_port"]))
+            except Exception:
+                log.exception("Unable to start telegraf:")
 
         orig_sigterm = signal.getsignal(signal.SIGTERM)
         signal.signal(signal.SIGTERM, lambda *_: None)
+        native.publish(self._native)
         log.info("Decoder process initialized and running")
         dataCont = {}
+        # superseded restart generations pending eviction: workerId -> the
+        # time of its last message since it was marked
+        stale_workers = {}
         try:
             while self.runStatus.is_set():
                 socks = poller.poll(self.pollTimeout)
@@ -135,6 +206,18 @@ class Decoder(Process):
                             workerId, self.visualLogBufferSize,
                             showWarnings=self.showWarnings,
                         )
+                        for old in superseded(decoders, workerId):
+                            stale_workers.setdefault(old, time.time())
+                    elif workerId in stale_workers:
+                        # the outgoing child talks through the overlap:
+                        # eviction comes EVICT_S after its last message
+                        stale_workers[workerId] = time.time()
+                    now = time.time()
+                    for old, t_stale in list(stale_workers.items()):
+                        if now - t_stale > EVICT_S:
+                            log.info("Evicting superseded worker stream %s", old)
+                            decoders.pop(old, None)
+                            stale_workers.pop(old, None)
 
                     rawBits = dataCont["data"]
                     t = time.time()
@@ -182,6 +265,22 @@ class Decoder(Process):
                     )
                     dataCont["numBits"] = len(rawBits)
                     self.workerData[workerId].addData(dataCont)
+                    native.publish(self._native)
+
+                    if telegraf:
+                        vals = {k: v for k, v in dataCont.items()
+                                if k not in ("data", "trust", "slaveNames",
+                                             "workerId", "voteGroup", "protocol",
+                                             "timestamp")}
+                        vals["packets_decoded"] = pktsErr + pktsSuc
+                        tags = {"workerId": dataCont.get("workerId"),
+                                "voteGroup": dataCont.get("voteGroup"),
+                                "protocol": dataCont.get("protocol")}
+                        try:
+                            telegraf.metric("mon.modem", vals, tags=tags,
+                                            timestamp=int(dataCont["timestamp"] * 1e9))
+                        except Exception:
+                            log.exception("Unable to log to telegraf!")
                 except Exception as e:
                     log.error("Exception for worker %s", dataCont.get("workerId"))
                     log.exception(e)

@@ -14,7 +14,9 @@ INSIDE the child process, as the reference's per-process CUDA context
 ``globals.torch_device`` names (the card unless ``PYCUSDR_TORCH_DEVICE``
 says "cpu") and reports it in ``device``, and its kernel launches since
 it was warm in ``launches`` (``ops.launch_counts``, published after every
-block it ships, with the count of those blocks in ``blocks``).
+block it ships, with the count of those blocks in ``blocks``), and its
+``native.AVAILABLE`` and native and numpy calls (the SigFIFO ring's
+inserts among them) in ``native_counts``.
 """
 
 import logging
@@ -26,7 +28,7 @@ import time
 import numpy as np
 import scipy.constants
 
-from pycusdr_tpu_torch import ops
+from pycusdr_tpu_torch import native, ops
 
 # The demodulator child owns a CUDA context, which a forked child cannot
 # inherit, so this process uses the spawn start method.
@@ -156,6 +158,7 @@ class Demodulator_process(Process):
         # the child's kernel launches since it was warm, then its blocks shipped
         self._kernels = tuple(ops.kernel_wrappers())
         self._launches = Array("q", len(self._kernels) + 1)
+        self._native = native.shared_counts(_mp)
         self.logLevel = log.getEffectiveLevel()
         log.info("[%s]: Demodulator process initialized", radio)
 
@@ -183,11 +186,18 @@ class Demodulator_process(Process):
         """Blocks the child has shipped since it was warm."""
         return self._launches[len(self._kernels)]
 
+    @property
+    def native_counts(self) -> dict:
+        """The child's ``native.AVAILABLE`` and its native and numpy calls
+        of each binding (``native.read``), published with ``launches``."""
+        return native.read(self._native)
+
     def _publish_launches(self, counts: dict) -> None:
         with self._launches.get_lock():
             for i, name in enumerate(self._kernels):
                 self._launches[i] = counts[name]
             self._launches[len(self._kernels)] += 1
+        native.publish(self._native)
 
     @property
     def timeMA(self):

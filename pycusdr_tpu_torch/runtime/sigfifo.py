@@ -5,9 +5,10 @@ GNU Radio publishes complex64 chunks of arbitrary size; ``RingBuffer``
 re-blocks them into exact demodulator hop sizes (flush-on-overflow),
 and ``SigFIFO.getBlock`` polls with timeout/retry semantics, raising
 ``TimeoutError`` so the demod process can detect that the radio
-front-end went away. A copy of ``pycusdr_tpu/runtime/sigfifo.py`` with
-the numpy ring only (the JAX package's C++ ring, ``native/``, is not
-carried over).
+front-end went away. A copy of ``pycusdr_tpu/runtime/sigfifo.py``: the
+SigFIFO takes the C++ ring (``native.NativeRingBuffer``) when the native
+library is there, else this numpy ``RingBuffer``; each counts its inserts
+in ``native.counts["ring"]``.
 """
 
 import logging
@@ -15,6 +16,8 @@ import sys
 
 import numpy as np
 import zmq
+
+from pycusdr_tpu_torch import native
 
 log = logging.getLogger(__name__)
 
@@ -38,6 +41,7 @@ class RingBuffer:
     def insert(self, data):
         """Append; on overflow the whole buffer is flushed (the stream
         is real-time — stale samples are worthless)."""
+        native.counts["ring"][1] += 1
         if data.dtype != self.dtype:
             log.error("wrong datatype, expected %s", self.dtype)
             data = data.astype(self.dtype)
@@ -114,8 +118,12 @@ class SigFIFO:
             log.exception(e)
 
         # 4 hops of headroom (the reference uses 2; a little more slack
-        # tolerates scheduling jitter without changing semantics)
-        self.buf = RingBuffer(self.blockSize, bufLen=self.blockSize * 4, dtype=dtype)
+        # tolerates scheduling jitter without changing semantics).
+        # The C++ ring buffer is preferred when built (native/).
+        if dtype == np.complex64 and native.AVAILABLE:
+            self.buf = native.NativeRingBuffer(self.blockSize, bufLen=self.blockSize * 4)
+        else:
+            self.buf = RingBuffer(self.blockSize, bufLen=self.blockSize * 4, dtype=dtype)
         self.timeOut_ms = timeOut_ms
         self.exitOnTimeout = exitOnTimeout
         self.raiseExceptionOnTimeout = enableTimeoutException

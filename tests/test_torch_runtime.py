@@ -1,7 +1,9 @@
 """The port's process pipeline (``pycusdr_tpu_torch.runtime``) on the CPU:
 the ring buffer, the SigFIFO's re-blocking, the in-flight queue and the
 config loader against the JAX package's copies on the same inputs, the
-refused configs (a Tx radio and the softCombiner are accepted), and
+config keys the port once refused (a Tx radio, the softCombiner, planned
+restarts and telegraf metrics: each builds a station, and the last two
+decode a packet), and
 ``PyCuSDR`` end to end over real ZMQ with ``PYCUSDR_TORCH_DEVICE=cpu``:
 one radio through a ``Demodulator_process``, and two clock-shared radios
 through the lockstep channel group at pipeline depths 1 and 2 (cf. ``tests/test_runtime.py`` and
@@ -12,8 +14,10 @@ range (Linux's default, 32768-60999), so no outgoing connection of a
 concurrent test can hold one of them as its local port, and apart from
 the ports of the JAX package's tests (20003-37560) and of
 ``tests/test_torch_multihost.py`` (16500-16999); the built, unstarted
-softCombiner station's RPC server binds 18800, in the range of the
-combiner's and the hamlib daemon's tests (18500-18999). Warming the
+softCombiner and Tx stations' RPC servers bind 18800 and 18801, in the
+range of the combiner's and the hamlib daemon's tests (18500-18999), and
+the stations with a cap or telegraf use 19000-19034, in the range of the
+planned restarts' tests (19000-19299). Warming the
 children and decoding have deadlines of their own, a failure names the
 flag or socket that failed, the children are daemons that
 ``PyCuSDR.terminate`` stops, terminates and joins with timeouts, and
@@ -33,7 +37,7 @@ from pycusdr_tpu.runtime.sigfifo import RingBuffer as JaxRingBuffer
 from pycusdr_tpu.runtime.sigfifo import SigFIFO as JaxSigFIFO
 from pycusdr_tpu_torch.config.loader import load_modular_json
 from pycusdr_tpu_torch.dsp.signal_gen import awgn, get_padded_packet, packet_data
-from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR, check_supported
+from pycusdr_tpu_torch.runtime.orchestrator import PyCuSDR
 from pycusdr_tpu_torch.runtime.pipeline import InflightPipeline
 from pycusdr_tpu_torch.runtime.sigfifo import RingBuffer, SigFIFO
 from pycusdr_tpu_torch.utils.logger import shutdown_logging
@@ -141,37 +145,53 @@ def test_configs_load_as_in_jax(name):
     ("maxWorkerRssMb", 2000),
     ("telegraf_ip", "127.0.0.1"),
 ])
-def test_unported_config_is_refused(key, value, monkeypatch):
-    """The two configs the port does not run yet are refused; a Tx radio
-    (``Modulator_process``) is accepted, and so is ``bench_3_chan_rx.json``
-    as shipped (``softCombiner_enabled`` with three radios), for which
-    ``PyCuSDR`` builds a ``SoftCombiner`` task that the RPC server asks."""
-    conf = load_modular_json(os.path.join(CONF_DIR, "benchmark", "bench_3_chan_rx.json"))
-    conf["Main"]["softCombiner_enabled"] = False
-    check_supported(conf)
-    (conf["Radios"] if key == "Tx" else conf["Main"])[key] = value
-    if key == "Tx":
-        check_supported(conf)
-        return
-    if key == "softCombiner_enabled":
-        check_supported(conf)
-        monkeypatch.setenv("PYCUSDR_TORCH_DEVICE", "cpu")
-        conf["Interfaces"]["External"]["XMLRpcIn"] = "127.0.0.1:18800"
+def test_config_keys_build_and_run(key, value, monkeypatch):
+    """Every key the port once refused builds a station: a Tx radio (one
+    ``Modulator_process``), ``bench_3_chan_rx.json`` as shipped
+    (``softCombiner_enabled`` with three radios: a ``SoftCombiner`` task
+    that the RPC server asks), and, on one bench_FSK radio, a cap of 2000
+    MB (the maintenance thread runs and restarts nothing: no child comes
+    near it) and a telegraf address (without the ``telegraf`` package,
+    as the JAX decoder, it exports nothing): both decode the payload."""
+    monkeypatch.setenv("PYCUSDR_TORCH_DEVICE", "cpu")
+    if key in ("Tx", "softCombiner_enabled"):
+        conf = load_modular_json(os.path.join(CONF_DIR, "benchmark", "bench_3_chan_rx.json"))
+        conf["Main"]["softCombiner_enabled"] = key == "softCombiner_enabled"
+        rpc_port = 18800
+        if key == "Tx":
+            tx = load_modular_json(os.path.join(CONF_DIR, "CC11xx.json"))["Radios"]["Tx"]["UHF"]
+            conf["Radios"]["Tx"] = {"UHF": dict(tx, **value["UHF"])}
+            rpc_port = 18801
+        conf["Interfaces"]["External"]["XMLRpcIn"] = f"127.0.0.1:{rpc_port}"
         sdr = PyCuSDR(conf, args=None)  # built, not started
-        assert type(sdr.combiner).__name__ == "SoftCombiner"
-        assert sdr.combiner in sdr.tasks and sdr.rpcInt.softCombiner is sdr.combiner
         assert len(sdr.demodulators) == 3
-        # a restart rebuilds the combiner from its factory and swaps it in
-        i = sdr.tasks.index(sdr.combiner)
-        new = sdr._task_factories[i]()
-        sdr._replace_task(i, sdr.combiner, new)
-        assert sdr.tasks[i] is new and sdr.combiner is new and sdr.rpcInt.softCombiner is new
+        if key == "Tx":
+            assert [type(m).__name__ for m in sdr.modulators] == ["Modulator_process"]
+            assert sdr.modulators[0] in sdr.tasks and sdr.combiner is None
+        else:
+            assert type(sdr.combiner).__name__ == "SoftCombiner"
+            assert sdr.combiner in sdr.tasks and sdr.rpcInt.softCombiner is sdr.combiner
+            # a restart rebuilds the combiner from its factory and swaps it in
+            i = sdr.tasks.index(sdr.combiner)
+            new = sdr._task_factories[i]()
+            sdr._replace_task(i, sdr.combiner, new)
+            assert sdr.tasks[i] is new and sdr.combiner is new and sdr.rpcInt.softCombiner is new
         sdr.rpcInt.terminate()
         sdr.rpcInt.join(timeout=10)
         shutdown_logging()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        check_supported(conf)
+    port0 = 19000 if key == "maxWorkerRssMb" else 19020
+    conf = _conf(port0)
+    conf["Main"][key] = value
+
+    def check(sdr):
+        if key == "maxWorkerRssMb":
+            assert sdr._maint_thread is not None and sdr._maint_thread.is_alive()
+            assert sdr._max_rss_mb == value and not sdr._rss_restart_at
+            assert sdr.demodulators[0].workerId == "rt-UHF0"
+
+    payload, expected = _run_pipeline(conf, port0, 1, check=check)
+    assert payload == expected
 
 
 def _conf(port0, radios=("UHF-H",), depth=1):
