@@ -158,11 +158,18 @@ and then no result line is printed):
       half a baud of the shift the steer implies; K1-K5 in the Rx child;
       the client leaves and every child exits within ``JOIN_TIMEOUT``; a
       second client boots a second modem that answers;
-   p. planned restart: ``PyCuSDR`` from ``CC11xx.json`` (sockets moved as
+   p. planned restart, in an interpreter of its own (``-c``, as the CLI
+      starts a station: its children re-import no main module, where a
+      child of this script would re-import it and torch with it):
+      ``PyCuSDR`` from ``CC11xx.json`` (sockets moved as
       in f) with ``Main.maxWorkerRssMb``; CC11xx packets of 2-253 bytes
       from the port's ``Modulator`` paced into the Rx at -3 dB a sample for
-      40 s or more; every child's RSS read and printed, the cap set
-      between the Rx child's and the largest other's (no gap fails), so
+      32 s or more; each child's memory printed warm and after its last
+      block (statm ``resident`` and ``shared``; ``RssAnon``, ``RssFile``,
+      ``RssShmem`` where the kernel's status has them; smaps' anonymous
+      sum; the cap's figure, ``orchestrator.rss_mb``; whether it maps
+      torch), the cap set between the Rx child's anonymous RSS and the
+      largest other's (no gap fails), so
       the orchestrator restarts the Rx child make-before-break: the
       replacement ``...~r1`` warms (a second CUDA context on the card),
       both decode through the overlap, the old child goes; K1-K5 in both
@@ -173,6 +180,19 @@ and then no result line is printed):
       form; printed: the replacement's warm-up, the overlap, the decode
       gap, the old child's exit, each child's card memory in the overlap
       and the Rx children's RSS warm and after their last blocks;
+   q. station harnesses, in an interpreter of its own as in p, each step
+      printing ``[harnesses] start <name>`` and then its seconds, ports
+      12000-12704, at most 150 s of steps: ``bench.hw_selfcheck`` (five
+      PASS lines, TF32 off); ``bench.ber_delta`` on FSK and GMSK at 4 and
+      10 dB, 2 runs (the device arm and the numpy golden's packed rows
+      through the same healer and frame finder: the same packets found,
+      equal bit errors at 10 dB, |BER delta| <= 1e-3 at 4 dB); ``bench.ber``
+      FSK at 18 dB, 2 runs (every packet bit-exact); ``bench.diversity``
+      FSK at 8 dB, 2 runs (both arms to their end, the voted arm
+      delivers); ``bench.streaming_rt`` at real time, 24 s of CC11xx
+      signal at 18 dB and range rate 0 fed by ``frontend.sim_frontend``
+      (every steady-state packet, all bit-exact, none twice); every child
+      on the card, K1-K5 launched;
    (phase 3 also holds K4's NRZ-S form (K4n in K4's launch) at the
    bench_BPSK shape at B=1/16/64 (with a clip bitmask) against its plain
    version, K8 at C=3/16/64/256, S=4608, with pinned
@@ -201,6 +221,7 @@ and then no result line is printed):
    combiner's host ms a ``compareWorkers`` round, phase 4o's boot, warm-up
    and teardown seconds; phase 4p's replacement warm-up, overlap, decode
    gap, the old child's exit, the Rx children's RSS and card memory;
+   phase 4q's seconds a step and streaming_rt's packets and arrivals;
    K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
    yardstick (grouped conv1d + torch.fft.fft), its wide form at the
    three wide shapes, and its direct form at (1024, 8) and (512, 16)
@@ -432,6 +453,11 @@ PATH_KERNELS = {
     # CC11xx.json's Rx child and its planned-restart replacement (phase 4p)
     "restart": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                 "symbol_detect"),
+    # the station harnesses (phase 4q): hw_selfcheck's and ber_delta's block
+    # graphs in the phase's interpreter, the demodulator children of ber,
+    # diversity and streaming_rt
+    "harnesses": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+                  "symbol_detect"),
 }
 
 
@@ -2456,12 +2482,36 @@ def main_path_slice18():
 #: the children's RSS read RESTART_CAP_AT_S into the feed; the cap while no
 #: restart is wanted (MB: the maintenance thread runs and restarts nothing)
 RESTART_PORT = 17600
-RESTART_SLOT_S, RESTART_FEED_S, RESTART_AFTER_S, RESTART_MAX_FEED_S = 0.8, 40.0, 8.0, 120.0
-RESTART_CAP_AT_S = 5.0
+RESTART_SLOT_S, RESTART_FEED_S, RESTART_AFTER_S, RESTART_MAX_FEED_S = 0.8, 32.0, 8.0, 120.0
+RESTART_CAP_AT_S = 3.0
 RESTART_CAP_OFF = 10 ** 6
 #: the range rate (m/s) of every packet of 4p: at 4l's -18 km/s the link
 #: loses a packet at some offsets to the hop grid (the JAX demodulator too)
 RESTART_RANGERATE = 0.0
+#: the bound on 4p's interpreter of its own (``run_restart_fresh``), seconds
+RESTART_TIMEOUT_S = 300.0
+
+
+def maps_torch(pid) -> bool:
+    """Whether process ``pid`` maps a torch library (``/proc/<pid>/maps``)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in line for line in f)
+
+
+def memory_line(pid) -> dict:
+    """``orchestrator.memory_split`` of ``pid`` and whether it maps torch."""
+    from pycusdr_tpu_torch.runtime import orchestrator
+
+    return dict(orchestrator.memory_split(pid), torch=maps_torch(pid))
+
+
+def memory_text(m) -> str:
+    """One child's memory split for a ``say`` line, MB."""
+    st = " ".join(f"{k} {'absent' if m[k] is None else f'{m[k]:.1f}'}"
+                  for k in ("RssAnon", "RssFile", "RssShmem"))
+    return (f"statm resident {m['resident']:.1f} shared {m['shared']:.1f}; status {st}; smaps "
+            f"anonymous + shmem {m['smaps_anon']:.1f}; the cap's figure {m['rss_mb']:.1f}; "
+            f"maps torch: {m['torch']}")
 
 
 def compute_apps():
@@ -2595,10 +2645,13 @@ def run_restart(port0, card):
     t_boot = time.time()
     sdr.start()
     collector = threading.Thread(target=collect, daemon=True)
+    mem = {}  # "<child> warm" / "<child> last": memory_line
     try:
         wait_station(sdr, "4p")
         warm_s = time.time() - t_boot
-        rss_warm = orchestrator.rss_mb(old.pid)
+        for who, t in (("decoder", sdr.dec), ("Tx", sdr.modulators[0]), ("old Rx", old)):
+            mem[f"{who} warm"] = memory_line(t.pid)
+        rss_warm = mem["old Rx warm"]["rss_mb"]
         sink.connect(f"tcp://localhost:{port0 + 12}")
         time.sleep(1.0)  # let the SUB and PULL sockets connect
         feed = RestartFeed(conf, rx_in, more)
@@ -2613,7 +2666,8 @@ def run_restart(port0, card):
             if cap is None and now > RESTART_CAP_AT_S:
                 rss_at_cap = {t.name: orchestrator.rss_mb(t.pid) for t in sdr.tasks}
                 for name, mb in rss_at_cap.items():
-                    say("main", f"{card} | 4p RSS {name} {mb:.1f} MB ({now:.1f} s into the feed)")
+                    say("main", f"{card} | 4p RSS (the cap's figure) {name} {mb:.1f} MB "
+                                f"({now:.1f} s into the feed)")
                 others = max(mb for name, mb in rss_at_cap.items() if name != old.name)
                 assert rss_at_cap[old.name] > others, (
                     f"4p: no RSS gap: the demodulator child {rss_at_cap[old.name]:.1f} MB, "
@@ -2627,13 +2681,16 @@ def run_restart(port0, card):
             samples.append((now, alive, old.blocks, new.blocks if new else 0))
             if alive and now >= next_rss:
                 try:
-                    rss_old.append((now, orchestrator.rss_mb(old.pid), old.blocks))
+                    blocks = old.blocks
+                    mem["old Rx last"] = memory_line(old.pid)
+                    rss_old.append((now, mem["old Rx last"]["rss_mb"], blocks))
                 except OSError:
                     pass
                 next_rss = now + 1.0
             if new is not None and t_new_warm is None and new.warmedFlag.is_set():
                 t_new_warm = now
-                rss_new_warm = orchestrator.rss_mb(new.pid)
+                mem["new Rx warm"] = memory_line(new.pid)
+                rss_new_warm = mem["new Rx warm"]["rss_mb"]
             if smi is None and t_new_warm is not None and now > t_new_warm + 2.0 and alive:
                 smi = dict(t=now, pids={"old": old.pid, "new": new.pid,
                                         "decoder": sdr.dec.pid}, apps=compute_apps())
@@ -2650,7 +2707,9 @@ def run_restart(port0, card):
         assert st["t_swap"] is not None and sdr.demodulators[0] is new, "4p: no swap"
         assert new.workerId == old.workerId + "~r1", f"4p: replacement workerId {new.workerId}"
         assert not old.is_alive() and new.is_alive(), "4p: the old child lives on"
-        rss_new_end = orchestrator.rss_mb(new.pid)
+        for who, t in (("decoder", sdr.dec), ("Tx", sdr.modulators[0]), ("new Rx", new)):
+            mem[f"{who} last"] = memory_line(t.pid)
+        rss_new_end = mem["new Rx last"]["rss_mb"]
         launches_old, blocks_old = old.launches, old.blocks
         launches_new, blocks_new = new.launches, new.blocks
         native_counts = {"old": old.native_counts, "new": new.native_counts,
@@ -2717,7 +2776,153 @@ def run_restart(port0, card):
         rss_old_warm_mb=rss_warm, rss_old_last_mb=rss_old[-1][1], rss_old_blocks=rss_old[-1][2],
         rss_old_growth_kb_per_block=1e3 * (rss_old[-1][1] - rss_warm) / max(rss_old[-1][2], 1),
         rss_new_warm_mb=rss_new_warm, rss_new_end_mb=rss_new_end, card_memory=smi,
-        native=native_counts, feed_s=feed_s)
+        native=native_counts, feed_s=feed_s, memory=mem)
+
+
+def run_fresh(call, phase, timeout):
+    """``chip_smoke.<call>`` (a call's text, e.g. ``run_restart(17600, '...')``)
+    in an interpreter of its own, started with ``-c`` as ``python -m
+    pycusdr_tpu_torch`` and ``python -m pycusdr_tpu_torch.bench.<name>``
+    start: its spawned children then re-import no main module, where a child
+    of this script re-imports chip_smoke.py, and with it torch, whatever it
+    runs. Relays the interpreter's lines, kills it after ``timeout`` seconds,
+    and returns the call's dict; a failure fails ``phase``."""
+    code = ("import json, sys; sys.path.insert(0, %r); import chip_smoke; "
+            "r = chip_smoke.%s; print('fresh-result ' + json.dumps("
+            "r, default=lambda o: o.item() if hasattr(o, 'item') else str(o)), flush=True)"
+            % (str(Path(__file__).resolve().parent), call))
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith("fresh-result "):
+                result = json.loads(line[len("fresh-result "):])
+            else:
+                print(line, end="", flush=True)
+        code = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert code == 0 and result is not None, f"{phase}: its interpreter exited with {code}"
+    return result
+
+
+# ------------------------------------- slice 21: the station harnesses on the card
+
+#: phase 4q's ports: ber from HARNESS_PORT (12000, 12100-12104), diversity's
+#: arms from +200 (12200, 12300-12304; 12400-12402, 12500-12504),
+#: streaming_rt from +600 (12600-12603, 12700-12704); no other phase binds
+#: 11400-14999
+HARNESS_PORT = 12000
+#: the bound on phase 4q's interpreter, and the phase's budget on the card
+HARNESS_TIMEOUT_S, HARNESS_BUDGET_S = 400.0, 150.0
+#: ber_delta: modulations, SNRs (dB in the signal's bandwidth) and runs;
+#: at the high SNR the arms' bit errors must be equal, at the low one
+#: |BER delta| <= DELTA_BAR
+DELTA_MODS, DELTA_SNRS, DELTA_RUNS, DELTA_BAR = ("FSK", "GMSK"), (4.0, 10.0), 2, 1e-3
+#: ber: FSK at BER_SNR_DB, BER_RUNS runs; diversity: FSK at DIV_SNR_DB,
+#: DIV_RUNS runs, the 3-channel arm paced at DIV_PACE x the sample rate
+BER_SNR_DB, BER_RUNS = 18.0, 2
+DIV_SNR_DB, DIV_RUNS, DIV_PACE = 8.0, 2, 6.0
+#: streaming_rt: signal seconds, SNR and the drain after the front end
+#: stops (s), at real time and range rate 0
+RT_SIGNAL_S, RT_SNR_DB, RT_DRAIN_S = 24.0, 18.0, 16.0
+
+
+def harness_step(name, fn, steps):
+    """Run step ``name``: print its start and its seconds; record them."""
+    say("harnesses", f"start {name}")
+    t0 = time.time()
+    out = fn()
+    steps[name] = time.time() - t0
+    say("harnesses", f"{name} {steps[name]:.1f} s")
+    return out
+
+
+def run_harnesses(port0, card):
+    """Phase 4q: the station harnesses through their entry points, the
+    children on the card. hw_selfcheck: every check PASSes; ber_delta:
+    DELTA_MODS at DELTA_SNRS, DELTA_RUNS runs each: in every run both arms
+    find a packet or neither does, at the high SNR their bit errors are
+    equal, at the low one |BER delta| <= DELTA_BAR; ber: FSK at BER_SNR_DB,
+    every run's packet bit-exact; diversity: FSK at DIV_SNR_DB, both arms to
+    their end, the voted arm delivers packets; streaming_rt at real time,
+    RT_SIGNAL_S s at RT_SNR_DB (range rate 0): every steady-state packet
+    decoded, every packet bit-exact, none twice. Every child on the card;
+    K1-K5 launched (the phase's own block graphs and every child's, from its
+    warm point on). Returns a dict."""
+    from pycusdr_tpu_torch.bench import ber, ber_delta, diversity, hw_selfcheck, streaming_rt
+
+    ops.reset_launches()
+    steps, lines = {}, []
+
+    def selfcheck():
+        failed = hw_selfcheck.run_selfcheck(out=lambda line: (lines.append(line),
+                                                              say("harnesses", line)))
+        assert failed == 0 and sum(x.startswith("PASS") for x in lines) == 5, \
+            f"4q: hw_selfcheck failed {failed}: {lines}"
+
+    harness_step("hw_selfcheck", selfcheck, steps)
+    rows = harness_step("ber_delta", lambda: ber_delta.run_delta(
+        DELTA_MODS, list(DELTA_SNRS), DELTA_RUNS, verbose=False), steps)
+    for r in rows:
+        a, b = r["errors_by_run_device"], r["errors_by_run_golden"]
+        say("harnesses", f"ber_delta {r['modulation']} {r['snr_db']:g} dB (Eb/N0 "
+                         f"{r['ebn0_db']:.2f} dB): found {r['found_device']}/{r['found_golden']} "
+                         f"of {r['runs']}, bit errors by run device {a} golden {b}, BER device "
+                         f"{r['ber_device']:.6g} golden {r['ber_golden']:.6g}, delta "
+                         f"{r['ber_delta']:.3g}")
+        assert [e is None for e in a] == [e is None for e in b], \
+            f"4q: ber_delta {r['modulation']} {r['snr_db']} dB: the arms found other packets: {r}"
+        if r["snr_db"] == max(DELTA_SNRS):
+            assert a == b, f"4q: ber_delta {r['modulation']} {r['snr_db']} dB: bit errors {a} {b}"
+        else:
+            assert abs(r["ber_delta"]) <= DELTA_BAR, f"4q: ber_delta {r}"
+    sweep = harness_step("ber", lambda: ber.run_ber_sweep(
+        "FSK", nRuns=BER_RUNS, snrs=[BER_SNR_DB], basePort=port0), steps)
+    say("harnesses", f"ber FSK {BER_SNR_DB:g} dB: packets {sweep['numPackets']}, bit errors "
+                     f"{sweep['bitErrors']}, BER {sweep['BER']}, Eb/N0 {sweep['EBN0']}, blocks "
+                     f"{sweep['blocks']}, devices {sweep['devices']}")
+    assert sweep["numPackets"] == [BER_RUNS] and sweep["bitErrors"] == [[0] * BER_RUNS], \
+        f"4q: ber: {sweep['numPackets']} packets, bit errors {sweep['bitErrors']}"
+    (div,) = harness_step("diversity", lambda: diversity.run_diversity(
+        "FSK", (DIV_SNR_DB,), DIV_RUNS, basePort=port0 + 200, fsSimFactor3=DIV_PACE,
+        verbose=False), steps)
+    say("harnesses", f"diversity FSK {DIV_SNR_DB:g} dB, {DIV_RUNS} runs: one channel "
+                     f"{div['packets_1ch']} packets BER {div['ber_1ch']:.6g} (bit errors "
+                     f"{div['bit_errors_1ch']}), three voted {div['packets_3ch_voted']} packets "
+                     f"BER {div['ber_3ch_voted']:.6g} (bit errors {div['bit_errors_3ch']}); blocks "
+                     f"{div['blocks_1ch']} / {div['blocks_3ch']}")
+    assert div["packets_3ch_voted"] >= 1, f"4q: diversity: no voted packet: {div}"
+    assert div["blocks_1ch"] > 0 and div["blocks_3ch"] > 0, f"4q: diversity: {div}"
+    rt = harness_step("streaming_rt", lambda: streaming_rt.run_point(
+        1.0, RT_SIGNAL_S, basePort=port0 + 600, snr_db=RT_SNR_DB, drain_s=RT_DRAIN_S,
+        ready_timeout=120.0, verbose=False), steps)
+    say("harnesses", "streaming_rt " + json.dumps(rt))
+    assert rt["steady_decoded"] == rt["steady_scheduled"] > 0, f"4q: streaming_rt: {rt}"
+    assert rt["packets_bit_exact"] == rt["packets_decoded"] and rt["packets_duplicate"] == 0, \
+        f"4q: streaming_rt: {rt}"
+
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    devices = sweep["devices"] + div["devices"] + rt["devices"]
+    assert devices and all(d == "cuda" for d in devices), f"4q: children on {devices}"
+    in_process = dict(launches)
+    for child in (sweep["launches"], div["launches_1ch"], div["launches_3ch"], rt["launches"]):
+        for k, v in child.items():
+            launches[k] += v
+    check_launches("harnesses", launches)
+    total = sum(steps.values())
+    assert total <= HARNESS_BUDGET_S, f"4q: {total:.1f} s, over its {HARNESS_BUDGET_S} s budget"
+    return dict(steps_s=steps, seconds=total, selfcheck=lines, ber_delta=rows,
+                ber={k: v for k, v in sweep.items() if k != "payloads"}, diversity=div,
+                streaming_rt=rt, launches=launches, launches_in_process=in_process,
+                blocks_children=sweep["blocks"] + div["blocks_1ch"] + div["blocks_3ch"]
+                + rt["blocks"])
 
 
 # ------------------------------------------- slice 5: wideband front end, tracking
@@ -3858,9 +4063,12 @@ KERNEL_WRAPPER = {"channelize_wide": "channelize", "threshold_long": "threshold_
 def device_ms(fn, kernel, calls=20):
     """Mean device ms per call of ``fn`` spent in ``kernel``'s own __global__
     functions: torch.profiler over ``calls`` calls after a warm one. The
-    trace must hold every launch: ``calls`` x the wrapper's launches in the
+    trace should hold every launch: ``calls`` x the wrapper's launches in the
     warm call x the kernel's functions (each runs once a launch). A trace
-    that lost any is taken again, five times at most."""
+    that lost any is taken again, five times at most; if none holds them
+    all, the fullest (at least TRACE_HELD of them, else it fails) gives the
+    mean over the launches it holds, times the launches a call makes, and a
+    line says so."""
     names = re.compile(r"(^|[\s:])(%s)[<(]" % "|".join(KERNEL_FUNCS[kernel]))
     wrapper = ops.kernel_wrappers()[KERNEL_WRAPPER.get(kernel, kernel)]
     before = wrapper.launches
@@ -3869,7 +4077,7 @@ def device_ms(fn, kernel, calls=20):
     want = calls * (wrapper.launches - before) * len(KERNEL_FUNCS[kernel])
     assert want > 0, f"{kernel}: the timed call launched no kernel"
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    got = []
+    got, best = [], (0, 0.0)
     for _ in range(5):  # a trace now and then comes back with events missing
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
@@ -3878,10 +4086,22 @@ def device_ms(fn, kernel, calls=20):
         ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and names.search(e.key)]
         got.append(sum(e.count for e in ev))
+        us = sum(e.self_device_time_total for e in ev)
         if got[-1] == want:
-            return sum(e.self_device_time_total for e in ev) / 1e3 / calls
-    raise AssertionError(f"{kernel}: five traces held {got} launches of "
-                         f"{KERNEL_FUNCS[kernel]}, not {want}")
+            return us / 1e3 / calls
+        if want > got[-1] > best[0]:
+            best = (got[-1], us)
+    assert best[0] >= TRACE_HELD * want, (
+        f"{kernel}: five traces held {got} launches of {KERNEL_FUNCS[kernel]}, not {want}")
+    say("times", f"{kernel}: five traces held {got} of {want} launches of "
+                 f"{KERNEL_FUNCS[kernel]}; device ms from the mean of the {best[0]} the "
+                 f"fullest held")
+    return best[1] / best[0] * want / 1e3 / calls
+
+
+#: the least share of its launches a trace must hold for ``device_ms`` to
+#: take its mean when no trace held them all
+TRACE_HELD = 0.9
 
 
 def snr_band_bins(spec, consts, dopp_idx):
@@ -4494,17 +4714,31 @@ def main() -> int:
                 f"booted; {h18['seconds']:.1f} s; " + json.dumps(h18))
     say("main", f"slice-18 paths took {time.perf_counter() - t_s18:.1f} s")
     t_s19 = time.perf_counter()
-    r19 = run_restart(RESTART_PORT, card)
+    r19 = run_fresh(f"run_restart({RESTART_PORT}, {card!r})", "4p", RESTART_TIMEOUT_S)
+    for who, m in r19["memory"].items():
+        say("main", f"{card} | 4p memory {who}: {memory_text(m)}")
     res["restart"] = {"launches": r19["launches"]}
     say("main", f"4p planned restart: PyCuSDR from CC11xx.json with maxWorkerRssMb, "
                 f"{r19['packets_sent']} packets paced over {r19['feed_s']:.1f} s at "
                 f"{CC11XX_SNR_DB} dB a sample; the cap set to {r19['cap_mb']:.1f} MB between the "
-                f"Rx child's RSS and the others'; one planned restart to {r19['worker_ids'][1]}, "
+                f"Rx child's anonymous RSS and the others'; one planned restart to "
+                f"{r19['worker_ids'][1]}, "
                 f"K1-K5 in both children while both lived and once a block in the replacement "
                 f"({r19['blocks_new']} blocks); every packet delivered exactly once; the old "
                 f"child gone (exit code {r19['old_exitcode']}); native forms in both Rx children "
                 f"and the decoder, no numpy form; {time.perf_counter() - t_s19:.1f} s; "
                 + json.dumps(r19))
+    t_s21 = time.perf_counter()
+    r21 = run_fresh(f"run_harnesses({HARNESS_PORT}, {card!r})", "4q", HARNESS_TIMEOUT_S)
+    res["harnesses"] = {"launches": r21["launches"]}
+    say("main", f"4q station harnesses (hw_selfcheck, ber_delta, ber, diversity, streaming_rt) "
+                f"through their entry points, every child on the card: selfcheck PASS x5; "
+                f"ber_delta arms equal; ber packets bit-exact; the voted arm delivered; "
+                f"streaming_rt {r21['streaming_rt']['steady_decoded']} of "
+                f"{r21['streaming_rt']['steady_scheduled']} steady packets bit-exact; K1-K5 "
+                f"launched; steps {json.dumps(r21['steps_s'])}, {r21['seconds']:.1f} s of "
+                f"steps, {time.perf_counter() - t_s21:.1f} s with the interpreter; "
+                + json.dumps(r21))
 
     times = {}
     for p in cfg:
@@ -4663,6 +4897,11 @@ def main() -> int:
                  f"block); the replacement {r19['rss_new_warm_mb']:.1f} MB warm, "
                  f"{r19['rss_new_end_mb']:.1f} MB after {r19['blocks_new']} blocks; card memory "
                  f"in the overlap {r19['card_memory']}")
+    say("times", f"{card} | 4q station harnesses: steps (s) {json.dumps(r21['steps_s'])}; "
+                 f"streaming_rt at real time: {r21['streaming_rt']['packets_decoded']} of "
+                 f"{r21['streaming_rt']['packets_scheduled']} packets, wall "
+                 f"{r21['streaming_rt']['wall_seconds']} s for {RT_SIGNAL_S:g} s of signal, "
+                 f"arrivals {r21['streaming_rt']['arrival_s']}")
     for p, B in (("flagship", 1), ("flagship", LINE_BATCH), ("flagship", 64), ("stx", 1),
                  ("stx", 64), ("cc11xx", 1), ("cc11xx", LINE_BATCH), ("cc11xx", 64),
                  ("bpsk", 1), ("bpsk", LINE_BATCH), ("bpsk", 64), ("wideband", 64),

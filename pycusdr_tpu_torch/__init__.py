@@ -19,19 +19,32 @@ first use), each with a plain PyTorch version beside it.
 =========  ====================================================
 subpkg     role
 =========  ====================================================
-runtime    orchestrator, demodulator / channel-group / decoder
+runtime    orchestrator (planned restarts under an RSS cap),
+           demodulator / channel-group / modulator / decoder
            processes, sample ingest, the CLI
 ops        kernel wrappers, plain versions, the kernel build,
            the convolutional code and streaming Viterbi
-parallel   the channel group's vote (K8)
+parallel   the vote (K8), the channelizer (K9), the channel x
+           dopp and time-sharded steps, meshes over a
+           ``torch.distributed`` world
 csrc       CUDA C++ sources of the kernels
-dsp        spec, the per-block device graph, test signals, AWGN
-models     Demodulator frontend and block healing
+dsp        spec, the per-block device graph, the numpy golden,
+           test signals, AWGN
+models     Demodulator frontend, block healing, the LEO tracker
 decode     frame finder, RS(255,223), packet de-duplication
 tx         framers, LUT modulators, Modulator (host numpy)
-protocol   the benchmark FSK/GFSK/BPSK protocols and CCSDS
+protocol   CC11xx, AX.25 (FSK, GMSK), GFSK2, the benchmark
+           FSK/GFSK/GMSK/BPSK protocols and CCSDS
+combine    the softCombiner: per-channel buffers, alignment,
+           the trust vote (host numpy)
+control    the XML-RPC server, the rigctld server and the
+           hamlib daemon that boots a modem per connection
+native     the C++ host runtime (ring buffer, bit correlator,
+           PN9, CRC-16), built with g++ at first use
+bench      station harnesses: hw_selfcheck, ber, ber_delta,
+           diversity, streaming_rt
+frontend   the software front end (sim_frontend)
 config     the modular JSON loader and the shipped configs
-control    the XML-RPC server
 obs        per-worker stats and post-pass analytics
 utils      filters, NRZ-S, CRC-16, shift registers, logging
 =========  ====================================================

@@ -127,14 +127,20 @@ class Decoder(Process):
         return self.protocol
 
     def run(self):
-        import torch
         import zmq
 
         from pycusdr_tpu_torch.utils.logger import child_logger_setup
 
         child_logger_setup(self.logLevel)
-        # one intra-op thread: a station runs one child per channel
-        torch.set_num_threads(1)
+        protocols = self.protocol.values() if isinstance(self.protocol, dict) else [self.protocol]
+        if any(hasattr(p, "device") for p in protocols):
+            # only a protocol with device work (ccsds_conv's Viterbi, K7)
+            # needs torch here; any other decoder leaves it unloaded, and
+            # with it the CUDA libraries' pages
+            import torch
+
+            # one intra-op thread: a station runs one child per channel
+            torch.set_num_threads(1)
 
         ctx = zmq.Context()
         log.info("Configuring decoder input socket: %s", self.decodeInAddr)

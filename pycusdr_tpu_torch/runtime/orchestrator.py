@@ -29,8 +29,12 @@ as planned maintenance, a child whose resident set exceeds the cap: a
 demodulator child make-before-break (the replacement, workerId
 ``base~rN``, warms while the old child decodes, both decode through
 ``Main.restartOverlapSeconds``, then the old child is torn down), any
-other child break-before-make. The resident set is read from
-``/proc/<pid>/statm``, as psutil reads it on Linux.
+other child break-before-make. The cap reads a child's anonymous resident
+set (``rss_mb``): the memory a leak grows. That departs from the JAX
+package, whose psutil ``rss`` is statm's ``resident``: resident counts
+every file page a child maps, and torch's CUDA libraries alone put about
+4.6 GB of those in any child that imports torch (an H100 80GB HBM3
+machine, ``chip_smoke.py`` phase 4p).
 
 Departure from the JAX package: ``is_alive`` never runs the RSS check, so
 a caller that polls it never becomes the restarter and never waits out a
@@ -65,13 +69,62 @@ WARM_S = 300.0
 RESTART_STOP_S, RESTART_JOIN_S, RESTART_KILL_S = 5.0, 10.0, 5.0
 
 _PAGE = os.sysconf("SC_PAGE_SIZE")
+#: the lines of ``/proc/<pid>/status`` that split the resident set
+STATUS_RSS = ("RssAnon", "RssFile", "RssShmem")
+#: path prefixes of shared-memory mappings in ``/proc/<pid>/smaps``
+_SHMEM_PATHS = ("/dev/shm/", "/memfd:", "/SYSV")
+
+
+def _status_rss(pid: int) -> dict:
+    """``STATUS_RSS`` of ``/proc/<pid>/status`` in MB, those the kernel gives
+    (gVisor's status has none of them)."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in STATUS_RSS:
+                out[key] = int(val.split()[0]) * 1024 / 1e6
+    return out
+
+
+def smaps_anon_mb(pid: int) -> float:
+    """The sum of the ``Anonymous`` lines of ``/proc/<pid>/smaps`` and the
+    ``Rss`` of its shared-memory mappings, in MB: ``RssAnon + RssShmem``
+    where the kernel's status does not split the resident set."""
+    kb, shmem = 0, False
+    with open(f"/proc/{pid}/smaps") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key == "Anonymous" or (shmem and key == "Rss"):
+                kb += int(val.split()[0])
+            elif " " in key:  # a mapping's header line: its path is the sixth field
+                fields = line.split()
+                shmem = len(fields) > 5 and fields[5].startswith(_SHMEM_PATHS)
+    return kb * 1024 / 1e6
 
 
 def rss_mb(pid: int) -> float:
-    """Resident set of process ``pid`` in MB (1e6 bytes): resident pages
-    from ``/proc/<pid>/statm`` times the page size."""
+    """The anonymous resident set of process ``pid`` in MB (1e6 bytes):
+    ``RssAnon + RssShmem`` of ``/proc/<pid>/status``, or ``smaps_anon_mb``
+    where the status lacks them. File-backed pages (a library's text) are
+    left out: they are shared, and a leak does not grow them."""
+    st = _status_rss(pid)
+    if "RssAnon" in st:
+        return st["RssAnon"] + st.get("RssShmem", 0.0)
+    return smaps_anon_mb(pid)
+
+
+def memory_split(pid: int) -> dict:
+    """What the resident set of process ``pid`` is made of, in MB: statm's
+    ``resident`` and ``shared``, ``STATUS_RSS`` (None where the kernel does
+    not give it), ``smaps_anon`` and ``rss_mb`` (the figure the cap reads)."""
     with open(f"/proc/{pid}/statm") as f:
-        return int(f.read().split()[1]) * _PAGE / 1e6
+        resident, shared = (int(v) * _PAGE / 1e6 for v in f.read().split()[1:3])
+    st = _status_rss(pid)
+    out = dict(resident=resident, shared=shared, **{k: st.get(k) for k in STATUS_RSS})
+    out["smaps_anon"] = smaps_anon_mb(pid)
+    out["rss_mb"] = rss_mb(pid)
+    return out
 
 
 class PyCuSDR:

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: importing every module of
 ``pycusdr_tpu_torch`` (the runtime, the RPC server and the config loader
 among them), the module-level code of ``chip_smoke.py`` and running
-``python -m pycusdr_tpu_torch --help`` and ``python -m
-pycusdr_tpu_torch.control.hamlib_daemon --help`` load neither ``jax`` nor
-the JAX package, and its CUDA entry points, the CLI included, raise without a
-card instead of running on the CPU. Each check runs in a fresh
+``python -m pycusdr_tpu_torch --help``, ``python -m
+pycusdr_tpu_torch.control.hamlib_daemon --help`` and each station harness's
+and the software front end's ``--help`` load neither ``jax`` nor the JAX
+package, and its CUDA entry points, the CLI and the harnesses included,
+raise without a card instead of running on the CPU. Each check runs in a fresh
 interpreter (this test process has JAX loaded already)."""
 
 import json
@@ -12,6 +13,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -177,3 +180,73 @@ def test_cc11xx_cli_raises_without_a_card():
                          cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
+
+
+HARNESSES = ("hw_selfcheck", "ber", "ber_delta", "diversity", "streaming_rt")
+
+HARNESS_HELP = r"""
+import json, runpy, sys
+name = sys.argv[1]
+sys.argv = [name, "--help"]
+try:
+    runpy.run_module(name, run_name="__main__")
+except SystemExit as e:
+    code = e.code
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib" or n.startswith("jaxlib.")
+             or n == "pycusdr_tpu" or n.startswith("pycusdr_tpu."))
+print(json.dumps({"code": code, "bad": bad}))
+"""
+
+HARNESS_NO_CARD = r"""
+import json, os, tempfile
+from pycusdr_tpu_torch.bench import ber, ber_delta, diversity, hw_selfcheck, streaming_rt
+tmp = set(os.listdir(tempfile.gettempdir()))
+raised = []
+for call in (lambda: hw_selfcheck.run_selfcheck(out=lambda line: None),
+             lambda: hw_selfcheck.main([]),
+             lambda: ber_delta.run_delta(("FSK",), [10.0], 1, packetLen=200, blockSize=9,
+                                         verbose=False),
+             lambda: ber.run_ber_sweep("FSK", 1, [18.0], packetLen=200, basePort=19990),
+             lambda: diversity.run_diversity("FSK", (18.0,), 1, packetLen=200, basePort=19990,
+                                             verbose=False),
+             lambda: streaming_rt.run_point(1.0, 3.0, basePort=19990, verbose=False)):
+    try:
+        call()
+        raised.append(False)
+    except RuntimeError as e:
+        raised.append("no CUDA device" in str(e))
+print(json.dumps({"raised": raised,
+                  "files_left": sorted(set(os.listdir(tempfile.gettempdir())) - tmp)}))
+"""
+
+
+def test_new_modules_load_without_jax():
+    """The numpy golden, the software front end and the station harnesses
+    are among the modules ``test_port_imports_no_jax`` loads without
+    ``jax`` or the JAX package."""
+    res = _run(IMPORT_ALL)
+    assert res["bad"] == []
+    for name in ("pycusdr_tpu_torch.dsp.reference", "pycusdr_tpu_torch.frontend.sim_frontend",
+                 "pycusdr_tpu_torch.bench") + tuple(f"pycusdr_tpu_torch.bench.{h}"
+                                                    for h in HARNESSES):
+        assert name in res["modules"], name
+
+
+@pytest.mark.parametrize("name", [f"pycusdr_tpu_torch.bench.{h}" for h in HARNESSES]
+                         + ["pycusdr_tpu_torch.frontend.sim_frontend"])
+def test_harness_help_imports_no_jax(name):
+    """``python -m <harness> --help`` in a fresh interpreter loads neither
+    ``jax`` nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", HARNESS_HELP, name], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"code": 0, "bad": []}
+
+
+def test_harness_entry_points_raise_without_a_card():
+    """Each harness runs on the card by default: without one (and without
+    the CPU asked for) it raises before it starts a child, binds a port or
+    writes a file."""
+    res = _run(HARNESS_NO_CARD)
+    assert res == {"raised": [True] * 6, "files_left": []}

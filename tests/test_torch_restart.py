@@ -4,7 +4,8 @@
 on one bench_FSK radio at blockSize 13 over real ZMQ
 (``PYCUSDR_TORCH_DEVICE=cpu``). The orchestrator's ``rss_mb`` is replaced
 in the parent so that the child under test, and only it, reads above the
-cap; the reader itself is held against psutil.
+cap; the reader itself (the anonymous resident set) is held against
+psutil's ``rss - shared``.
 
 - make-before-break: the replacement ``rt-UHF0~r1`` warms beside the old
   demodulator child, a packet fed during the overlap comes out once
@@ -267,7 +268,10 @@ def test_rss_reader_matches_psutil():
     try:
         p.stdout.readline()  # the child has allocated
         got = orchestrator.rss_mb(p.pid)
-        assert got == psutil.Process(p.pid).memory_info().rss / 1e6
+        # the anonymous set: psutil's rss less its shared (file and shmem)
+        # pages; the child maps no shared memory
+        mi = psutil.Process(p.pid).memory_info()
+        assert got == (mi.rss - mi.shared) / 1e6
         assert got > 50
     finally:
         p.kill()
