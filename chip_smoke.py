@@ -193,6 +193,20 @@ and then no result line is printed):
       signal at 18 dB and range rate 0 fed by ``frontend.sim_frontend``
       (every steady-state packet, all bit-exact, none twice); every child
       on the card, K1-K5 launched;
+   r. timing harnesses, in an interpreter of its own as in p, each step
+      printing ``[timers] start <name>`` and then its seconds, at most 90 s
+      of steps: ``bench.profile_stages`` (the flagship at B=1 and 16 in both
+      modes, STX at B=1 by stage: every stage row finite and clear of its
+      bound, the prefix rows within 2% of the graph's busy time, the
+      measured HBM and matmul roofs under 1.05 x the datasheet rates the
+      bounds use); ``bench.subsystems`` (the channelizer at M=64, K=8: tone
+      purity > 0.9; the tracker over 48 blocks at 10 dB locks);
+      ``bench.capture_probe`` at K=32 (both routes' decisions and carries
+      equal); ``bench.scaling`` (``--per-chip`` at C=16, auto and generic;
+      ``run_scaling((1, 2))``, two spawned ranks on the card over gloo, port
+      12801); ``bench.hw_leak_probe``, 200 iterations (np_input under 128 KB
+      an iteration; the control at least half the row it keeps); the
+      phase's kernels launched, scaling's ranks' counted;
    (phase 3 also holds K4's NRZ-S form (K4n in K4's launch) at the
    bench_BPSK shape at B=1/16/64 (with a clip bitmask) against its plain
    version, K8 at C=3/16/64/256, S=4608, with pinned
@@ -261,6 +275,17 @@ import numpy as np
 import torch
 
 from pycusdr_tpu_torch import ops
+from pycusdr_tpu_torch.bench.profile_stages import (
+    PREFIX_HELD,
+    bound_of,
+    bounds,
+    cuda_ms,
+    device_ms,
+    k6_work,
+    profile_calls,
+    snr_band_bins,
+)
+from pycusdr_tpu_torch.bench.subsystems import s_curve_blocks, s_curve_swing
 from pycusdr_tpu_torch.config.loader import load_modular_json
 from pycusdr_tpu_torch.configs import (
     RADIO,
@@ -303,9 +328,8 @@ from pycusdr_tpu_torch.protocol import loadProtocol
 from pycusdr_tpu_torch.protocol.ccsds import RS_K
 from pycusdr_tpu_torch.runtime.channel_group_process import build_group_graph
 from pycusdr_tpu_torch.tx.modulator import Modulator
+from pycusdr_tpu_torch.utils.device_info import card_line
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SEED = 1234
 DOPPLER_HZ = 3000.0  # inside the flagship grid (about +-10.9 kHz)
 NOISE_STD = 0.05  # per complex sample, unit-amplitude signal (~26 dB)
@@ -458,18 +482,18 @@ PATH_KERNELS = {
     # diversity and streaming_rt
     "harnesses": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                   "symbol_detect"),
+    # the timing harnesses (phase 4r): profile_stages (flagship and STX),
+    # subsystems (K9, the tracker), capture_probe, scaling (the vote; the
+    # generic step's K4l and K4s; the ranks of its world of two) and
+    # hw_leak_probe
+    "timers": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
+               "symbol_detect", "threshold_input", "vote", "channelize",
+               "symbol_detect_local", "shard_select"),
 }
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
 
 
 def sm_clocks():
@@ -2816,7 +2840,7 @@ def run_fresh(call, phase, timeout):
 #: phase 4q's ports: ber from HARNESS_PORT (12000, 12100-12104), diversity's
 #: arms from +200 (12200, 12300-12304; 12400-12402, 12500-12504),
 #: streaming_rt from +600 (12600-12603, 12700-12704); no other phase binds
-#: 11400-14999
+#: 11400-14999 but 4r (12801)
 HARNESS_PORT = 12000
 #: the bound on phase 4q's interpreter, and the phase's budget on the card
 HARNESS_TIMEOUT_S, HARNESS_BUDGET_S = 400.0, 150.0
@@ -2833,13 +2857,13 @@ DIV_SNR_DB, DIV_RUNS, DIV_PACE = 8.0, 2, 6.0
 RT_SIGNAL_S, RT_SNR_DB, RT_DRAIN_S = 24.0, 18.0, 16.0
 
 
-def harness_step(name, fn, steps):
+def harness_step(name, fn, steps, phase="harnesses"):
     """Run step ``name``: print its start and its seconds; record them."""
-    say("harnesses", f"start {name}")
+    say(phase, f"start {name}")
     t0 = time.time()
     out = fn()
     steps[name] = time.time() - t0
-    say("harnesses", f"{name} {steps[name]:.1f} s")
+    say(phase, f"{name} {steps[name]:.1f} s")
     return out
 
 
@@ -2923,6 +2947,138 @@ def run_harnesses(port0, card):
                 streaming_rt=rt, launches=launches, launches_in_process=in_process,
                 blocks_children=sweep["blocks"] + div["blocks_1ch"] + div["blocks_3ch"]
                 + rt["blocks"])
+
+
+# ------------------------------------------ slice 22: the timing harnesses on the card
+
+#: phase 4r: the rendezvous of scaling's world of two ranks (TIMERS_PORT + 1;
+#: a world of one runs in the phase's interpreter); no other phase binds 12800-12899
+TIMERS_PORT = 12800
+#: the bound on phase 4r's interpreter, and the phase's budget on the card
+TIMERS_TIMEOUT_S, TIMERS_BUDGET_S = 300.0, 90.0
+#: profile_stages: the flagship's batches (both modes), calls a timing
+PROFILE_BATCHES, PROFILE_T = (1, 16), 10
+#: subsystems: the channelizer's (M, taps a branch, samples a hop); the
+#: tracking pass (blocks, SNR dB) at tracking_conf's grid
+SUB_CHANNELIZER, SUB_TRACK = (64, 8, 2 ** 16), (48, 10.0)
+#: capture_probe's hops a call; scaling's channels a call (--per-chip) and
+#: its world sizes
+CAPTURE_K, SCALING_C, SCALING_WORLDS = 32, 16, (1, 2)
+#: hw_leak_probe: iterations, and the bar on np_input: a quarter of the
+#: flagship block's 512 KB (a transfer kept on every call reads about 512);
+#: the control, which keeps a 94 KB row an iteration, must read at least half
+#: of it (each probe trims the heap first, so memory earlier steps freed
+#: cannot serve what it keeps)
+LEAK_ITERS, LEAK_BAR_KB = 200, 128.0
+
+
+def stage_line(label, name, r):
+    """One row of ``profile_stages.run_profile`` as a line."""
+    dev = r["device_us_per_block"]
+    return (f"{label} {name}: us/block {r['us_per_block']:.3f} device "
+            f"{'null' if dev is None else f'{dev:.3f}'} bound {r['bound_us']:.4g} "
+            f"({r['bound_by']}) MB {r['mbytes_min']:.4g} GFLOP {r['gflops_per_block']:.4g}; "
+            f"{r['pct_memory_roof']:.2f}% of the memory roof, {r['pct_f32_roof']:.2f}% of f32"
+            + (f"; idle {r['idle_pct']:.1f}%" if r.get("idle_pct") is not None else ""))
+
+
+def run_timers(port0, card):
+    """Phase 4r: the five timing harnesses through their entry points on the
+    card. profile_stages: the flagship at PROFILE_BATCHES in both modes and
+    STX at B=1 (stages): every row finite and clear of its bound, the prefix
+    rows within 2% of the graph's busy time, the roofs under their datasheet
+    rates (``run_profile`` asserts them); subsystems: the channelizer's tone
+    purity > 0.9, the tracker locks over SUB_TRACK; capture_probe at
+    CAPTURE_K: both routes' decisions equal; scaling: --per-chip at SCALING_C
+    (auto and generic) and ``run_scaling(SCALING_WORLDS)`` (two ranks on the
+    card over gloo); hw_leak_probe: np_input under LEAK_BAR_KB an iteration,
+    the control at least half the row it keeps.
+    The phase's kernels launched (in this interpreter and in scaling's
+    ranks); its steps within TIMERS_BUDGET_S. Returns a dict."""
+    from pycusdr_tpu_torch.bench import (
+        capture_probe,
+        hw_leak_probe,
+        profile_stages,
+        scaling,
+        subsystems,
+    )
+    from pycusdr_tpu_torch.configs import flagship_spec, stx_spec
+
+    ops.reset_launches()
+    steps, rank_launches = {}, {}
+    fspec = flagship_spec()
+
+    def profile():
+        out = {}
+        for label, spec, batches, mode in (("flagship", fspec, PROFILE_BATCHES, "stages"),
+                                           ("flagship", fspec, PROFILE_BATCHES, "prefix"),
+                                           ("stx", stx_spec(), (1,), "stages")):
+            r = profile_stages.run_profile(batches, PROFILE_T, spec=spec, mode=mode,
+                                           device="cuda")
+            out[f"{label} {mode}"] = r
+            for B, rows in r["batches"].items():
+                for name, row in rows.items():
+                    say("timers", f"{card} | " + stage_line(f"{label} {mode} {B}", name, row))
+        r = out["flagship stages"]
+        say("timers", f"{card} | roofs: memory {r['memory_roof_gbps']:.1f} GB/s, f32 "
+                      f"{r['matmul_roof_tflops']['f32']:.2f} TFLOP/s, bf16 "
+                      f"{r['matmul_roof_tflops']['bf16']:.1f} TFLOP/s (datasheet "
+                      f"{json.dumps(r['datasheet'])}); launch floor {r['launch_floor_ms']:.5f} "
+                      f"ms, dispatch round trip {r['dispatch_rtt_ms']:.4f} ms")
+        return out
+
+    prof = harness_step("profile_stages", profile, steps, "timers")
+
+    def subsys():
+        M, K, n = SUB_CHANNELIZER
+        ch = subsystems.channelizer_bench(M, K, n, batches=(1, 4), T=10, device="cuda")
+        tr = subsystems.tracking_bench(fspec, SUB_TRACK[0], snr_db=SUB_TRACK[1], T=20,
+                                       device="cuda", **{k: tracking_conf()[k] for k in (
+                                           "track_bins", "track_span_bins")})
+        return ch, tr
+
+    ch, tr = harness_step("subsystems", subsys, steps, "timers")
+    say("timers", f"{card} | channelizer M={ch['M']} K={ch['taps_per_branch']} ({ch['form']}): "
+                  f"tone purity {ch['tone_purity']:.6f}; " + json.dumps(ch["throughput"]))
+    say("timers", f"{card} | tracking {tr['n_blocks']} blocks at {tr['snr_db']:g} dB: first lock "
+                  f"{tr['first_lock_block']}, lock fraction {tr['lock_fraction_after_first']:.3f}, "
+                  f"median error {tr['median_err_bins']:.3f} bins; acquire "
+                  f"{tr['acquire_us_per_block']:.1f} us, track {tr['track_us_per_block']:.1f} us "
+                  f"a block (x{tr['track_speedup']:.3f})")
+    assert tr["lock_fraction_after_first"] > 0.5, f"4r: tracking {tr}"
+    cap = harness_step("capture_probe", lambda: capture_probe.run_probe(CAPTURE_K, device="cuda"),
+                       steps, "timers")
+    say("timers", f"{card} | " + json.dumps(cap))
+
+    def scale():
+        per = {prog: scaling.sharded_per_chip_msps(fspec, SCALING_C,
+                                                   force_generic=prog == "generic",
+                                                   device="cuda")
+               for prog in ("auto", "generic")}
+        rows = scaling.run_scaling(SCALING_WORLDS, fspec, device="cuda", port=port0,
+                                   launches=rank_launches)
+        return per, rows
+
+    per, worlds = harness_step("scaling", scale, steps, "timers")
+    say("timers", f"{card} | sharded step per chip C={SCALING_C}: auto {per['auto']:.1f}, generic "
+                  f"{per['generic']:.1f} Msamples/s; worlds " + json.dumps(worlds))
+    leak = harness_step("hw_leak_probe", lambda: hw_leak_probe.run_probes(
+        LEAK_ITERS, "cuda", fspec, out=lambda line: say("timers", line)), steps, "timers")
+    assert leak["np_input"] < LEAK_BAR_KB, f"4r: np_input keeps {leak['np_input']} KB a transfer"
+    assert leak["kept_rows"] >= 0.5 * leak["row_kb"], \
+        f"4r: the control kept {leak['row_kb']} KB an iteration, the reader saw {leak['kept_rows']}"
+
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    in_process = dict(launches)
+    for k, v in rank_launches.items():
+        launches[k] += v
+    check_launches("timers", launches)
+    total = sum(steps.values())
+    assert total <= TIMERS_BUDGET_S, f"4r: {total:.1f} s, over its {TIMERS_BUDGET_S} s budget"
+    return dict(steps_s=steps, seconds=total, profile=prof, channelizer=ch, tracking=tr,
+                capture=cap, per_chip_msps=per, worlds=worlds, leak=leak, launches=launches,
+                launches_in_process=in_process)
 
 
 # ------------------------------------------- slice 5: wideband front end, tracking
@@ -3553,20 +3709,6 @@ def main_path_wideband(wb, spec):
                 launches=launches)
 
 
-def s_curve_blocks(spec, n_blocks, f_max, t_mid, tau, snr_db, seed=3):
-    """FSK blocks under an S-curve Doppler pass with AWGN at ``snr_db``
-    (bench/subsystems.py:73-89); returns (blocks complex64, truth Hz)."""
-    N, fs, sps = spec.Nfft, spec.sampleRate, int(spec.spsym)
-    rng = np.random.RandomState(seed)
-    base = modulate_fsk(rng.randint(0, 2, (N * n_blocks) // sps + 8), sps)[:N * n_blocks]
-    t_blk = np.arange(N * n_blocks) / N
-    f_inst = spec.centreFreqOffset - f_max * np.tanh((t_blk - t_mid) / tau)
-    sig = base * np.exp(1j * 2 * np.pi * np.cumsum(f_inst) / fs)
-    sig = awgn(sig.astype(np.complex64), snr_db, rng=rng)
-    truth = spec.centreFreqOffset - f_max * np.tanh((np.arange(n_blocks) + 0.5 - t_mid) / tau)
-    return sig.astype(np.complex64).reshape(n_blocks, N), truth
-
-
 def main_path_tracking(spec):
     """The LEO search-and-track loop (BASELINE #3) at the flagship spec with
     ``tracking_conf()`` over a TRACK_BLOCKS-block S-curve pass at
@@ -3576,9 +3718,7 @@ def main_path_tracking(spec):
     fraction after it, the median error in bins, and the two trackers."""
     tc = tracking_conf()
     bin_hz = spec.sampleRate / spec.Nfft
-    grid_span = float(spec.dopp_hz_lut.max() - spec.dopp_hz_lut.min())
-    tau = TRACK_BLOCKS / 6
-    f_max = min(0.35 * grid_span, 0.4 * (tc["track_span_bins"] / 2) * bin_hz * tau)
+    f_max, tau = s_curve_swing(spec, TRACK_BLOCKS, tc["track_span_bins"])
     blocks, truth = s_curve_blocks(spec, TRACK_BLOCKS, f_max, TRACK_BLOCKS / 2, tau,
                                    TRACK_SNR_DB)
     xb = torch.from_numpy(blocks).cuda()
@@ -4016,158 +4156,6 @@ def time_slice5(wb, spec, tracker, xb):
                 acquire_ms=acq_ms, track_ms=trk_ms)
 
 
-def cuda_ms(fn, iters=20, reps=7):
-    """Median over ``reps`` of the mean CUDA-event time of ``iters`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-#: each hand-written kernel's __global__ functions (csrc/*.cu): the device
-#: time torch.profiler gives them is the kernel's device time
-KERNEL_FUNCS = {
-    "doppler_energy": ("doppler_energy_k",),
-    "mf_bank_colreduce": ("mf_pass1", "mf_pass2"),
-    "timing_band": ("band_partial", "band_argmax"),
-    "symbol_detect": ("symbol_detect",),
-    "doppler_estimate": ("doppler_estimate",),
-    "threshold_input": ("thr_cluster",),
-    "threshold_long": ("thr_pass1", "thr_pass2", "thr_pass3"),
-    "mf_bank_multipass": ("mf_pass1", "mf_mid", "mf_pass2"),
-    "viterbi": ("viterbi",),
-    "symbol_detect_nrzs": ("symbol_detect",),
-    "vote": ("vote",),
-    "channelize": ("channelize",),
-    "channelize_wide": ("channelize_fir",),
-    "symbol_detect_local": ("symbol_detect_local",),
-    "shard_select": ("shard_select",),
-    "shard_select_nrzs": ("shard_select",),
-}
-
-
-#: the wrapper that launches a KERNEL_FUNCS entry, where its name differs
-KERNEL_WRAPPER = {"channelize_wide": "channelize", "threshold_long": "threshold_input",
-                  "mf_bank_multipass": "mf_bank_colreduce"}
-
-
-def device_ms(fn, kernel, calls=20):
-    """Mean device ms per call of ``fn`` spent in ``kernel``'s own __global__
-    functions: torch.profiler over ``calls`` calls after a warm one. The
-    trace should hold every launch: ``calls`` x the wrapper's launches in the
-    warm call x the kernel's functions (each runs once a launch). A trace
-    that lost any is taken again, five times at most; if none holds them
-    all, the fullest (at least TRACE_HELD of them, else it fails) gives the
-    mean over the launches it holds, times the launches a call makes, and a
-    line says so."""
-    names = re.compile(r"(^|[\s:])(%s)[<(]" % "|".join(KERNEL_FUNCS[kernel]))
-    wrapper = ops.kernel_wrappers()[KERNEL_WRAPPER.get(kernel, kernel)]
-    before = wrapper.launches
-    fn()
-    torch.cuda.synchronize()
-    want = calls * (wrapper.launches - before) * len(KERNEL_FUNCS[kernel])
-    assert want > 0, f"{kernel}: the timed call launched no kernel"
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    got, best = [], (0, 0.0)
-    for _ in range(5):  # a trace now and then comes back with events missing
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and names.search(e.key)]
-        got.append(sum(e.count for e in ev))
-        us = sum(e.self_device_time_total for e in ev)
-        if got[-1] == want:
-            return us / 1e3 / calls
-        if want > got[-1] > best[0]:
-            best = (got[-1], us)
-    assert best[0] >= TRACE_HELD * want, (
-        f"{kernel}: five traces held {got} launches of {KERNEL_FUNCS[kernel]}, not {want}")
-    say("times", f"{kernel}: five traces held {got} of {want} launches of "
-                 f"{KERNEL_FUNCS[kernel]}; device ms from the mean of the {best[0]} the "
-                 f"fullest held")
-    return best[1] / best[0] * want / 1e3 / calls
-
-
-#: the least share of its launches a trace must hold for ``device_ms`` to
-#: take its mean when no trace held them all
-TRACE_HELD = 0.9
-
-
-def snr_band_bins(spec, consts, dopp_idx):
-    """Bins of P that K5's two SNR bands read for this run's estimates."""
-    N, D, w = spec.Nfft, spec.D, spec.snr_window
-    lo = torch.clamp(torch.floor(dopp_idx).long(), 0, D - 1)
-    hi = torch.clamp(torch.ceil(dopp_idx).long(), 0, D - 1)
-    a = torch.remainder(consts.shifts[lo].long() - w, N)
-    return 2 * int(torch.remainder(consts.shifts[hi].long() + w - a, N).sum())
-
-
-def bound_of(nbytes, flops):
-    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
-    rate and the f32 operations over the f32 rate."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
-
-
-def k6_work(N, B):
-    """K6's compulsory work: x in; the clipped signal, the hit bitmask and
-    clipped_any out | |x| (3 flops and a sqrt), two compares, two sums,
-    four multiplies a sample. (bytes, f32 operations)."""
-    return 16 * B * N + 4 * B * -(-N // 32) + 4 * B, 12 * B * N
-
-
-def bounds(spec, B, band_bins=0):
-    """Least time on the card for the work each kernel's function needs at
-    batch B, whatever algorithm computes it: the larger of compulsory bytes
-    (inputs read once, outputs written once) over the HBM rate and the f32
-    operations of the cheapest known algorithm over the f32 rate (an FFT
-    of length n counted as 5 n log2 n complex, 2.5 n log2 n real).
-    ``band_bins``: the P bins K5's SNR bands read in this run.
-    Returns name -> (ms, by) for the kernels of the spec's path."""
-    N, D, M, W, S = spec.Nfft, spec.D, spec.num_masks, spec.windowWidth, spec.numSymMax
-    nb = spec.code_idx_hi - spec.code_idx_lo
-    rfft = 2.5 * N * math.log2(N)
-    clip = not spec.disable_peak_thresholding
-    work = {
-        # P, Q, shifts in; E out | the cheaper of the direct shifted dot
-        # (one FMA per (b, d, m, k)) and the FFT correlation (an rfft of
-        # every P and Q row, a complex product and an inverse rfft per (b, m))
-        "doppler_energy": (4 * (B * N + M * N + D + B * D * M),
-                           min(2 * B * D * M * N, rfft * (B + M + B * M) + 3 * B * M * N)),
-        # E, the grid tables and the SNR bands' bins of P in; six scalars,
-        # the shift and E (into the packed row) out | the mask sums, the
-        # two top-2 scans, a sqrt and an add per band bin, the scalar tail
-        "doppler_estimate": (4 * (2 * B * D * M + 3 * D + band_bins + 7 * B),
-                             B * (D * M + 2 * D) + 2 * band_bins + 40 * B),
-        "threshold_input": k6_work(N, B),
-        # S, masks, shift in; 3 N-vectors out | M complex inverse FFTs,
-        # the mask product and the power
-        "mf_bank_colreduce": (8 * B * N + 8 * M * N + 4 * B + 12 * B * N,
-                              B * M * (2 * rfft + 9 * N)),
-        # colsum in; 3 scalars out | one real FFT (a band-pruned one needs
-        # less), then |.|^2 and the argmax over the band
-        "timing_band": (4 * B * N + 12 * B, B * (rfft + 4 * nb)),
-        # the W-sample windows of every slot (at most N samples), one
-        # colargmax read per slot and (clip) the hit bitmask in; 14 bytes
-        # per slot + nSym out
-        "symbol_detect": (B * (4 * min(S * W, N) + 4 * S + 14 * S + 4 + (N // 8 if clip else 0)),
-                          B * S * (W + 8)),
-    }
-    return {name: bound_of(*work[name])
-            for name in PATH_KERNELS["flagship" if spec.doppler_search else "stx"]}
-
-
 def check_bounds(t, bnd, B, label):
     """A lower bound that a measured time beats counts the wrong work."""
     for k, (ms, pms, lms) in t.items():
@@ -4401,27 +4389,6 @@ def profile_graph(spec, B, calls=10, top=8):
     graph = build_process_batch(spec, device="cuda", packed=True)
     x = signal_blocks(spec, B)
     return profile_calls(lambda: graph(x), calls, top)
-
-
-def profile_calls(fn, calls=10, top=8):
-    """(wall ms/call, device busy ms/call, kernel names, the top ones) over
-    ``calls`` back-to-back calls of ``fn`` under torch.profiler."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / calls
-    dev.sort(key=lambda e: -e.self_device_time_total)
-    tops = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / calls:.4f}"
-                     for e in dev[:top])
-    return wall_ms, busy_ms, len(dev), tops
 
 
 def kernel_entry(name, t, bnd, dev):
@@ -4739,6 +4706,20 @@ def main() -> int:
                 f"launched; steps {json.dumps(r21['steps_s'])}, {r21['seconds']:.1f} s of "
                 f"steps, {time.perf_counter() - t_s21:.1f} s with the interpreter; "
                 + json.dumps(r21))
+    t_s22 = time.perf_counter()
+    r22 = run_fresh(f"run_timers({TIMERS_PORT}, {card!r})", "4r", TIMERS_TIMEOUT_S)
+    res["timers"] = {"launches": r22["launches"]}
+    say("main", f"4r timing harnesses (profile_stages, subsystems, capture_probe, scaling, "
+                f"hw_leak_probe) through their entry points on the card: every stage row clear "
+                f"of its bound, the prefix rows within {100 * PREFIX_HELD:g}% of the graph's busy "
+                f"time, the roofs under the datasheet's; tone purity "
+                f"{r22['channelizer']['tone_purity']:.6f}; the tracker locked at block "
+                f"{r22['tracking']['first_lock_block']}; capture and scan decisions equal; "
+                f"np_input {r22['leak']['np_input']:.2f} KB a transfer (the control "
+                f"{r22['leak']['kept_rows']:.2f} of its {r22['leak']['row_kb']:.1f} KB row); steps "
+                f"{json.dumps(r22['steps_s'])}, {r22['seconds']:.1f} s of steps, "
+                f"{time.perf_counter() - t_s22:.1f} s with the interpreter; "
+                + json.dumps({k: v for k, v in r22.items() if k != "profile"}))
 
     times = {}
     for p in cfg:

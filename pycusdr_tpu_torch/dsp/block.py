@@ -296,3 +296,80 @@ def build_process_block(spec: DemodSpec, device=None, packed: bool = False,
 
     process_block.device = batch.device
     return process_block
+
+
+def frame_blocks(head: torch.Tensor, new: torch.Tensor, Nfft: int):
+    """Overlap-save framing on the device: ``(blocks, tail)`` of the signal
+    ``cat([head, new])``, where ``head`` is the (ov,) tail the previous call
+    left and ``new`` holds K hops of Nfft - ov samples. ``blocks`` is the
+    (K, Nfft) batch of block k at k * hop, made contiguous: cuFFT rounds an
+    overlapping view otherwise, and a block's decisions must not depend on
+    how it was framed. ``tail`` is the last ov samples, the next call's
+    ``head``."""
+    ov = head.shape[0]
+    hop = Nfft - ov
+    sig = torch.cat([head, new])
+    return sig.unfold(0, Nfft, hop).contiguous(), sig[sig.shape[0] - ov:]
+
+
+def _capture_args(hops, carry, spec: DemodSpec, dev):
+    """``hops`` (K, hop) and ``carry`` (sigOverlap,) as complex64 on ``dev``."""
+    ov = spec.sigOverlap
+    hop = spec.Nfft - ov
+    hops = torch.as_tensor(hops).to(dev, torch.complex64).contiguous()
+    carry = torch.as_tensor(carry).to(dev, torch.complex64).contiguous()
+    if hops.dim() != 2 or hops.shape[0] < 1 or hops.shape[1] != hop:
+        raise ValueError(f"expected (K >= 1, {hop}) hops, got {tuple(hops.shape)}")
+    if tuple(carry.shape) != (ov,):
+        raise ValueError(f"expected a ({ov},) carry, got {tuple(carry.shape)}")
+    return hops, carry
+
+
+def build_process_stream(spec: DemodSpec, device=None, plain: bool = False):
+    """Whole-capture processor, the port of ``pycusdr_tpu/dsp/block.py:427``:
+    ``stream(hops, carry) -> (res, carry)``.
+
+    ``hops``: (K, Nfft - sigOverlap) complex64 new samples; ``carry``: the
+    (sigOverlap,) tail of the previous call. The overlap-save chain is
+    walked one block at a time (one B=1 call of the block graph a hop) with
+    the carry on the device. ``res`` is the batched result dict of
+    ``build_process_batch`` with a leading K axis, without ``E``.
+    ``device`` and ``plain`` as ``build_process_batch``'s."""
+    batch = build_process_batch(spec, device=device, plain=plain)
+    ov = spec.sigOverlap
+
+    def stream(hops, carry):
+        hops, carry = _capture_args(hops, carry, spec, batch.device)
+        outs = []
+        for h in hops:
+            block = torch.cat([carry, h])
+            outs.append(batch(block[None]))
+            carry = block[spec.Nfft - ov:]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0] if k != "E"}, carry
+
+    stream.device = batch.device
+    return stream
+
+
+def build_process_capture(spec: DemodSpec, device=None, plain: bool = False):
+    """Whole-capture processor at batch throughput, the port of
+    ``pycusdr_tpu/dsp/block.py:458``: ``capture(hops, carry) -> (res,
+    carry)``, with the arguments and results of ``build_process_stream``.
+
+    Overlap-save block k is a pure slice of the capture, so the K blocks are
+    framed on the device (``frame_blocks``) and run as one batch through
+    ``build_process_batch``. Its decisions and carry equal the stream's
+    (``bench/capture_probe.py`` holds them so on the card); on the CPU the
+    FFT rounds a batch differently from one transform, which the analog
+    outputs (mags among them) carry in their last bits."""
+    batch = build_process_batch(spec, device=device, plain=plain)
+
+    def capture(hops, carry):
+        hops, carry = _capture_args(hops, carry, spec, batch.device)
+        blocks, tail = frame_blocks(carry, hops.reshape(-1), spec.Nfft)
+        res = batch(blocks)
+        res.pop("E")
+        return res, tail
+
+    capture.device = batch.device
+    return capture

@@ -17,7 +17,11 @@ import logging
 import numpy as np
 import torch
 
-from pycusdr_tpu_torch.dsp.block import build_process_batch, unpack_block_outputs
+from pycusdr_tpu_torch.dsp.block import (
+    build_process_batch,
+    frame_blocks,
+    unpack_block_outputs,
+)
 from pycusdr_tpu_torch.dsp.spec import DemodSpec, build_spec
 from pycusdr_tpu_torch.models.healing import BlockHealer
 
@@ -264,7 +268,8 @@ class Demodulator:
         staging buffer of that many hops, and frames its blocks on the
         device behind the ``sigOverlap``-sample tail the previous dispatch
         left there (the overlap-save carry of JAX's ``processCapture``), as
-        one contiguous (n, Nfft) batch like ``processMany``'s. Dispatch k+1
+        one contiguous (n, Nfft) batch like ``processMany``'s (``dsp.block.
+        frame_blocks``, as ``build_process_capture`` frames). Dispatch k+1
         is queued before dispatch k's results are fetched; host-side healing
         runs per block exactly as in streaming.
 
@@ -295,12 +300,7 @@ class Demodulator:
             if self._cuda:
                 staged = torch.cuda.Event()
                 staged.record()
-            sig = torch.cat([head, new])  # (ov + n hop,)
-            head = sig[n * hop:]
-            # a contiguous batch: the FFT of an overlapping view rounds
-            # otherwise on the card, and a block's decisions must not
-            # depend on how it was framed
-            blocks = sig.unfold(0, self.Nfft, hop).contiguous()  # (n, Nfft)
+            blocks, head = frame_blocks(head, new, self.Nfft)  # (n, Nfft), (ov,)
             nxt = (start_download(self._process_batch(blocks)), n)
             if pending is not None:
                 res = finish_download(pending[0])

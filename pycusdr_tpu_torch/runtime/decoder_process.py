@@ -23,7 +23,10 @@ marked stale only when a newer generation of its base is registered (the
 JAX decoder marks every other generation, so a straggler of an evicted
 one would mark the live one stale), and the armed dedup history is pruned
 by its timeout alone (the JAX decoder keeps at most 40 hashes, fewer than
-the widened window holds at more than 5 packets a second).
+the widened window holds at more than 5 packets a second). At shutdown the
+parent waits for the stats while the child lives (``STATS_FIRST_WAIT_S``);
+the JAX parent gives up after one 2 s poll, which a child leaving a busy
+loop on a loaded host has missed, leaving no stats at all.
 """
 
 import logging
@@ -51,6 +54,9 @@ Event, Process = _mp.Event, _mp.Process
 log = logging.getLogger(__name__)
 
 STATS_PORT = 11001  # one-shot stats hand-off channel (reference :83-86)
+#: how long the parent waits, while the child lives, for its first stats
+#: message at shutdown (the child leaves its loop within one poll, then binds)
+STATS_FIRST_WAIT_S = 10.0
 #: a superseded stream's frame finder goes this long after its last message
 EVICT_S = 60.0
 
@@ -321,8 +327,10 @@ class Decoder(Process):
             sys.stdout.flush()
 
     def getVisualData(self):
-        """Collect the stats dicts the child pushes at shutdown
-        (call together with or after stop())."""
+        """Collect the stats dicts the child pushes at shutdown (call
+        together with or after stop(), in the parent): until 2 s pass
+        without one, and before the first one for as long as the child
+        lives, at most STATS_FIRST_WAIT_S."""
         import zmq
 
         ctx = zmq.Context()
@@ -332,11 +340,12 @@ class Decoder(Process):
         poller = zmq.Poller()
         poller.register(sock, zmq.POLLIN)
         data = []
+        deadline = time.time() + STATS_FIRST_WAIT_S
         while True:
             evts = poller.poll(2000)
             if evts and evts[0][1] == zmq.POLLIN:
                 data.append(sock.recv_pyobj())
-            else:
+            elif data or time.time() > deadline or not self.is_alive():
                 break
         sock.close()
         ctx.term()

@@ -183,6 +183,8 @@ def test_cc11xx_cli_raises_without_a_card():
 
 
 HARNESSES = ("hw_selfcheck", "ber", "ber_delta", "diversity", "streaming_rt")
+#: the timing harnesses
+TIMERS = ("profile_stages", "subsystems", "capture_probe", "scaling", "hw_leak_probe")
 
 HARNESS_HELP = r"""
 import json, runpy, sys
@@ -222,19 +224,20 @@ print(json.dumps({"raised": raised,
 
 
 def test_new_modules_load_without_jax():
-    """The numpy golden, the software front end and the station harnesses
-    are among the modules ``test_port_imports_no_jax`` loads without
-    ``jax`` or the JAX package."""
+    """The numpy golden, the software front end, the station harnesses and
+    the timing harnesses are among the modules ``test_port_imports_no_jax``
+    loads without ``jax`` or the JAX package."""
     res = _run(IMPORT_ALL)
     assert res["bad"] == []
     for name in ("pycusdr_tpu_torch.dsp.reference", "pycusdr_tpu_torch.frontend.sim_frontend",
                  "pycusdr_tpu_torch.bench") + tuple(f"pycusdr_tpu_torch.bench.{h}"
-                                                    for h in HARNESSES):
+                                                    for h in HARNESSES + TIMERS):
         assert name in res["modules"], name
 
 
 @pytest.mark.parametrize("name", [f"pycusdr_tpu_torch.bench.{h}" for h in HARNESSES]
-                         + ["pycusdr_tpu_torch.frontend.sim_frontend"])
+                         + ["pycusdr_tpu_torch.frontend.sim_frontend"]
+                         + [f"pycusdr_tpu_torch.bench.{h}" for h in TIMERS])
 def test_harness_help_imports_no_jax(name):
     """``python -m <harness> --help`` in a fresh interpreter loads neither
     ``jax`` nor the JAX package."""
@@ -250,3 +253,40 @@ def test_harness_entry_points_raise_without_a_card():
     writes a file."""
     res = _run(HARNESS_NO_CARD)
     assert res == {"raised": [True] * 6, "files_left": []}
+
+
+TIMERS_NO_CARD = r"""
+import json, os, tempfile
+from pycusdr_tpu_torch.bench import capture_probe, hw_leak_probe, profile_stages, scaling, subsystems
+from pycusdr_tpu_torch.configs import tiny_spec
+tmp = set(os.listdir(tempfile.gettempdir()))
+raised = []
+for call in (lambda: profile_stages.run_profile((1,), 1, spec=tiny_spec()),
+             lambda: profile_stages.main(["--spec", "tiny", "--batches", "1"]),
+             lambda: profile_stages.cuda_ms(lambda: None),
+             lambda: subsystems.channelizer_bench(M=8, taps_per_branch=4, n_samples=1024),
+             lambda: subsystems.tracking_bench(tiny_spec(), n_blocks=4),
+             lambda: subsystems.main(["--spec", "tiny"]),
+             lambda: capture_probe.run_probe(K=2, spec=tiny_spec()),
+             lambda: capture_probe.main(["--spec", "tiny"]),
+             lambda: scaling.sharded_per_chip_msps(tiny_spec(), n_channels=2),
+             lambda: scaling.run_scaling((1, 2), tiny_spec(), port=19940),
+             lambda: scaling.main(["--per-chip"]),
+             lambda: hw_leak_probe.run_probes(2, spec=tiny_spec()),
+             lambda: hw_leak_probe.main(["--iters", "2"])):
+    try:
+        call()
+        raised.append(False)
+    except RuntimeError as e:
+        raised.append("no CUDA device" in str(e))
+print(json.dumps({"raised": raised,
+                  "files_left": sorted(set(os.listdir(tempfile.gettempdir())) - tmp)}))
+"""
+
+
+def test_timing_harnesses_raise_without_a_card():
+    """The timing harnesses and their timer run on the card by default:
+    without one (and without the CPU asked for) each raises before it
+    measures, spawns a rank or writes a file."""
+    res = _run(TIMERS_NO_CARD)
+    assert res == {"raised": [True] * 13, "files_left": []}
