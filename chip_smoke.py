@@ -34,9 +34,13 @@ and then no result line is printed):
    32: every row split and the span and direct forms) on a ragged T and on
    T < K - 1 with a random carry, within 1e-5 of max|y|, the carry equal,
    two halves through the carry within 1e-5 of one call; K9's
-   wide form (the FIR kernel, then cuFFT across the branches) at (M, K) =
-   (2048, 8), (64, 40) and (4096, 2) with a random carry, within 1e-5 of
-   max|y| and through two half hops; K7 (the Viterbi
+   wide form (``csrc/channelizer_wide.cu``, one launch: ptxas's registers
+   and spills of its instantiations, each at its row of
+   ``k9_wide_layouts``) at (M, K, T) = (2048, 8, 2048), (64, 40, 65536),
+   (4096, 2, 1024), the largest M (16384, 8, 256) and T < K - 1 (64, 40,
+   16) with a random carry, within 1e-5 of max|y|, the carry equal, through
+   two half hops, one launch a call; its split form (the FIR kernel, then
+   cuFFT) above that M at (32768, 8, 128); K7 (the Viterbi
    trellis): ptxas's registers, stack and spills
    of its four instantiations (none may spill), then the kernel on
    hard, soft ±1/0 and soft random-float symbols, terminated and
@@ -199,7 +203,8 @@ and then no result line is printed):
       modes, STX at B=1 by stage: every stage row finite and clear of its
       bound, the prefix rows within 2% of the graph's busy time, the
       measured HBM and matmul roofs under 1.05 x the datasheet rates the
-      bounds use); ``bench.subsystems`` (the channelizer at M=64, K=8: tone
+      bounds use); ``bench.subsystems`` (the channelizer at M=64, K=8 and,
+      through K9's wide form, at M=2048, K=8 on a 2^22-sample hop: tone
       purity > 0.9; the tracker over 48 blocks at 10 dB locks);
       ``bench.capture_probe`` at K=32 (both routes' decisions and carries
       equal); ``bench.scaling`` (``--per-chip`` at C=16, auto and generic;
@@ -238,8 +243,9 @@ and then no result line is printed):
    phase 4q's seconds a step and streaming_rt's packets and arrivals;
    K9 at the wideband shape (M=64) and the vote's (M=4) with its two-call
    yardstick (grouped conv1d + torch.fft.fft), its wide form at the
-   three wide shapes, and its direct form at (1024, 8) and (512, 16)
-   beside the wide form at the same shapes; the
+   five wide shapes and its split form, each with that yardstick, and its
+   direct form at (1024, 8) and (512, 16) beside the wide form at the same
+   shapes; the
    wideband chain per hop against the signal a hop holds; the tracker's
    acquire and track graphs per block at B=1; K4l, K4s at nd = 1 and 2,
    and K4s's NRZ-S form on bench_BPSK, at B=1/16/64, and the generic step
@@ -434,6 +440,8 @@ KERNELS = {
     "vote": ("pycusdr_tpu_torch/csrc/vote.cu", "pycusdr_tpu/parallel/vote.py:18"),
     "channelize": ("pycusdr_tpu_torch/csrc/channelizer.cu",
                    "pycusdr_tpu/parallel/channelizer.py:43"),
+    "channelize_wide": ("pycusdr_tpu_torch/csrc/channelizer_wide.cu",
+                        "pycusdr_tpu/parallel/channelizer.py:43"),
     "symbol_detect_local": ("pycusdr_tpu_torch/csrc/shard_select.cu",
                             "pycusdr_tpu/parallel/sharded_demod.py:46"),
     "shard_select": ("pycusdr_tpu_torch/csrc/shard_select.cu",
@@ -483,11 +491,11 @@ PATH_KERNELS = {
     "harnesses": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
                   "symbol_detect"),
     # the timing harnesses (phase 4r): profile_stages (flagship and STX),
-    # subsystems (K9, the tracker), capture_probe, scaling (the vote; the
-    # generic step's K4l and K4s; the ranks of its world of two) and
-    # hw_leak_probe
+    # subsystems (K9, its wide form at M=2048, the tracker), capture_probe,
+    # scaling (the vote; the generic step's K4l and K4s; the ranks of its
+    # world of two) and hw_leak_probe
     "timers": ("doppler_energy", "doppler_estimate", "mf_bank_colreduce", "timing_band",
-               "symbol_detect", "threshold_input", "vote", "channelize",
+               "symbol_detect", "threshold_input", "vote", "channelize", "channelize_wide",
                "symbol_detect_local", "shard_select"),
 }
 
@@ -2958,9 +2966,10 @@ TIMERS_PORT = 12800
 TIMERS_TIMEOUT_S, TIMERS_BUDGET_S = 300.0, 90.0
 #: profile_stages: the flagship's batches (both modes), calls a timing
 PROFILE_BATCHES, PROFILE_T = (1, 16), 10
-#: subsystems: the channelizer's (M, taps a branch, samples a hop); the
-#: tracking pass (blocks, SNR dB) at tracking_conf's grid
-SUB_CHANNELIZER, SUB_TRACK = (64, 8, 2 ** 16), (48, 10.0)
+#: subsystems: the channelizer's (M, taps a branch, samples a hop), at the
+#: wideband path's shape and through K9's wide form; the tracking pass
+#: (blocks, SNR dB) at tracking_conf's grid
+SUB_CHANNELIZER, SUB_TRACK = ((64, 8, 2 ** 16), (2048, 8, 2 ** 22)), (48, 10.0)
 #: capture_probe's hops a call; scaling's channels a call (--per-chip) and
 #: its world sizes
 CAPTURE_K, SCALING_C, SCALING_WORLDS = 32, 16, (1, 2)
@@ -3030,16 +3039,20 @@ def run_timers(port0, card):
     prof = harness_step("profile_stages", profile, steps, "timers")
 
     def subsys():
-        M, K, n = SUB_CHANNELIZER
-        ch = subsystems.channelizer_bench(M, K, n, batches=(1, 4), T=10, device="cuda")
+        chs = [subsystems.channelizer_bench(M, K, n, batches=(1, 4) if i == 0 else (1,), T=10,
+                                            device="cuda")
+               for i, (M, K, n) in enumerate(SUB_CHANNELIZER)]
         tr = subsystems.tracking_bench(fspec, SUB_TRACK[0], snr_db=SUB_TRACK[1], T=20,
                                        device="cuda", **{k: tracking_conf()[k] for k in (
                                            "track_bins", "track_span_bins")})
-        return ch, tr
+        return chs, tr
 
-    ch, tr = harness_step("subsystems", subsys, steps, "timers")
-    say("timers", f"{card} | channelizer M={ch['M']} K={ch['taps_per_branch']} ({ch['form']}): "
-                  f"tone purity {ch['tone_purity']:.6f}; " + json.dumps(ch["throughput"]))
+    chs, tr = harness_step("subsystems", subsys, steps, "timers")
+    for ch in chs:
+        say("timers", f"{card} | channelizer M={ch['M']} K={ch['taps_per_branch']} "
+                      f"({ch['form']} form), {ch['n_samples']} samples a hop: tone purity "
+                      f"{ch['tone_purity']:.6f}; " + json.dumps(ch["throughput"]))
+    assert chs[1]["form"] == "wide", f"4r: the wide channelizer ran the {chs[1]['form']} form"
     say("timers", f"{card} | tracking {tr['n_blocks']} blocks at {tr['snr_db']:g} dB: first lock "
                   f"{tr['first_lock_block']}, lock fraction {tr['lock_fraction_after_first']:.3f}, "
                   f"median error {tr['median_err_bins']:.3f} bins; acquire "
@@ -3076,7 +3089,7 @@ def run_timers(port0, card):
     check_launches("timers", launches)
     total = sum(steps.values())
     assert total <= TIMERS_BUDGET_S, f"4r: {total:.1f} s, over its {TIMERS_BUDGET_S} s budget"
-    return dict(steps_s=steps, seconds=total, profile=prof, channelizer=ch, tracking=tr,
+    return dict(steps_s=steps, seconds=total, profile=prof, channelizer=chs, tracking=tr,
                 capture=cap, per_chip_msps=per, worlds=worlds, leak=leak, launches=launches,
                 launches_in_process=in_process)
 
@@ -3541,9 +3554,13 @@ def check_channelize_plan():
     return out
 
 
-#: K9's wide form (M > 1024 or K > 32): (M, K, T), each T M = 2^22 samples,
-#: the wideband hop's count
-K9_WIDE = ((2048, 8, 2048), (64, 40, 65536), (4096, 2, 1024))
+#: K9's wide form (M > 1024 or K > 32, one launch of csrc/channelizer_wide.cu):
+#: (M, K, T), each T M = 2^22 samples, the wideband hop's count, at the three
+#: shapes the old FIR-plus-cuFFT form was timed at, the largest M the form
+#: takes, and T < K - 1 (the carry holds old state rows)
+K9_WIDE = ((2048, 8, 2048), (64, 40, 65536), (4096, 2, 1024), (16384, 8, 256), (64, 40, 16))
+#: K9's split form above the wide form's largest M (the FIR kernel, then cuFFT)
+K9_SPLIT = ((32768, 8, 128),)
 #: K9's direct form (the fused kernel reading x through L1/L2 where two spans
 #: do not fit in shared memory), timed beside the wide form at the same
 #: (M, K, T), T M = 2^22
@@ -3558,28 +3575,42 @@ def k9_wide_inputs(M, K, T, seed=SEED + 19):
     return wb, x, st, pch.Channelizer(M, K, 9.0, device="cuda")
 
 
+def k9w_ptxas():
+    """ptxas's report of the wide form's instantiations: [(M, NT, MB, TT, C,
+    TR, span, registers, stack bytes, spill stores, spill loads)]."""
+    count = sum(1 + (row[-1] > 0) for row in pch.k9_wide_layouts().values())
+    return ptxas_report("channelizer_wide.cu", r"channelize_wideILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                        r"ELi(\d+)ELi(\d+)ELb([01])EE", count)
+
+
 def check_channelize_wide():
-    """K9's wide form against its plain version at K9_WIDE with a random
-    carry: y within K9_REL of max|y|, the carry equal; two half hops through
-    the carry within K9_REL of max|y| of one hop, the carry after them
-    equal. Returns [(M, K, T, relative err, halves' relative err)]."""
+    """K9's wide form at K9_WIDE and its split form at K9_SPLIT against the
+    plain version with a random carry: y within K9_REL of max|y|, the carry
+    equal; two half hops through the carry within K9_REL of max|y| of one
+    hop, the carry after them equal; a call one launch (``channelize``
+    counts one, ``channelize_wide`` one for the wide form). Returns [(M, K,
+    T, form, max abs err, relative err, halves' relative err)]."""
     out = []
-    for M, K, T in K9_WIDE:
-        assert not pch.k9_fused(M, K), f"K9 ({M}, {K}) is no wide shape"
+    for M, K, T in K9_WIDE + K9_SPLIT:
+        form = pch.k9_plan(M, K)["form"]
+        assert form == ("split" if (M, K, T) in K9_SPLIT else "wide"), \
+            f"K9 ({M}, {K}) takes the {form} form"
         _, x, st, ch = k9_wide_inputs(M, K, T)
+        before = pch.channelize.launches, pch.channelize_wide.launches
         yk, sk = pch.channelize(x, ch.h2, st)
+        counted = pch.channelize.launches - before[0], pch.channelize_wide.launches - before[1]
+        assert counted == (1, int(form == "wide")), f"K9 ({M}, {K}): launches counted {counted}"
         yp, sp = pch.channelize_plain(x, ch.h2, st)
-        half = x.numel() // 2
+        half = T // 2 * M
         y1, s1 = pch.channelize(x[:half], ch.h2, st)
         y2, s2 = pch.channelize(x[half:], ch.h2, s1)
         torch.cuda.synchronize()
-        scale = float(yp.abs().max())
-        rel = float((yk - yp).abs().max()) / scale
+        err, scale = float((yk - yp).abs().max()), float(yp.abs().max())
         rel_h = float((torch.cat([y1, y2], 1) - yp).abs().max()) / scale
-        tag = f"K9 wide M={M} K={K} T={T}"
-        assert rel <= K9_REL and rel_h <= K9_REL, f"{tag}: err {rel}, halves {rel_h}"
+        tag = f"K9 {form} M={M} K={K} T={T}"
+        assert err <= K9_REL * scale and rel_h <= K9_REL, f"{tag}: err {err / scale}, halves {rel_h}"
         assert torch.equal(sk, sp) and torch.equal(s2, sp), f"{tag}: the carry differs"
-        out.append((M, K, T, rel, rel_h))
+        out.append((M, K, T, form, err, err / scale, rel_h))
     return out
 
 
@@ -4088,16 +4119,21 @@ def k9_bound(wb, T):
     return bound_of(nbytes, (4 * K + 5 * math.log2(M)) * T * M)
 
 
-def time_k9(wb, N):
-    """K9 at M x N (kernel, plain version, device ms) beside its bound and
-    its two-call yardstick: a grouped ``conv1d`` over the branches and
-    ``torch.fft.fft`` across them, TF32 off (ms, relative err against K9)."""
+def time_k9(wb, N, seed=SEED + 9):
+    """K9 at M x N in the form ``k9_plan`` picks (kernel, plain version,
+    device ms: every __global__ of the form, the split form's FIR kernel
+    alone) beside its bound and its two-call yardstick: a grouped ``conv1d``
+    over the branches and ``torch.fft.fft`` across them, TF32 off (ms,
+    relative err against K9)."""
     M, K = wb["M"], wb["taps_per_branch"]
-    x, st = k9_inputs(wb, N)
+    x, st = k9_inputs(wb, N, seed)
     ch = pch.Channelizer(M, K, wb["beta"], device="cuda")
+    plan = pch.k9_plan(M, K)
+    kernel = {"wide": "channelize_wide", "split": "channelize_split"}.get(plan["form"],
+                                                                          "channelize")
     k9 = (cuda_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw)),
           cuda_ms(lambda: pch.channelize_plain(x, ch.h2, st), iters=5, reps=5),
-          device_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw), "channelize"))
+          device_ms(lambda: pch.channelize(x, ch.h2, st, tw=ch.tw), kernel))
     torch.backends.cudnn.allow_tf32 = False
     xin = torch.view_as_real(torch.cat([st, x.view(N, M)]).T.contiguous()).permute(2, 0, 1)
     xin = xin.contiguous()  # (2, M, N + K - 1) f32: re and im as two batches
@@ -4110,9 +4146,9 @@ def time_k9(wb, N):
     yk = pch.channelize(x, ch.h2, st, tw=ch.tw)[0]
     torch.cuda.synchronize()
     e = float((yardstick() - yk).abs().max()) / float(yk.abs().max())
-    assert e <= 1e-5, f"K9 yardstick disagrees with K9 at M={M}: {e}"
+    assert e <= 1e-5, f"K9 yardstick disagrees with K9 at M={M}, K={K}: {e}"
     return dict(k9=k9, k9_bound=k9_bound(wb, N), yardstick_ms=cuda_ms(yardstick),
-                yardstick_err=e, plan=pch.k9_plan(M, K))
+                yardstick_err=e, plan=plan)
 
 
 def time_slice5(wb, spec, tracker, xb):
@@ -4132,13 +4168,8 @@ def time_slice5(wb, spec, tracker, xb):
     centre = 3
     acq_ms = cuda_ms(lambda: tracker._acquire(xb[0]), iters=10)
     trk_ms = cuda_ms(lambda: tracker._track(xb[0], centre), iters=10)
-    wide = {}
-    for Mw, Kw, Tw in K9_WIDE:
-        wbw, xw, stw, chw = k9_wide_inputs(Mw, Kw, Tw)
-        wide[Mw, Kw, Tw] = (cuda_ms(lambda: pch.channelize(xw, chw.h2, stw)),
-                            cuda_ms(lambda: pch.channelize_plain(xw, chw.h2, stw), iters=5, reps=5),
-                            k9_bound(wbw, Tw),
-                            device_ms(lambda: pch.channelize(xw, chw.h2, stw), "channelize_wide"))
+    wide = {(Mw, Kw, Tw): time_k9({"M": Mw, "taps_per_branch": Kw, "beta": 9.0}, Tw, SEED + 19)
+            for Mw, Kw, Tw in K9_WIDE + K9_SPLIT}
     direct = {}
     for Md, Kd, Td in K9_DIRECT:
         assert pch.k9_plan(Md, Kd)["form"] == "direct", f"K9 ({Md}, {Kd}) is no direct shape"
@@ -4146,8 +4177,8 @@ def time_slice5(wb, spec, tracker, xb):
         direct[Md, Kd, Td] = (cuda_ms(lambda: pch.channelize(xd, chd.h2, std, tw=chd.tw)),
                               device_ms(lambda: pch.channelize(xd, chd.h2, std, tw=chd.tw),
                                         "channelize"),
-                              cuda_ms(lambda: pch.channelize_wide(xd, chd.h2, std)),
-                              device_ms(lambda: pch.channelize_wide(xd, chd.h2, std),
+                              cuda_ms(lambda: pch.channelize_wide(xd, chd.h2, std, tw=chd.tw)),
+                              device_ms(lambda: pch.channelize_wide(xd, chd.h2, std, tw=chd.tw),
                                         "channelize_wide"),
                               k9_bound(wbd, Td),
                               cuda_ms(lambda: pch.channelize_plain(xd, chd.h2, std), iters=5,
@@ -4520,10 +4551,21 @@ def main() -> int:
                        f"{[c[:3] for c in cases]} with a random carry: at most {worst[3]:.3e} of "
                        f"max|y| (bar {K9_REL}, at {worst[:3]}); carry equal; halves through the "
                        f"carry within the bar")
-    for M, K, T, rel, rel_h in check_channelize_wide():
-        say("kernels", f"K9 wide form (FIR kernel + cuFFT) vs plain OK at M={M}, K={K}, T={T} "
-                       f"with a random carry: {rel:.3e} of max|y| (bar {K9_REL}); carry equal; "
-                       f"two half hops through the carry {rel_h:.3e} of max|y| of one hop")
+    for M, NT, MB, TT, C, TR, span, regs, stack, st, ld in k9w_ptxas():
+        assert (NT, MB, TT, C, TR) == pch.k9_wide_layouts()[M][:5], \
+            f"K9 channelize_wide<{M}, {NT}, {MB}, {TT}, {C}, {TR}> is not k9_wide_layouts' row"
+        say("kernels", f"K9 channelize_wide<M={M}, NT={NT}, MB={MB}, TT={TT}, C={C}, TR={TR}, "
+                       f"span={span}> ptxas: {regs} registers, {stack} bytes stack frame, {st} "
+                       f"bytes spill stores, {ld} bytes spill loads")
+    for M, K, T, form, err, rel, rel_h in check_channelize_wide():
+        if form == "wide":
+            errs["channelize_wide"] = max(errs["channelize_wide"], err)
+        else:
+            errs["channelize"] = max(errs["channelize"], err)
+        say("kernels", f"K9 {form} form vs plain OK at M={M}, K={K}, T={T} with a random carry, "
+                       f"plan {pch.k9_plan(M, K)}: max abs err {err:.3e}, {rel:.3e} of max|y| (bar "
+                       f"{K9_REL}); carry equal; two half hops through the carry {rel_h:.3e} of "
+                       f"max|y| of one hop; one launch a call")
     for B in (1, 16):
         e1, e5 = check_recentre(fspec, consts["flagship"], B)
         errs["doppler_energy"] = max(errs["doppler_energy"], e1)
@@ -4713,8 +4755,10 @@ def main() -> int:
                 f"hw_leak_probe) through their entry points on the card: every stage row clear "
                 f"of its bound, the prefix rows within {100 * PREFIX_HELD:g}% of the graph's busy "
                 f"time, the roofs under the datasheet's; tone purity "
-                f"{r22['channelizer']['tone_purity']:.6f}; the tracker locked at block "
-                f"{r22['tracking']['first_lock_block']}; capture and scan decisions equal; "
+                + ", ".join(f"{c['tone_purity']:.6f} (M={c['M']}, {c['form']} form)"
+                            for c in r22["channelizer"])
+                + f"; the tracker locked at block {r22['tracking']['first_lock_block']}; capture "
+                f"and scan decisions equal; "
                 f"np_input {r22['leak']['np_input']:.2f} KB a transfer (the control "
                 f"{r22['leak']['kept_rows']:.2f} of its {r22['leak']['row_kb']:.1f} KB row); steps "
                 f"{json.dumps(r22['steps_s'])}, {r22['seconds']:.1f} s of steps, "
@@ -4811,20 +4855,26 @@ def main() -> int:
                      f"library_ms=null bound_ms={bms:.4g} ({by}) device_ms={dms:.5f}; yardstick "
                      f"(grouped conv1d + torch.fft.fft, TF32 off) {tk['yardstick_ms']:.5f} ms, "
                      f"rel err vs K9 {tk['yardstick_err']:.2e}")
-    for (Mw, Kw, Tw), (ms, pms, (bms, by), dms) in t5["k9_wide"].items():
-        assert min(ms, pms, dms) >= bms, f"K9 wide ({Mw}, {Kw}): a time is below bound_ms {bms}"
-        say("times", f"{card} | channelize wide form M={Mw} K={Kw} T={Tw}: ms={ms:.5f} "
+    for (Mw, Kw, Tw), tk in t5["k9_wide"].items():
+        (ms, pms, dms), (bms, by), form = tk["k9"], tk["k9_bound"], tk["plan"]["form"]
+        for v in (ms, pms, dms, tk["yardstick_ms"]):
+            assert v >= bms, f"K9 {form} ({Mw}, {Kw}): a time {v} is below bound_ms {bms}"
+        say("times", f"{card} | channelize {form} form M={Mw} K={Kw} T={Tw} "
+                     f"({tk['plan'].get('stage', 'FIR kernel + cuFFT')}): ms={ms:.5f} "
                      f"plain_ms={pms:.5f} library_ms=null bound_ms={bms:.4g} ({by}) "
-                     f"device_ms={dms:.5f} (the FIR kernel alone; ms includes cuFFT and the "
-                     f"transpose)")
+                     f"device_ms={dms:.5f} ("
+                     + ("one launch" if form == "wide" else "the FIR kernel alone; ms includes "
+                        "cuFFT and the transpose")
+                     + f"); {100 * bms / dms:.1f}% of the bound; yardstick (grouped conv1d + "
+                     f"torch.fft.fft, TF32 off) {tk['yardstick_ms']:.5f} ms, rel err vs K9 "
+                     f"{tk['yardstick_err']:.2e}")
     for (Md, Kd, Td), (ms, dms, wms, wdms, (bms, by), pms) in t5["k9_direct"].items():
         assert min(ms, dms, wms, wdms, pms) >= bms, \
             f"K9 direct ({Md}, {Kd}): a time is below {bms}"
         say("times", f"{card} | channelize direct form M={Md} K={Kd} T={Td}: ms={ms:.5f} "
                      f"plain_ms={pms:.5f} "
-                     f"device_ms={dms:.5f}; the wide form at the same shape ms={wms:.5f} (its "
-                     f"FIR kernel {wdms:.5f} device ms, then cuFFT and the transpose); "
-                     f"bound_ms={bms:.4g} ({by})")
+                     f"device_ms={dms:.5f}; the wide form at the same shape ms={wms:.5f}, "
+                     f"device_ms={wdms:.5f}; bound_ms={bms:.4g} ({by})")
     hop_ms = 1e3 * fspec.Nfft / fspec.sampleRate
     say("times", f"{card} | wideband chain (K9 + step C={wb['M']}, vote off) "
                  f"{t5['chain_ms']:.4f} ms per hop of {wb['M']} x {fspec.Nfft} samples "
@@ -4912,9 +4962,14 @@ def main() -> int:
                        f"{wall:.4f} ms/call, device busy {busy:.4f} ms/call, idle {idle}; {n} "
                        f"kernel names, top (ms/call): {tops}")
 
+    def k9_row(tk):
+        (ms, pms, dms), (bms, by) = tk["k9"], tk["k9_bound"]
+        return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "device_ms": dms, "yardstick_ms": tk["yardstick_ms"], "plan": tk["plan"]}
+
     kernels = []
     for k, (src, replaces) in KERNELS.items():
-        by_path = {p: res[p]["launches"][k] for p in res}
+        by_path = {p: res[p]["launches"].get(k, 0) for p in res}
         if k in t6:
             t = t6[k][1] if k == "shard_select" else t6[k]
             ms, pms, (bms, by), dms = t[LINE_BATCH]
@@ -4965,14 +5020,25 @@ def main() -> int:
                     "plain_ms": t5["vote"]["k9"][1], "device_ms": t5["vote"]["k9"][2],
                     "bound_ms": t5["vote"]["k9_bound"][0], "bound_by": t5["vote"]["k9_bound"][1],
                     "yardstick_ms": t5["vote"]["yardstick_ms"]},
-                "wide_form": {f"M={Mw} K={Kw} T={Tw}": {
-                    "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0], "bound_by": v[2][1],
-                    "device_ms": v[3]} for (Mw, Kw, Tw), v in t5["k9_wide"].items()},
+                "split_form": {f"M={Mw} K={Kw} T={Tw}": k9_row(tk)
+                               for (Mw, Kw, Tw), tk in t5["k9_wide"].items()
+                               if tk["plan"]["form"] == "split"},
                 "direct_form": {f"M={Md} K={Kd} T={Td}": {
                     "ms": v[0], "device_ms": v[1], "wide_form_ms": v[2],
-                    "wide_form_fir_device_ms": v[3], "bound_ms": v[4][0], "bound_by": v[4][1],
+                    "wide_form_device_ms": v[3], "bound_ms": v[4][0], "bound_by": v[4][1],
                     "plain_ms": v[5]}
                     for (Md, Kd, Td), v in t5["k9_direct"].items()}})
+            continue
+        if k == "channelize_wide":
+            line = t5["k9_wide"][K9_WIDE[0]]
+            kernels.append({
+                "name": k, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": errs[k], **k9_row(line),
+                "shape": "M={} K={} T={}".format(*K9_WIDE[0]),
+                "shapes": {f"M={Mw} K={Kw} T={Tw}": k9_row(tk)
+                           for (Mw, Kw, Tw), tk in t5["k9_wide"].items()
+                           if tk["plan"]["form"] == "wide"}})
             continue
         if k == "viterbi":
             ms, pms, (bms, by), _, _ = vt[1]

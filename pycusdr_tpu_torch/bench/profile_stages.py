@@ -101,14 +101,15 @@ KERNEL_FUNCS = {
     "symbol_detect_nrzs": ("symbol_detect",),
     "vote": ("vote",),
     "channelize": ("channelize",),
-    "channelize_wide": ("channelize_fir",),
+    "channelize_wide": ("channelize_wide",),
+    "channelize_split": ("channelize_fir",),
     "symbol_detect_local": ("symbol_detect_local",),
     "shard_select": ("shard_select",),
     "shard_select_nrzs": ("shard_select",),
 }
 
 #: the wrapper that launches a KERNEL_FUNCS entry, where its name differs
-KERNEL_WRAPPER = {"channelize_wide": "channelize", "threshold_long": "threshold_input",
+KERNEL_WRAPPER = {"channelize_split": "channelize", "threshold_long": "threshold_input",
                   "mf_bank_multipass": "mf_bank_colreduce"}
 
 #: the block graph's kernels with a Doppler search (the flagship) and without

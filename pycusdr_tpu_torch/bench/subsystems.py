@@ -48,7 +48,8 @@ def channelizer_bench(M: int = 64, taps_per_branch: int = 8, n_samples: int = 65
     purity = float(energy[c] / energy.sum())
     assert purity > 0.9, f"tone leaked across channels (purity {purity:.3f})"
 
-    kernel = "channelize_wide" if k9_plan(M, taps_per_branch)["form"] == "wide" else "channelize"
+    form = k9_plan(M, taps_per_branch)["form"]
+    kernel = {"wide": "channelize_wide", "split": "channelize_split"}.get(form, "channelize")
     rng = np.random.RandomState(0)
     rows = {}
     for B in batches:
@@ -62,7 +63,7 @@ def channelizer_bench(M: int = 64, taps_per_branch: int = 8, n_samples: int = 65
                                    if dev.type == "cuda" else None),
         }
     return {"M": M, "taps_per_branch": taps_per_branch, "n_samples": n_samples,
-            "tone_purity": purity, "form": k9_plan(M, taps_per_branch)["form"],
+            "tone_purity": purity, "form": form,
             "throughput": rows, "device": str(dev), "card": card_line(dev)}
 
 

@@ -70,14 +70,15 @@
 // MS, MSV and TTP are the least pads with the fewest bank conflicts for the
 // lanes' 8-byte accesses (tests/test_torch_channelizer_plan.py models them).
 //
-// The wide form (pycusdr_channelize_fir) takes the banks the fused tile
-// cannot hold, M > 1024 or K > 32: one thread per v[t, p], p fastest, the
-// same K-tap sum in the same order, the taps read through L1 (__ldg: a
-// warp reads 32 consecutive taps of one k), so K and M are unbounded. It
-// writes v (T, M); the M-point DFT across the branches is then a plain
-// transform with nothing fused into it, which the wrapper leaves to cuFFT
-// (torch.fft.fft over the rows, then the transpose to channel-major), and
-// the wrapper copies the carry.
+// The wide form (M > 1024 or K > 32, up to M = 16384) is one launch of its
+// own kernel, channelizer_wide.cu. Above that M the split form runs
+// pycusdr_channelize_fir: one thread per v[t, p], p fastest, the same K-tap
+// sum in the same order, the taps read through L1 (__ldg: a warp reads 32
+// consecutive taps of one k), so K and M are unbounded. It writes v (T, M);
+// the M-point DFT across the branches is then a plain transform with nothing
+// fused into it, which the wrapper leaves to cuFFT (torch.fft.fft over the
+// rows, then the transpose to channel-major), and the wrapper copies the
+// carry.
 #include "common.cuh"
 
 namespace {
@@ -505,7 +506,7 @@ PYCUSDR_API int pycusdr_channelize(const float2* x, const float2* state, const f
     return dispatch(Args{x, state, h2, tw, y, carry, T, M, K}, stream);
 }
 
-// The wide form's FIR: v (T, M) complex64 (see channelize_fir), any power-of-two
+// The split form's FIR: v (T, M) complex64 (see channelize_fir), any power-of-two
 // M and any K >= 1; the wrapper runs the DFT across the branches.
 PYCUSDR_API int pycusdr_channelize_fir(const float2* x, const float2* state, const float* h2,
                                        float2* v, int T, int M, int K, cudaStream_t stream) {

@@ -26,7 +26,7 @@ def kernel_wrappers() -> dict:
     )
     from pycusdr_tpu_torch.ops.doppler_search import doppler_energy, doppler_estimate
     from pycusdr_tpu_torch.ops.viterbi import viterbi_sweep
-    from pycusdr_tpu_torch.parallel.channelizer import channelize
+    from pycusdr_tpu_torch.parallel.channelizer import channelize, channelize_wide
     from pycusdr_tpu_torch.parallel.vote import vote_rows
 
     return {"doppler_energy": doppler_energy, "mf_bank_colreduce": mf_bank_colreduce,
@@ -34,7 +34,8 @@ def kernel_wrappers() -> dict:
             "symbol_detect_nrzs": symbol_detect_nrzs,
             "doppler_estimate": doppler_estimate, "threshold_input": threshold_input,
             "viterbi": viterbi_sweep, "vote": vote_rows,
-            "channelize": channelize, "symbol_detect_local": symbol_detect_local,
+            "channelize": channelize, "channelize_wide": channelize_wide,
+            "symbol_detect_local": symbol_detect_local,
             "shard_select": shard_select, "shard_select_nrzs": shard_select_nrzs}
 
 

@@ -68,6 +68,8 @@ SIGNATURES = {
     "pycusdr_vote": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, state|NULL, h2, tw, y, carry, T, M, K, stream
     "pycusdr_channelize": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, state|NULL, h2, tw, y, carry, T, M, K, stream
+    "pycusdr_channelize_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, state|NULL, h2, v, T, M, K, stream
     "pycusdr_channelize_fir": [_P, _P, _P, _P, _I, _I, _I, _P],
     # colmax, colargmax, spSym, codeOffset, pair, B, N, W, spsymMin, S, M, m0, threads, spt,

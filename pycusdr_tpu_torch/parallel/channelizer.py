@@ -10,7 +10,8 @@ centred at m·fs/M:
     y[m, t] = sum_p v[t, p] · e^{-2πi p m / M}
 
 ``channelize_plain`` is the plain PyTorch version; ``channelize`` is K9's
-wrapper (``csrc/channelizer.cu``), which counts its launches. The
+wrapper (``csrc/channelizer.cu``, the fused form, and
+``csrc/channelizer_wide.cu``, the wide form), which counts its launches. The
 (M, T) complex64 output is channel-major and contiguous: the (B = M,
 Nfft = T) batch that ``parallel.build_sharded_demod_step`` takes with no
 copy. ``design_prototype`` and ``channelize_numpy`` are copies of the JAX
@@ -30,8 +31,10 @@ from pycusdr_tpu_torch.ops.demod_kernels import twiddle_table
 #: the carry) takes power-of-two M up to this many branches ...
 K9_FUSED_MAX_M = 1024
 #: ... and up to this many taps per branch; a wider bank takes the wide form
-#: (the FIR kernel, then cuFFT across the branches), so K9 as a whole takes
-#: any power-of-two M and any K >= 1, as JAX's channelizer does
+#: (one launch too: the DFT in shared memory) up to the last M of its layout
+#: table (``k9_wide_layouts``), and a wider one the split form (the FIR
+#: kernel, then cuFFT across the branches), so K9 as a whole takes any
+#: power-of-two M and any K >= 1, as JAX's channelizer does
 K9_FUSED_MAX_K = 32
 #: threads of a fused-form CTA (``csrc/channelizer.cu:kThreads``)
 K9_THREADS = 256
@@ -86,12 +89,36 @@ def k9_layouts() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def k9_plan(M: int, K: int) -> dict:
-    """K9's launch plan, a function of (M, K) alone (``csrc/channelizer.cu``).
+def k9_wide_layouts() -> dict:
+    """The wide form's layout at each M, {M: (NT, MB, TT, C, TR, KS)}: the rows
+    of ``kWideLayouts`` in ``csrc/channelizer_wide.cu``, which the kernel is
+    compiled from."""
+    text = (_lib.CSRC / "channelizer_wide.cu").read_text()
+    table = text.split("constexpr WideLayout kWideLayouts[] = {", 1)[1].split("};", 1)[0]
+    rows = [tuple(int(v) for v in row.split(","))
+            for row in re.findall(r"\{\s*(\d+(?:\s*,\s*\d+){6})\s*\}", table)]
+    return {row[0]: row[1:] for row in rows}
 
-    Form "wide" (M > 1024 or K > 32): the FIR kernel, then cuFFT across
-    the branches. Otherwise one launch of the fused kernel at M's row of
-    ``k9_layouts``:
+
+@functools.lru_cache(maxsize=None)
+def k9_wide_max_m() -> int:
+    """The largest M the wide form takes (its layout table's last row)."""
+    return max(k9_wide_layouts())
+
+
+def k9_radices(M: int) -> tuple:
+    """The wide form's Stockham passes across the branches: log2 M = 4 q +
+    e, a radix-2^e pass first where e > 0, then q of radix 16."""
+    q, e = divmod(M.bit_length() - 1, 4)
+    return ((1 << e,) if e else ()) + (16,) * q
+
+
+@functools.lru_cache(maxsize=None)
+def k9_plan(M: int, K: int) -> dict:
+    """K9's launch plan, a function of (M, K) alone.
+
+    Up to M = 1024 and K = 32 one launch of the fused kernel
+    (``csrc/channelizer.cu``) at M's row of ``k9_layouts``:
     - the DFT in registers (``dft``: "registers", every M): a row in ``G``
       lanes of ``V`` values, ``P`` rows a lane (2 at M = 64), ``TT`` =
       256 P / G rows a tile (64 at M = 64: 512-byte runs of each channel);
@@ -101,10 +128,31 @@ def k9_plan(M: int, K: int) -> dict:
       (``MSV``) and of the output tile (``TTP``);
     - form "span" up to the row's KS taps a branch (two staged spans of TT
       + K - 1 rows fit in a CTA's shared memory), else "direct" (x read
-      through L1/L2)."""
+      through L1/L2).
+
+    Form "wide" (M > 1024 or K > 32, up to ``k9_wide_max_m``): one launch of
+    ``csrc/channelizer_wide.cu`` at M's row of ``k9_wide_layouts``: ``NT``
+    threads a CTA, ``MB`` CTAs an SM, a tile of ``TT`` rows and every
+    branch a CTA; its FIR in ``chunks`` chunks of ``C`` branches, each
+    staged two chunks ahead: ``stage`` "span" (a chunk's TT + K - 1 rows of
+    xp, up to the row's KS taps) or "rows" (its TT rows; the K - 1 older
+    rows read from L2); the taps resident (``TR`` 1) or staged with each
+    chunk (0); FIR jobs of ``R`` rows of one branch, ``jobs`` a chunk; the
+    DFT in shared memory (``dft``: "smem") as Stockham passes of
+    ``radices``, at most ``values`` values a thread; the store in runs of
+    ``run`` rows (``run_bytes`` bytes) of each channel.
+
+    Form "split" (M above ``k9_wide_max_m``): the FIR kernel, then cuFFT
+    across the branches."""
     k9_check_shape(M, K)
     if not k9_fused(M, K):
-        return dict(form="wide", dft="cuFFT")
+        if M > k9_wide_max_m():
+            return dict(form="split", dft="cuFFT")
+        NT, MB, TT, C, TR, KS = k9_wide_layouts()[M]
+        R = min(TT, 4 if NT * MB >= 1024 else 8)
+        return dict(form="wide", stage="span" if K <= KS else "rows", dft="smem", NT=NT, MB=MB,
+                    TT=TT, C=C, chunks=M // C, TR=TR, R=R, jobs=C * (TT // R),
+                    radices=k9_radices(M), values=TT * M // NT, run=TT, run_bytes=8 * TT)
     G, V, P, MS, MSV, TTP, KS = k9_layouts()[M]
     TT = K9_THREADS // G * P
     BR = max(1, M // K9_THREADS)
@@ -121,7 +169,7 @@ def _rows(x: torch.Tensor, M: int) -> int:
 
 def _new_state(x: torch.Tensor, state: torch.Tensor, T: int, K: int, M: int) -> torch.Tensor:
     """The last K-1 rows of [state; x]: the carry into the next call (the
-    wide form's; the fused kernel writes its own)."""
+    split form's; the fused and wide kernels write their own)."""
     xm = x.view(T, M)
     if T >= K - 1:
         return xm[T - (K - 1):].clone()
@@ -146,17 +194,10 @@ def channelize_plain(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = No
     return torch.fft.fft(v, dim=1).T.contiguous(), xp[T:].clone()
 
 
-def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
-               tw: torch.Tensor = None):
-    """K9: the channelizer (arguments and outputs as ``channelize_plain``;
-    ``tw``: the (M, 2) ``twiddle_table(M)``, built when None). A CPU tensor
-    takes the plain version; a CUDA tensor launches ``csrc/channelizer.cu``
-    or raises (``k9_check_shape``): it never gives way to the plain version.
-    Up to M = 1024 and K = 32 one fused launch (``k9_plan``) writes y and
-    the new carry; a wider bank takes the wide form (``channelize_wide``).
-    Either form counts one launch."""
-    if x.device.type == "cpu":
-        return channelize_plain(x, h2, state)
+def _checked(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor):
+    """(T, M, K) of a K9 call on CUDA tensors, after the checks of what the
+    kernels take (``k9_check_shape``, types, shapes, one device,
+    contiguity); raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"channelize: unsupported device {x.device}")
     K, M = h2.shape
@@ -166,28 +207,68 @@ def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
     _lib.check(h2, "h2", torch.float32, (K, M), x.device)
     if state is not None:
         _lib.check(state, "state", torch.complex64, (K - 1, M), x.device)
-    if not k9_fused(M, K):
-        return channelize_wide(x, h2, state)
+    return T, M, K
+
+
+def _launch(entry: str, x, h2, state, tw, T: int, M: int, K: int):
+    """One launch of a one-launch form (``entry``: its C entry point): y and
+    the carry, both written by the kernel. ``channelize.launches`` counts
+    every K9 launch; ``channelize_wide.launches`` the wide kernel's too."""
     if tw is None:
         tw = twiddle_table(M, x.device)
     _lib.check(tw, "tw", torch.float32, (M, 2), x.device)
     y = torch.empty((M, T), dtype=torch.complex64, device=x.device)
     carry = torch.empty((K - 1, M), dtype=torch.complex64, device=x.device)
-    _lib.launch("pycusdr_channelize", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2), _lib.ptr(tw),
-                _lib.ptr(y), _lib.ptr(carry), T, M, K)
+    _lib.launch(entry, _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2), _lib.ptr(tw), _lib.ptr(y),
+                _lib.ptr(carry), T, M, K)
     channelize.launches += 1
+    if entry == "pycusdr_channelize_wide":
+        channelize_wide.launches += 1
     return y, carry
+
+
+def channelize(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
+               tw: torch.Tensor = None):
+    """K9: the channelizer (arguments and outputs as ``channelize_plain``;
+    ``tw``: the (M, 2) ``twiddle_table(M)``, built when None). A CPU tensor
+    takes the plain version; a CUDA tensor launches the form ``k9_plan``
+    names or raises (``_checked``): it never gives way to the plain version.
+    The fused and the wide form are one launch each, which writes y and the
+    new carry; the split form (M above ``k9_wide_max_m``) is ``_split``.
+    Every form counts one launch."""
+    if x.device.type == "cpu":
+        return channelize_plain(x, h2, state)
+    T, M, K = _checked(x, h2, state)
+    if k9_fused(M, K):
+        return _launch("pycusdr_channelize", x, h2, state, tw, T, M, K)
+    if M > k9_wide_max_m():
+        return _split(x, h2, state, T, M, K)
+    return _launch("pycusdr_channelize_wide", x, h2, state, tw, T, M, K)
 
 
 channelize.launches = 0
 
 
-def channelize_wide(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None):
-    """K9's wide form on CUDA tensors at any (M, K) (``channelize`` checks
-    them): the FIR kernel writes v (T, M), ``torch.fft.fft`` runs across the
+def channelize_wide(x: torch.Tensor, h2: torch.Tensor, state: torch.Tensor = None,
+                    tw: torch.Tensor = None):
+    """K9's wide form (``csrc/channelizer_wide.cu``) on CUDA tensors at any
+    power-of-two M up to ``k9_wide_max_m`` and any K, the fused form's
+    shapes too (``chip_smoke.py`` times the two side by side there).
+    Arguments and outputs as ``channelize``; one launch, counted in
+    ``channelize.launches`` and ``channelize_wide.launches``."""
+    T, M, K = _checked(x, h2, state)
+    if M > k9_wide_max_m():
+        raise ValueError(f"channelize_wide: M={M} above {k9_wide_max_m()}")
+    return _launch("pycusdr_channelize_wide", x, h2, state, tw, T, M, K)
+
+
+channelize_wide.launches = 0
+
+
+def _split(x, h2, state, T: int, M: int, K: int):
+    """K9's split form (M above ``k9_wide_max_m``): the FIR kernel
+    (``channelize_fir``) writes v (T, M), ``torch.fft.fft`` runs across the
     branches and ``_new_state`` copies the carry. Counts one launch."""
-    K, M = h2.shape
-    T = _rows(x, M)
     v = torch.empty((T, M), dtype=torch.complex64, device=x.device)
     _lib.launch("pycusdr_channelize_fir", _lib.ptr(x), _lib.ptr(state), _lib.ptr(h2),
                 _lib.ptr(v), T, M, K)

@@ -3,8 +3,10 @@ the JAX package's ``Channelizer`` and the numpy golden, with the bars of
 ``tests/test_channelizer.py``: max|Δ|/max|ref| < 1e-5 against both, the
 streaming halves against one shot within rtol 1e-4, atol 1e-5, the tone
 routing at M=64, the taps equal bit for bit, the carry handed over by
-``convert.channelizer_from_jax``, and the channelizer into the port's
-channel-parallel step against JAX's step on the same wideband capture."""
+``convert.channelizer_from_jax``, a numpy model of K9's wide form (the
+kernel's tiles, staged chunks, FIR ring, Stockham passes, store order and
+carry) against JAX, and the channelizer into the port's channel-parallel
+step against JAX's step on the same wideband capture."""
 
 import dataclasses
 
@@ -22,7 +24,9 @@ from pycusdr_tpu.parallel.channelizer import design_prototype as jax_design_prot
 from pycusdr_tpu.protocol import loadProtocol as jax_loadProtocol
 from pycusdr_tpu_torch import configs
 from pycusdr_tpu_torch.convert import channelizer_from_jax, spec_from_numpy
+from pycusdr_tpu_torch.ops.demod_kernels import twiddle_table
 from pycusdr_tpu_torch.parallel import Channelizer, build_sharded_demod_step, make_mesh
+from pycusdr_tpu_torch.parallel import channelizer as pch
 from pycusdr_tpu_torch.parallel.channelizer import (
     channelize,
     channelize_numpy,
@@ -126,51 +130,172 @@ def test_unsupported_shapes_raise(M, K):
         assert not k9_fused(M, K)
 
 
-def k9_wide_model(x, h2, state):
-    """A numpy model of K9's wide form (``csrc/channelizer.cu``,
-    ``channelize_fir``): thread i takes v[t, p] with t = i // M and p = i % M;
-    its k-th tap reads row r = t + K-1-k of [state; x], from ``state`` below
-    K-1 and from x at r - (K-1) above, with the tap h2[k, p] from a flat
-    (K M,) array, and adds in k order in f32; then the DFT across the
-    branches (cuFFT's in the wrapper, numpy's here) and the transpose."""
+def _pad(i):
+    """Element i of a padded shared-memory buffer (``csrc/channelizer_wide.cu:pad``)."""
+    return i + (i >> 4)
+
+
+def _wide_twiddles(M):
+    """Every pass's twiddle table as the kernel stages it (``stage_twiddles``),
+    from the float64-built table: [(radix, Ns, table)]; table[(r - 1) Ns + k]
+    up to Ns = 16, else a [r - 1][k mod 16] part and a [r - 1][k div 16] part."""
+    tw = twiddle_table(M, "cpu").numpy()
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    out, ns = [], 1
+    for R in pch.k9_radices(M):
+        step = M // (ns * R) if ns > 1 else 0
+        if ns == 1:
+            tab = None
+        elif ns <= 16:
+            tab = np.array([np.conj(tw[r * k * step]) for r in range(1, R) for k in range(ns)])
+        else:
+            lo = [np.conj(tw[r * kl * step]) for r in range(1, R) for kl in range(16)]
+            hi = [np.conj(tw[r * 16 * kh * step]) for r in range(1, R) for kh in range(ns // 16)]
+            tab = (np.array(lo, np.complex64), np.array(hi, np.complex64))
+        out.append((R, ns, tab))
+        ns *= R
+    return out
+
+
+def _wide_passes(W, M, TT, passes):
+    """The Stockham passes over the TT rows of the padded tile W, in place:
+    pass s reads each job's R values j + r M / R of its row, twiddles them,
+    takes the R-point DFT and writes them to (j - k) R + k + r Ns (k = j mod
+    Ns), the last pass channel-major at m TT + row."""
+    for R, ns, tab in passes:
+        NB = M // R
+        u = np.arange(TT * NB)
+        row, j = u // NB, u % NB
+        k = j % ns
+        a = np.stack([W[_pad(row * M + j + r * NB)] for r in range(R)])  # (R, jobs)
+        if ns > 1:
+            for r in range(1, R):
+                if ns <= 16:
+                    w = tab[(r - 1) * ns + k]
+                else:
+                    w = tab[0][(r - 1) * 16 + (k & 15)] * tab[1][(r - 1) * (ns // 16) + (k >> 4)]
+                a[r] = (a[r] * w).astype(np.complex64)
+        a = np.fft.fft(a.astype(np.complex128), axis=0).astype(np.complex64)
+        last = ns * R == M
+        for r in range(R):
+            i = (j + r * ns) * TT + row if last else row * M + (j - k) * R + k + r * ns
+            W[_pad(i)] = a[r]
+    return W
+
+
+def k9w_model(x, h2, state, grid=3):
+    """A numpy model of K9's wide form (``csrc/channelizer_wide.cu``) at
+    ``k9_plan``'s layout, CTA by CTA of a grid of ``grid``: tiles of TT rows
+    grid-strided; each tile's FIR chunk by chunk of C branches, a chunk's
+    rows staged (span: TT + K - 1 rows of xp, zeros past the end; rows: TT
+    rows, the K - 1 older read from xp), jobs of R rows of one branch
+    sliding a ring of R rows in f32 in k order into the padded tile W at
+    row-major q M + c C + p; the passes; the store of a tile in parts, part
+    c (flat indices q M + c C + p, channel-major: y[m, t0 + t] at m TT + t)
+    before the CTA's next tile writes chunk c, the last tile's at the end;
+    the carry. W lives from tile to tile with NaN where never written.
+    Returns (y (M, T), carry, how many times each y was written)."""
     K, M = h2.shape
     T = len(x) // M
-    i = np.arange(T * M)
-    t, p = i // M, i % M
-    re = np.zeros(T * M, np.float32)
-    im = np.zeros(T * M, np.float32)
-    taps = h2.reshape(-1)
-    for k in range(K):
-        r = t + (K - 1 - k)
-        head = r < K - 1
-        xv = np.where(head, state.reshape(-1)[np.where(head, r, 0) * M + p],
-                      x[np.where(head, 0, r - (K - 1)) * M + p])
-        h = taps[k * M + p]
-        re = (re + (h * xv.real.astype(np.float32))).astype(np.float32)
-        im = (im + (h * xv.imag.astype(np.float32))).astype(np.float32)
-    v = (re + 1j * im).reshape(T, M)
-    return np.fft.fft(v, axis=1).T, np.concatenate([state, x.reshape(T, M)])[T:]
+    plan = pch.k9_plan(M, K)
+    assert plan["form"] == "wide"
+    TT, C, R, span = plan["TT"], plan["C"], plan["R"], plan["stage"] == "span"
+    taps = h2.astype(np.float32)
+    st = np.zeros((K - 1, M), np.complex64) if state is None else state
+    xp = np.concatenate([st, x.reshape(T, M), np.zeros((TT + K, M), np.complex64)])
+    passes = _wide_twiddles(M)
+    ntiles = -(-T // TT)
+    y = np.full((M, T), np.nan, np.complex64)
+    written = np.zeros((M, T), int)
+
+    def store(W, tp, c):
+        u = np.arange(TT * C)
+        i = u // C * M + c * C + u % C
+        m, t = i // TT, i % TT
+        ok = tp + t < T
+        y[m[ok], tp + t[ok]] = W[_pad(i[ok])]
+        np.add.at(written, (m[ok], tp + t[ok]), 1)
+
+    for cta in range(min(grid, ntiles)):
+        W = np.full(_pad(TT * M) + 2, np.nan, np.complex64)
+        prev = None
+        for ct in range(cta, ntiles, min(grid, ntiles)):
+            t0 = ct * TT
+            for c in range(M // C):
+                if prev is not None:
+                    store(W, prev, c)
+                cols = slice(c * C, c * C + C)
+                S = xp[t0:t0 + TT + K - 1, cols] if span else xp[t0 + K - 1:t0 + K - 1 + TT, cols]
+                p = np.arange(C)
+                for q0 in range(0, TT, R):
+                    def own(i):
+                        return S[q0 + K - 1 + i] if span else S[q0 + i]
+
+                    def older(q):
+                        if span:
+                            return S[q0 + q]
+                        return S[q0 + q - (K - 1)] if q0 + q >= K - 1 else xp[t0 + q0 + q, cols]
+
+                    ring = [own(i) for i in range(R)]
+                    re = np.zeros((R, C), np.float32)
+                    im = np.zeros((R, C), np.float32)
+                    for k0 in range(0, K, R):
+                        nw = [older(K - 1 - (k0 + u)) if 0 < k0 + u < K else None
+                              for u in range(R)]
+                        for u in range(R):
+                            k = k0 + u
+                            if k >= K:
+                                break
+                            if k > 0:
+                                ring[(R - u) % R] = nw[u]
+                            h = taps[k, cols]
+                            for i in range(R):
+                                v = ring[(i - u) % R]
+                                re[i] = re[i] + h * v.real.astype(np.float32)
+                                im[i] = im[i] + h * v.imag.astype(np.float32)
+                    for i in range(R):
+                        W[_pad((q0 + i) * M + c * C + p)] = re[i] + 1j * im[i]
+            _wide_passes(W, M, TT, passes)
+            prev = t0
+        for c in range(M // C):
+            store(W, prev, c)
+    return y, xp[T:T + K - 1].copy(), written
 
 
-@pytest.mark.parametrize("M,K,T", [(2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
+#: (M, K, T): the three shapes the old wide form was modelled at, the
+#: largest M the wide form takes, T < K - 1 (the carry holds state rows),
+#: and K past the span stage of M = 2048 (the rows stage)
+K9W_CASES = [(2048, 8, 16), (64, 40, 64), (4096, 2, 8), (16384, 8, 4), (64, 40, 16),
+             (2048, 9, 12)]
+
+
+@pytest.mark.parametrize("M,K,T", K9W_CASES)
 def test_wide_form_index_map(M, K, T):
-    """K9's wide form, modelled in numpy, on a stream cut in halves (the
-    second half reads the carried head rows): each half within 1e-5 of max|y|
-    of the numpy golden's and JAX's one-shot run, the carry equal to JAX's."""
+    """K9's wide form, modelled in numpy (``k9w_model``), on a stream cut in
+    halves (the second half reads the carried rows) and in one shot: each
+    within 1e-5 of max|y| of the numpy golden's and JAX's one-shot run,
+    every y written once (no NaN of an unwritten tile slot reaches y), the
+    carries equal to JAX's and to the plain version's."""
     x = _noise(M * T, M + K + 1)
     h2 = design_prototype(M, K).reshape(K, M).astype(np.float32)
     golden = channelize_numpy(x, M, K)
-    jy, _ = JaxChannelizer(M, K, jit=False)(c2ri(x))
+    jch = JaxChannelizer(M, K, jit=False)
+    jy, jst = jch(c2ri(x))
     jy = ri2c(np.asarray(jy))
-    st = np.zeros((K - 1, M), np.complex64)
-    h = T // 2
-    y1, st = k9_wide_model(x[:h * M], h2, st)
-    y2, st = k9_wide_model(x[h * M:], h2, st)
-    y = np.concatenate([y1, y2], axis=1)
-    assert _rel(y, golden) < REL
-    assert _rel(y, jy) < REL
-    _, jst = JaxChannelizer(M, K, jit=False)(c2ri(x))
+    y, st, n = k9w_model(x, h2, None)
+    assert (n == 1).all() and np.isfinite(y).all()
+    assert _rel(y, golden) < REL and _rel(y, jy) < REL
     np.testing.assert_array_equal(st, _state(jst))
+    h = T // 2
+    y1, st1, n1 = k9w_model(x[:h * M], h2, None)
+    y2, st2, n2 = k9w_model(x[h * M:], h2, st1)
+    assert (n1 == 1).all() and (n2 == 1).all()
+    y12 = np.concatenate([y1, y2], axis=1)
+    assert _rel(y12, golden) < REL and _rel(y12, jy) < REL
+    np.testing.assert_array_equal(st2, _state(jst))
+    _, sp = channelize_plain(torch.from_numpy(x[h * M:]), torch.from_numpy(h2),
+                             torch.from_numpy(st1))
+    np.testing.assert_array_equal(st2, sp.numpy())
 
 
 @pytest.mark.parametrize("M,K,T", [(2048, 8, 16), (64, 40, 64), (4096, 2, 8)])
@@ -195,6 +320,25 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert channelize.launches == 0  # a CPU tensor launches nothing
     with pytest.raises(ValueError, match="samples"):
         channelize(x[:-1], ch.h2)
+
+
+def test_wide_wrapper_takes_card_tensors_only():
+    """K9's wide wrapper launches its kernel or raises: a CPU tensor is
+    refused (only ``channelize`` gives a CPU tensor to the plain version),
+    and nothing is counted; its counter is among the kernel wrappers'
+    (``ops.kernel_wrappers``)."""
+    from pycusdr_tpu_torch import ops
+
+    M, K, T = 2048, 8, 4
+    x = torch.from_numpy(_noise(M * T, 7))
+    h2 = torch.from_numpy(design_prototype(M, K).reshape(K, M).astype(np.float32))
+    before = pch.channelize.launches, pch.channelize_wide.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        pch.channelize_wide(x, h2)
+    assert (pch.channelize.launches, pch.channelize_wide.launches) == before
+    assert ops.kernel_wrappers()["channelize_wide"] is pch.channelize_wide
+    y, st = channelize(x, h2)  # the plain version
+    assert y.shape == (M, T) and st.shape == (K - 1, M)
 
 
 def test_channelizer_from_jax_round_trip():

@@ -1,4 +1,7 @@
-"""K9's fused form (``csrc/channelizer.cu``) modelled in numpy on the CPU.
+"""K9's fused form (``csrc/channelizer.cu``) modelled in numpy on the CPU,
+and the plan and shared-memory accesses of its wide form
+(``csrc/channelizer_wide.cu``; its launch is modelled in
+``tests/test_torch_channelizer.py``).
 
 ``k9_plan`` is a function of (M, K) alone and gives every power-of-two M up
 to 1024 and every K up to 32 a fused launch, the wideband path's shapes
@@ -249,8 +252,125 @@ def test_k9_plan_covers_every_fused_shape(M):
         assert plan["TTP"] == _pad(TT, [(lambda ttp, r, j: j * ttp + r, G)], even=True)
         assert _smem(M, K, plan, plan["form"] == "span") <= SMEM_MAX
         assert (plan["form"] == "span") == (_smem(M, K, plan, True) <= SMEM_MAX)
-    assert pch.k9_plan(M, 33)["form"] == "wide"
+    assert pch.k9_plan(M, 33)["form"] == "wide" and pch.k9_plan(M, 33)["dft"] == "smem"
     assert pch.k9_plan(2048, 8)["form"] == "wide"
+
+
+WIDE_MS = [1 << e for e in range(15)]
+
+
+def _wide_smem(M, K, lay, span):
+    """Bytes of a wide-form CTA's shared memory (``wide_smem``): every pass's
+    twiddles, the resident taps (span, TR = 1), the padded row tile, two
+    chunk buffers (rows C apart; span, TR = 0: the chunk's taps)."""
+    NT, MB, TT, C, TR, KS = lay
+    tw, ns = 0, 1
+    for R in pch.k9_radices(M):
+        tw += 0 if ns == 1 else (R - 1) * (ns if ns <= 16 else 16 + ns // 16)
+        ns *= R
+    taps = lambda n: 2 * ((n + 3) // 4)  # noqa: E731
+    rows = (((TT + K - 1) if span else TT) * C + 1) & ~1
+    chunk = rows + (taps(K * C) if span and not TR else 0)
+    return 8 * (((tw + 1) & ~1) + (taps(K * M) if span and TR else 0)
+                + ((TT * M + (TT * M >> 4) + 2) & ~1) + 2 * chunk)
+
+
+def _wide_budget(MB):
+    """An SM's MB-th share of its 228 KB for one CTA, at most 227 KB."""
+    return min(233472 // MB - 1024, SMEM_MAX)
+
+
+@pytest.mark.parametrize("M", WIDE_MS)
+def test_k9_wide_plan_every_row(M):
+    """The wide form's plan at every M of its table (``kWideLayouts``, read
+    from the source): a function of (M, K) alone; the form "wide" at K = 33
+    and, above M = 1024, at every K; the span stage up to the row's KS taps
+    and the rows stage above, KS the most taps whose spans fit the row's
+    share of an SM; the chunk divides the row, a FIR job's R rows (4 under
+    the 64-register bound, else 8) the tile, the Stockham radices multiply to
+    M, at most 16 values a pass a thread (32 under 128 registers), and from
+    M = 2048 to 4096 whole 32-byte sectors a run."""
+    lay = pch.k9_wide_layouts()[M]
+    NT, MB, TT, C, TR, KS = lay
+    assert _wide_smem(M, KS, lay, True) <= _wide_budget(MB) < _wide_smem(M, KS + 1, lay, True)
+    assert _wide_smem(M, 1, lay, False) <= _wide_budget(MB)
+    Ks = sorted({2, 33, KS, KS + 1} | ({1, 8} if M > pch.K9_FUSED_MAX_M else set()))
+    for K in (k for k in Ks if k >= 1 and not pch.k9_fused(M, k)):
+        plan = pch.k9_plan(M, K)
+        pch.k9_plan.cache_clear()
+        assert pch.k9_plan(M, K) == plan
+        R = min(TT, 4 if NT * MB >= 1024 else 8)
+        assert plan["form"] == "wide" and plan["dft"] == "smem"
+        assert plan["stage"] == ("span" if K <= KS else "rows")
+        assert (plan["NT"], plan["MB"], plan["TT"], plan["C"], plan["TR"]) == (NT, MB, TT, C, TR)
+        assert M % C == 0 and plan["chunks"] == M // C and TT % R == 0 and plan["R"] == R
+        assert plan["jobs"] == C * TT // R
+        assert np.prod(plan["radices"]) == M and all(r in (2, 4, 8, 16) for r in plan["radices"])
+        assert plan["values"] == TT * M // NT <= (16 if NT * MB >= 1024 else 32)
+        assert plan["run_bytes"] == 8 * TT and (plan["run_bytes"] >= 32 or M > 4096)
+    if M > pch.K9_FUSED_MAX_M:
+        assert pch.k9_plan(M, 8)["form"] == "wide"
+
+
+def test_k9_plan_split_above_the_wide_form():
+    """Above the wide form's largest M (16384) the split form: the FIR kernel,
+    then cuFFT across the branches."""
+    assert pch.k9_wide_max_m() == max(WIDE_MS) == 16384
+    assert pch.k9_plan(32768, 8) == {"form": "split", "dft": "cuFFT"}
+    assert pch.k9_plan(16384, 200)["form"] == "wide"
+
+
+def _half_warp_wavefronts(addrs):
+    """Wavefronts of one 8-byte shared-memory access of a warp's lanes at
+    complex ``addrs``: over its two half warps, the most lanes on one pair of
+    banks (16 complex a row of banks)."""
+    return sum(int(np.bincount(np.asarray(addrs[h:h + 16]) % 16, minlength=16).max())
+               for h in (0, 16) if len(addrs) > h)
+
+
+def _wide_access_costs(M):
+    """The wide kernel's 8-byte shared-memory accesses by warp 0, padded
+    (``pad``): each pass's reads and writes (the last pass channel-major),
+    the FIR's writes of v and reads of the staged chunk, the store's reads;
+    {access: worst wavefronts}."""
+    NT, MB, TT, C, TR, KS = pch.k9_wide_layouts()[M]
+    pad = lambda i: i + (i >> 4)  # noqa: E731
+    lanes = np.arange(32)
+    out, ns = {}, 1
+    for R in pch.k9_radices(M):
+        NB = M // R
+        u = lanes[lanes < TT * NB]
+        row, j = u // NB, u % NB
+        k = j % ns
+        last = ns * R == M
+        out[f"pass {R}/{ns} read"] = max(_half_warp_wavefronts(pad(row * M + j + r * NB))
+                                         for r in range(R))
+        out[f"pass {R}/{ns} write"] = max(_half_warp_wavefronts(pad(
+            (j + r * ns) * TT + row if last else row * M + (j - k) * R + k + r * ns))
+            for r in range(R))
+        ns *= R
+    R = min(TT, 4 if NT * MB >= 1024 else 8)
+    u = lanes[lanes < C * (TT // R)]
+    p, q0 = u % C, u // C * R
+    out["fir write"] = max(_half_warp_wavefronts(pad((q0 + i) * M + p)) for i in range(R))
+    out["fir read"] = _half_warp_wavefronts(q0 * C + p)
+    out["store read"] = _half_warp_wavefronts(pad(lanes // C * M + lanes % C))
+    return out
+
+
+@pytest.mark.parametrize("M", WIDE_MS)
+def test_wide_accesses_bank_conflicts(M):
+    """The wide kernel's shared-memory accesses, modelled: from M = 256 up
+    every one takes the two wavefronts an 8-byte warp access needs (no bank
+    conflict); below, each pass's reads still do, and the last pass's
+    channel-major writes and the FIR of chunks narrower than 16 branches
+    take at most 8 a half warp."""
+    costs = _wide_access_costs(M)
+    if M >= 256:
+        assert all(v == 2 for v in costs.values()), costs
+    else:
+        assert all(v == 2 for k, v in costs.items() if k.endswith("read") and "pass" in k), costs
+        assert max(costs.values()) <= 8 * 2, costs
 
 
 @pytest.mark.parametrize("M,K", [(64, 8), (4, 8)])

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``pycusdr_tpu_torch`` (the runtime, the RPC server and the config loader
-among them), the module-level code of ``chip_smoke.py`` and running
+among them), the module-level code of ``chip_smoke.py`` and
+``chip_k9_phases.py`` and running
 ``python -m pycusdr_tpu_torch --help``, ``python -m
 pycusdr_tpu_torch.control.hamlib_daemon --help`` and each station harness's
 and the software front end's ``--help`` load neither ``jax`` nor the JAX
@@ -25,6 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(pycusdr_tpu_torch.__path__, "pycu
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import chip_k9_phases
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib" or n.startswith("jaxlib.")
              or n == "pycusdr_tpu" or n.startswith("pycusdr_tpu."))

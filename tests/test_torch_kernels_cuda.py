@@ -753,15 +753,17 @@ K9_CARD = [(M, K, _k9_t(M, K, kind)) for M in (1, 2, 4, 8, 64, 256, 1024) for K 
 
 
 @pytest.mark.parametrize("M,K,T", [(64, 8, 4096), (8, 4, 1001), (1024, 32, 40), (1, 3, 7),
-                                   (2048, 8, 16), (64, 40, 64), (4096, 2, 8)] + K9_CARD)
+                                   (2048, 8, 16), (64, 40, 64), (4096, 2, 8), (16384, 8, 5),
+                                   (64, 40, 16), (32768, 3, 4)] + K9_CARD)
 @pytest.mark.parametrize("with_state", [True, False])
 def test_channelize(cuda, M, K, T, with_state):
     """K9 against its plain version: y within 1e-5 of max|y| (the DFT in
     registers against cuFFT), the carry equal (written by the fused kernel);
     a ragged last tile, T < K - 1 (the carry holds old state rows), T = 2^16,
-    every fused M from 1 to 1024 at K = 1, 8 and 32 (both plan forms), and
-    the wide form at (2048, 8), (64, 40) and (4096, 2); the stream split in
-    halves through the carry within 1e-5 of one call, the carry after them
+    every fused M from 1 to 1024 at K = 1, 8 and 32 (both plan forms), the
+    wide form at (2048, 8), (64, 40), (4096, 2), the largest M (16384) and T
+    < K - 1, and the split form (32768, 3); the stream split in halves
+    through the carry within 1e-5 of one call, the carry after them
     equal."""
     rng = np.random.RandomState(M + K + T)
     x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
@@ -782,26 +784,64 @@ def test_channelize(cuda, M, K, T, with_state):
         assert torch.equal(s2, sp)
 
 
-@pytest.mark.parametrize("M,K", [(64, 8), (4, 8), (1024, 8)])
+def _k9w_cases():
+    """The wide form at every row of its table: K = 2, 33 and one past the
+    row's span stage (the rows stage), T a ragged three tiles and T < K - 1."""
+    out = []
+    for M, (NT, MB, TT, C, TR, KS) in pch.k9_wide_layouts().items():
+        for K in sorted({2, 33, KS + 1}):
+            out += [(M, K, 3 * TT + 7), (M, K, max(1, K - 3))]
+    return out
+
+
+@pytest.mark.parametrize("M,K,T", _k9w_cases())
+def test_channelize_wide_every_row(cuda, M, K, T):
+    """K9's wide kernel forced at every M of its table, in the span and the
+    rows stage, against the plain version with a random carry: y within 1e-5
+    of max|y|, the carry equal, two halves through the carry within 1e-5."""
+    rng = np.random.RandomState(M + K + T)
+    x = torch.from_numpy((rng.randn(T * M) + 1j * rng.randn(T * M)).astype(np.complex64)).to(cuda)
+    h2 = torch.from_numpy(rng.randn(K, M).astype(np.float32)).to(cuda)
+    st = torch.from_numpy((rng.randn(K - 1, M) + 1j * rng.randn(K - 1, M))
+                          .astype(np.complex64)).to(cuda)
+    yk, sk = pch.channelize_wide(x, h2, st)
+    yp, sp = pch.channelize_plain(x, h2, st)
+    torch.cuda.synchronize()
+    assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert torch.equal(sk, sp)
+    if T >= 2:
+        h = T // 2 * M
+        y1, s1 = pch.channelize_wide(x[:h], h2, st)
+        y2, s2 = pch.channelize_wide(x[h:], h2, s1)
+        torch.cuda.synchronize()
+        assert float((torch.cat([y1, y2], 1) - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+        assert torch.equal(s2, sp)
+
+
+@pytest.mark.parametrize("M,K", [(64, 8), (4, 8), (1024, 8), (2048, 8), (64, 40), (4096, 2)])
 def test_channelize_one_launch(cuda, M, K):
-    """A fused-form K9 call (the wideband shape, the vote's, a direct-form
-    one) is one launch of the fused kernel and nothing else on the card: no
-    copy of the carry (torch.profiler), and the counter counts one."""
+    """A K9 call in the fused form (the wideband shape, the vote's, a
+    direct-form one) or the wide form ((2048, 8), (64, 40), (4096, 2)) is
+    one launch of its kernel and nothing else on the card: no FFT, no
+    transpose, no copy of the carry (torch.profiler); ``channelize``'s
+    counter counts one, ``channelize_wide``'s one for the wide form."""
     T = 2 ** 12
     x = torch.randn(T * M, dtype=torch.complex64, device=cuda)
     ch = pch.Channelizer(M, K, device=cuda)
     st = torch.randn(K - 1, M, dtype=torch.complex64, device=cuda)
     ch(x, st)
     torch.cuda.synchronize()
-    before = pch.channelize.launches
+    wide = pch.k9_plan(M, K)["form"] == "wide"
+    before = pch.channelize.launches, pch.channelize_wide.launches
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         ch(x, st)
         torch.cuda.synchronize()
-    assert pch.channelize.launches == before + 1
+    assert (pch.channelize.launches, pch.channelize_wide.launches) == (
+        before[0] + 1, before[1] + wide)
     ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert [e.count for e in ev] == [1] and "channelize" in ev[0].key, \
-        [(e.key, e.count) for e in ev]
+    name = "channelize_wide<" if wide else "channelize<"
+    assert [e.count for e in ev] == [1] and name in ev[0].key, [(e.key, e.count) for e in ev]
 
 
 def test_channelize_halves_equal_one_shot(cuda):
