@@ -23,6 +23,7 @@ import time
 import numpy as np
 
 from pycusdr_tpu_torch import native
+from pycusdr_tpu_torch.obs.profiling import traced
 from pycusdr_tpu_torch.protocol.base import PacketEndDetect
 
 log = logging.getLogger(__name__)
@@ -80,6 +81,7 @@ class Decoder:
 
     # ------------------------------------------------------------------
 
+    @traced("decode.frames")
     def findFrames(self, bits_raw, frameStartIdx, trust=None, debugMode=False):
         """Returns (packets, preprocessed bits, numSyncSig).
 

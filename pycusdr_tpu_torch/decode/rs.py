@@ -14,6 +14,8 @@ with primitive polynomial x^8+x^4+x^3+x^2+1 (0x11D).
 
 import numpy as np
 
+from pycusdr_tpu_torch.obs.profiling import traced
+
 
 class RSError(ValueError):
     """Uncorrectable codeword."""
@@ -104,6 +106,7 @@ class RSCodec:
     def _syndromes(self, cw):
         return [self.gf.poly_eval(cw, self.gf.exp[(self.fcr + i) % 255]) for i in range(self.nsym)]
 
+    @traced("decode.rs")
     def decode(self, codeword):
         """Return (corrected message, n_errors). Raises RSError if
         uncorrectable."""

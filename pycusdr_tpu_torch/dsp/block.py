@@ -38,6 +38,7 @@ import torch
 
 from pycusdr_tpu_torch.convert import DeviceConsts
 from pycusdr_tpu_torch.dsp.spec import DemodSpec
+from pycusdr_tpu_torch.obs.profiling import span
 from pycusdr_tpu_torch.ops import _lib
 from pycusdr_tpu_torch.ops.demod_kernels import (
     clip_halfwidth,
@@ -140,55 +141,67 @@ def _process_rows(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
                   centre: torch.Tensor = None) -> torch.Tensor:
     """The kernel path on a (B, N) complex64 batch; returns the (B, L)
     rows, written into ``row`` when given. ``centre``: None or the (B,)
-    int32 grid recentre that K1 and K5 take."""
+    int32 grid recentre that K1 and K5 take. Each stage runs in a span of
+    its own (``graph.<stage>``), timed on the stream on a CUDA device."""
     M = spec.num_masks
+    timed = x.is_cuda
     if row is None:
         row = torch.empty((x.shape[0], packed_len(spec)), dtype=torch.float32, device=x.device)
     tail = row[:, len(PACK_ARRAYS) * spec.numSymMax:]
     hits = clipped_any = None
     if not spec.disable_peak_thresholding:
-        x, hits, clipped_any = threshold_input(x, c.threshold_scale)
+        with span("graph.clip", device=timed):
+            x, hits, clipped_any = threshold_input(x, c.threshold_scale)
 
-    S = torch.fft.fft(x)
-    if spec.doppler_search:
-        P = S.real * S.real + S.imag * S.imag
-        E = doppler_energy(P, c.Q, c.shifts, centre)
-        shift = doppler_estimate(E, P, c.shifts, c.shifts_signed, c.hz_lut,
-                                 **_k5_kwargs(spec, centre), tail=tail)[-1]
-    else:
-        tail[:, SCALAR["dopp_idx"]:] = fixed_tail  # the one fill of the STX path
-        shift = c.fixed_shift
-
+    with span("graph.fft", device=timed):
+        S = torch.fft.fft(x)
     off = spec.code_search_mask_offset
-    colsum, colmax, colarg = mf_bank_colreduce(S, c.masks_f, shift, off, M - off, tw=c.tw)
-    spSym, codeOffset, code_val = timing_band(colsum, spec.code_idx_lo, spec.code_idx_hi,
-                                              tw=c.tw)
-    k4 = dict(_k4_kwargs(spec, c), hits=hits, row=row, code_val=code_val,
-              clipped_any=clipped_any)
-    if c.bitLUT is None:  # K4 and the NRZ-S bits (K4n) in one launch
-        symbol_detect_nrzs(colmax, colarg, spSym, codeOffset, c.symbolLUT, **k4)
-    else:
-        symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **k4)
+    if spec.doppler_search:
+        with span("graph.doppler", device=timed):
+            P = S.real * S.real + S.imag * S.imag
+            E = doppler_energy(P, c.Q, c.shifts, centre)
+            shift = doppler_estimate(E, P, c.shifts, c.shifts_signed, c.hz_lut,
+                                     **_k5_kwargs(spec, centre), tail=tail)[-1]
+    with span("graph.mask_bank", device=timed):
+        if not spec.doppler_search:  # the fixed shift: the one fill of the STX path
+            tail[:, SCALAR["dopp_idx"]:] = fixed_tail
+            shift = c.fixed_shift
+        colsum, colmax, colarg = mf_bank_colreduce(S, c.masks_f, shift, off, M - off, tw=c.tw)
+    with span("graph.timing", device=timed):
+        spSym, codeOffset, code_val = timing_band(colsum, spec.code_idx_lo, spec.code_idx_hi,
+                                                  tw=c.tw)
+    with span("graph.centres", device=timed):
+        k4 = dict(_k4_kwargs(spec, c), hits=hits, row=row, code_val=code_val,
+                  clipped_any=clipped_any)
+        if c.bitLUT is None:  # K4 and the NRZ-S bits (K4n) in one launch
+            symbol_detect_nrzs(colmax, colarg, spSym, codeOffset, c.symbolLUT, **k4)
+        else:
+            symbol_detect(colmax, colarg, spSym, codeOffset, c.bitLUT, **k4)
     return row
 
 
 def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
                    centre: torch.Tensor = None) -> dict:
-    """The plain path on a (B, N) complex64 batch; returns the batched dict."""
+    """The plain path on a (B, N) complex64 batch; returns the batched dict,
+    in the kernel path's stage spans."""
     D, M = spec.D, spec.num_masks
     B = x.shape[0]
     dev = x.device
+    timed = x.is_cuda
     clip = not spec.disable_peak_thresholding
     if clip:
-        x, hit2 = threshold_input_plain(x, c.threshold_scale)
+        with span("graph.clip", device=timed):
+            x, hit2 = threshold_input_plain(x, c.threshold_scale)
 
-    S = torch.fft.fft(x)
+    with span("graph.fft", device=timed):
+        S = torch.fft.fft(x)
     if spec.doppler_search:
-        P = S.real * S.real + S.imag * S.imag
-        E = doppler_energy_plain(P, c.Q, c.shifts, centre)
-        dopp_idx, quality_db, doppler_hz, freq_offset_hz, snr_db, shift = \
-            doppler_estimate_plain(E, P, c.shifts, c.shifts_signed, c.hz_lut,
-                                   **_k5_kwargs(spec, centre))
+        with span("graph.doppler", device=timed):
+            P = S.real * S.real + S.imag * S.imag
+            E = doppler_energy_plain(P, c.Q, c.shifts, centre)
+            dopp_idx, quality_db, doppler_hz, freq_offset_hz, snr_db, shift = \
+                doppler_estimate_plain(E, P, c.shifts, c.shifts_signed, c.hz_lut,
+                                       **_k5_kwargs(spec, centre))
     else:
         E = torch.zeros((B, D, M), dtype=torch.float32, device=dev)
         dopp_idx = quality_db = doppler_hz = freq_offset_hz = snr_db = \
@@ -196,18 +209,22 @@ def _process_plain(x: torch.Tensor, spec: DemodSpec, c: DeviceConsts,
         shift = c.fixed_shift.expand(B)
 
     off = spec.code_search_mask_offset
-    colsum, colmax, colarg = mf_bank_colreduce_plain(S, c.masks_f, shift, off, M - off)
-    spSym, codeOffset, code_val = timing_band_plain(colsum, spec.code_idx_lo, spec.code_idx_hi)
-    clip_mask = (dilate_mask_plain(hit2, clip_halfwidth(spSym, spec.spsymMin))
-                 if clip else None)
-    symbols, centres, mags, bits, trust, nSym = symbol_detect_plain(
-        colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
-        clip_mask=clip_mask)[:6]
-    nBits = nSym
-    if c.bitLUT is None:
-        bits, err = nrzs_bits_plain(symbols, c.symbolLUT)
-        trust = nrzs_trust_plain(trust, err)
-        nBits = nSym - 1
+    with span("graph.mask_bank", device=timed):
+        colsum, colmax, colarg = mf_bank_colreduce_plain(S, c.masks_f, shift, off, M - off)
+    with span("graph.timing", device=timed):
+        spSym, codeOffset, code_val = timing_band_plain(colsum, spec.code_idx_lo,
+                                                        spec.code_idx_hi)
+    with span("graph.centres", device=timed):
+        clip_mask = (dilate_mask_plain(hit2, clip_halfwidth(spSym, spec.spsymMin))
+                     if clip else None)
+        symbols, centres, mags, bits, trust, nSym = symbol_detect_plain(
+            colmax, colarg, spSym, codeOffset, c.bitLUT, **_k4_kwargs(spec, c),
+            clip_mask=clip_mask)[:6]
+        nBits = nSym
+        if c.bitLUT is None:
+            bits, err = nrzs_bits_plain(symbols, c.symbolLUT)
+            trust = nrzs_trust_plain(trust, err)
+            nBits = nSym - 1
 
     return {
         "bits": bits, "trust": trust, "symbols": symbols, "centres": centres,
@@ -260,21 +277,25 @@ def build_process_batch(spec: DemodSpec, device=None, packed: bool = False,
     dev = _lib.resolve_device(device)
     consts = DeviceConsts.from_spec(spec, dev)
     fixed_tail = None if spec.doppler_search else _fixed_tail(spec, dev)
+    timed = dev.type == "cuda"
 
     def process(blocks, row=None, centre_shift=None):
-        x = torch.as_tensor(blocks).to(dev, torch.complex64).contiguous()
-        if x.dim() != 2 or x.shape[1] != spec.Nfft:
-            raise ValueError(f"expected (B, {spec.Nfft}) blocks, got {tuple(x.shape)}")
-        if row is not None and (not packed or tuple(row.shape) != (x.shape[0], packed_len(spec))):
-            raise ValueError("row: needs packed=True and shape (B, L)")
-        centre = _centre(centre_shift, x.shape[0], dev) if spec.doppler_search else None
-        if plain:
-            out = _process_plain(x, spec, consts, centre)
-            if not packed:
-                return out
-            return pack_block_outputs(out) if row is None else row.copy_(pack_block_outputs(out))
-        row = _process_rows(x, spec, consts, fixed_tail, row=row, centre=centre)
-        return row if packed else unpack_rows(row, spec)
+        with span("graph", device=timed):
+            x = torch.as_tensor(blocks).to(dev, torch.complex64).contiguous()
+            if x.dim() != 2 or x.shape[1] != spec.Nfft:
+                raise ValueError(f"expected (B, {spec.Nfft}) blocks, got {tuple(x.shape)}")
+            if row is not None and (not packed
+                                    or tuple(row.shape) != (x.shape[0], packed_len(spec))):
+                raise ValueError("row: needs packed=True and shape (B, L)")
+            centre = _centre(centre_shift, x.shape[0], dev) if spec.doppler_search else None
+            if plain:
+                out = _process_plain(x, spec, consts, centre)
+                if not packed:
+                    return out
+                return (pack_block_outputs(out) if row is None
+                        else row.copy_(pack_block_outputs(out)))
+            row = _process_rows(x, spec, consts, fixed_tail, row=row, centre=centre)
+            return row if packed else unpack_rows(row, spec)
 
     process.device = dev
     return process

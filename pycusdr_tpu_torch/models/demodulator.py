@@ -24,6 +24,7 @@ from pycusdr_tpu_torch.dsp.block import (
 )
 from pycusdr_tpu_torch.dsp.spec import DemodSpec, build_spec
 from pycusdr_tpu_torch.models.healing import BlockHealer
+from pycusdr_tpu_torch.obs.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -35,20 +36,23 @@ SYMBOL_CHECK_MATCH_NUM_ERRORS_ALLOWED = 10
 
 def start_download(vec: torch.Tensor):
     """Queue ONE device-to-host copy of a packed result into pinned memory
-    (nothing to do for a CPU tensor); ``finish_download`` waits for it."""
+    (nothing to do for a CPU tensor); ``finish_download`` waits for it.
+    Spans: ``download.start`` here, ``download.wait`` there."""
     if vec.device.type != "cuda":
         return vec, None
-    out = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
-    out.copy_(vec, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with span("download.start"):
+        out = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+        out.copy_(vec, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
     return out, done
 
 
 def finish_download(pending) -> np.ndarray:
     out, done = pending
     if done is not None:
-        done.synchronize()
+        with span("download.wait"):
+            done.synchronize()
     return out.numpy()
 
 
@@ -119,12 +123,13 @@ class Demodulator:
         t = torch.from_numpy(np.ascontiguousarray(host, dtype=np.complex64))
         if not self._cuda:
             return t
-        if staging is None:
-            staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        else:
-            staging = staging[:t.numel()].view(t.shape)
-        staging.copy_(t)
-        return staging.to(self.device, non_blocking=True)
+        with span("upload"):
+            if staging is None:
+                staging = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            else:
+                staging = staging[:t.numel()].view(t.shape)
+            staging.copy_(t)
+            return staging.to(self.device, non_blocking=True)
 
     # ---------------- reference-parity public API ----------------
 

@@ -26,6 +26,8 @@ import logging
 
 import numpy as np
 
+from pycusdr_tpu_torch.obs.profiling import traced
+
 log = logging.getLogger(__name__)
 
 SYMBOL_CHECK_OVERLAP_OFFSET = 20
@@ -51,6 +53,7 @@ class BlockHealer:
         self.posSymEnd = np.array([], dtype=np.int8)
         self.lastCentre = None  # the prev block's last emitted centre (its samples)
 
+    @traced("heal")
     def heal(self, noError, centres, idxSymbol, dataBits, trustSymbol, spSym=None):
         """Select the non-overlap window and repair the boundary.
         ``spSym``: the block's samples a symbol; where the half overlap

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from pycusdr_tpu_torch.obs.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -206,14 +208,16 @@ def ptr(t) -> int:
 
 def launch(name: str, *args, stream: int = None) -> None:
     """Call C entry point ``name`` on ``stream`` (a raw CUDA stream handle;
-    default the current stream); raise on error."""
-    L = lib()
-    if stream is None:
-        stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(L, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: "
-                           f"{L.pycusdr_error_string(err).decode()}")
+    default the current stream); raise on error. Runs in a ``launch``
+    span."""
+    with span("launch"):
+        L = lib()
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(L, name)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}: "
+                               f"{L.pycusdr_error_string(err).decode()}")
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:

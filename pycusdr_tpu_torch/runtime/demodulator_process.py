@@ -14,9 +14,10 @@ INSIDE the child process, as the reference's per-process CUDA context
 ``globals.torch_device`` names (the card unless ``PYCUSDR_TORCH_DEVICE``
 says "cpu") and reports it in ``device``, and its kernel launches since
 it was warm in ``launches`` (``ops.launch_counts``, published after every
-block it ships, with the count of those blocks in ``blocks``), and its
-``native.AVAILABLE`` and native and numpy calls (the SigFIFO ring's
-inserts among them) in ``native_counts``.
+block it ships, with the count of those blocks in ``blocks`` and the card
+memory it holds in ``card_memory``), and its ``native.AVAILABLE`` and
+native and numpy calls (the SigFIFO ring's inserts among them) in
+``native_counts``.
 """
 
 import logging
@@ -55,6 +56,19 @@ def _resolve_backend(name):
     from pycusdr_tpu_torch import models
 
     return getattr(models, name)
+
+
+#: the card memory a child publishes (``Demodulator_process.card_memory``)
+CARD_MEMORY = ("reserved", "max_allocated")
+
+
+def card_memory() -> dict:
+    """This process's card memory in bytes: its allocator's reservation and
+    its tensors' peak."""
+    import torch
+
+    return {"reserved": int(torch.cuda.memory_reserved()),
+            "max_allocated": int(torch.cuda.max_memory_allocated())}
 
 
 def child_device(device_value):
@@ -155,9 +169,10 @@ class Demodulator_process(Process):
         self.subscribeGate = Event()
         self.subscribeGate.set()
         self._device = Array("c", 16)  # the child's torch device type
-        # the child's kernel launches since it was warm, then its blocks shipped
+        # the child's kernel launches since it was warm, then its blocks
+        # shipped, then its card memory (``card_memory``)
         self._kernels = tuple(ops.kernel_wrappers())
-        self._launches = Array("q", len(self._kernels) + 1)
+        self._launches = Array("q", len(self._kernels) + 1 + len(CARD_MEMORY))
         self._native = native.shared_counts(_mp)
         self.logLevel = log.getEffectiveLevel()
         log.info("[%s]: Demodulator process initialized", radio)
@@ -187,16 +202,32 @@ class Demodulator_process(Process):
         return self._launches[len(self._kernels)]
 
     @property
+    def card_memory(self) -> dict:
+        """The child's card memory in bytes when it last shipped a block:
+        ``reserved`` (``torch.cuda.memory_reserved``, what its allocator
+        holds) and ``max_allocated`` (``torch.cuda.max_memory_allocated``,
+        its tensors' peak); 0 on the CPU. In a container every process can
+        read as the same pid to ``nvidia-smi``, so the child publishes them."""
+        at = len(self._kernels) + 1
+        return dict(zip(CARD_MEMORY, self._launches[at:at + len(CARD_MEMORY)]))
+
+    @property
     def native_counts(self) -> dict:
         """The child's ``native.AVAILABLE`` and its native and numpy calls
         of each binding (``native.read``), published with ``launches``."""
         return native.read(self._native)
 
     def _publish_launches(self, counts: dict) -> None:
+        """Publish ``counts`` (kernel name -> launches), one more block
+        shipped, and the card memory."""
+        memory = card_memory() if self.device == "cuda" else dict.fromkeys(CARD_MEMORY, 0)
         with self._launches.get_lock():
             for i, name in enumerate(self._kernels):
                 self._launches[i] = counts[name]
-            self._launches[len(self._kernels)] += 1
+            at = len(self._kernels)
+            self._launches[at] += 1
+            for i, key in enumerate(CARD_MEMORY):
+                self._launches[at + 1 + i] = memory[key]
         native.publish(self._native)
 
     @property

@@ -585,3 +585,26 @@ def test_child_launch_counts_cover_every_kernel():
     d._publish_launches(counts)
     assert d.launches == counts and d.blocks == 2
 
+
+
+def test_child_card_memory_is_published_with_its_launches(monkeypatch):
+    """``Demodulator_process.card_memory`` holds what the child last
+    published beside its launches: 0 on the CPU, the allocator's figures on
+    the card (``torch.cuda`` stubbed here)."""
+    import torch
+
+    from pycusdr_tpu_torch import ops
+    from pycusdr_tpu_torch.runtime.demodulator_process import Demodulator_process
+
+    d = Demodulator_process(_three_station_conf(18695), None, "UHF-H")
+    counts = {name: i for i, name in enumerate(ops.kernel_wrappers())}
+    assert d.card_memory == {"reserved": 0, "max_allocated": 0}
+    d._device.value = b"cpu"
+    d._publish_launches(counts)
+    assert d.card_memory == {"reserved": 0, "max_allocated": 0}
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 3 << 30)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 5 << 20)
+    d._device.value = b"cuda"
+    d._publish_launches(counts)
+    assert d.card_memory == {"reserved": 3 << 30, "max_allocated": 5 << 20}
+    assert d.launches == counts and d.blocks == 2

@@ -21,6 +21,7 @@ within 1e-3, Doppler within 1 Hz, SNR within 0.5 dB.
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -318,15 +319,20 @@ def test_custom_xcorr_torch_matches_jax(n):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    from pycusdr_tpu_torch.obs.profiling import StageTimer, device_trace
+    """The named-stage timing ``StageTimer`` gave, now from the tracer's
+    spans: three spans of one name counted with a median, inside
+    ``device_trace``, which writes ``trace.json`` and ``spans.json``."""
+    from pycusdr_tpu_torch.obs import profiling
     from pycusdr_tpu_torch.utils.device_info import device_inventory
 
-    timer = StageTimer()
-    for _ in range(3):
-        with timer("fft"):
-            torch.fft.fft(torch.ones(64, dtype=torch.complex64))
-    assert timer.counts == {"fft": 3} and timer.mean("fft") > 0 and "fft" in timer.report()
-    with device_trace(str(tmp_path)):
-        torch.fft.fft(torch.ones(64, dtype=torch.complex64))
+    profiling.reset()
+    with profiling.device_trace(str(tmp_path)):
+        for _ in range(3):
+            with profiling.span("fft"):
+                torch.fft.fft(torch.ones(64, dtype=torch.complex64))
+    s = profiling.summary()
+    profiling.reset()
+    assert s["fft"]["count"] == 3 and s["fft"]["host_ms_p50"] > 0
     assert (tmp_path / "trace.json").stat().st_size > 0
+    assert json.loads((tmp_path / "spans.json").read_text())["spans"]["fft"]["count"] == 3
     assert len(device_inventory()) == torch.cuda.device_count()
